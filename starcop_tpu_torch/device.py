@@ -14,6 +14,7 @@ turn it off while they run.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator, Optional, Union
 
 import torch
@@ -31,13 +32,29 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+# The TF32 switches are process-wide, and the serving pipeline enters the
+# block from several worker threads at once: the first entry saves and turns
+# them off, the last exit restores them.
+_PRECISION_LOCK = threading.Lock()
+_precision = {"depth": 0, "saved": None}
+
+
 @contextlib.contextmanager
 def float32_precision() -> Iterator[None]:
-    """Turn TF32 off for matmuls and cuDNN convolutions inside the block."""
-    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """Turn TF32 off for matmuls and cuDNN convolutions inside the block
+    (thread-safe; blocks may nest or overlap across threads)."""
+    with _PRECISION_LOCK:
+        if _precision["depth"] == 0:
+            _precision["saved"] = (torch.backends.cuda.matmul.allow_tf32,
+                                   torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _precision["depth"] += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+        with _PRECISION_LOCK:
+            _precision["depth"] -= 1
+            if _precision["depth"] == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _precision["saved"]

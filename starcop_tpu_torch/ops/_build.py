@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -25,6 +26,7 @@ BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("mag1c.cu", "bindings.cpp")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 LIB_NAME = "libstarcop_mag1c.so"
+_LOAD_LOCK = threading.Lock()  # serving workers may reach their first kernel together
 
 
 def _nvcc() -> str:
@@ -88,20 +90,21 @@ def _build_dir(nvcc: str) -> str:
 def load():
     """Build (once per source hash) and load the kernels; returns the
     ``torch.ops.starcop_mag1c`` namespace."""
-    nvcc = _nvcc()
-    out_dir = _build_dir(nvcc)
-    lib = os.path.join(out_dir, LIB_NAME)
-    if not os.path.exists(lib):
-        tmp = f"{out_dir}.tmp{os.getpid()}"
-        os.makedirs(tmp, exist_ok=True)
-        compile_a, compile_b, link = build_commands(nvcc, tmp)
-        log = os.path.join(tmp, "build.log")
-        _run([compile_a, compile_b], log)
-        _run([link], log)
-        shutil.rmtree(out_dir, ignore_errors=True)
-        os.replace(tmp, out_dir)
-    torch.ops.load_library(lib)
-    return torch.ops.starcop_mag1c
+    with _LOAD_LOCK:
+        nvcc = _nvcc()
+        out_dir = _build_dir(nvcc)
+        lib = os.path.join(out_dir, LIB_NAME)
+        if not os.path.exists(lib):
+            tmp = f"{out_dir}.tmp{os.getpid()}"
+            os.makedirs(tmp, exist_ok=True)
+            compile_a, compile_b, link = build_commands(nvcc, tmp)
+            log = os.path.join(tmp, "build.log")
+            _run([compile_a, compile_b], log)
+            _run([link], log)
+            shutil.rmtree(out_dir, ignore_errors=True)
+            os.replace(tmp, out_dir)
+        torch.ops.load_library(lib)
+        return torch.ops.starcop_mag1c
 
 
 def build_log() -> str:

@@ -2,8 +2,8 @@
 
 Counterpart of ``starcop_tpu/ops/mag1c.py``. The plain torch functions here
 (``rmf``, ``acrwl1mf``, the SPD-inverse helpers) restate the JAX math on any
-device; ``mag1c_column_blocks`` runs a whole scene and sends the unmasked
-route to the hand-written CUDA kernels (``ops/mag1c_kernels.py``).
+device; ``mag1c_column_blocks`` runs a whole scene through the hand-written
+CUDA kernels (``ops/mag1c_kernels.py``), with or without a valid mask.
 
 Semantics (pinned against the JAX package and the float64 oracle by
 tests/test_torch_mag1c.py):
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from starcop_tpu_torch.device import DeviceLike, float32_precision, resolve_device
+from starcop_tpu_torch.device import DeviceLike, resolve_device
 
 NODATA = -9999.0
 SCALING = 1e5
@@ -242,54 +242,38 @@ def mag1c_column_blocks(
     Each block of columns keeps its own statistics (a pushbroom sensor's
     detector columns differ), so the batch axis is columns, not tiles.
 
-    Routes:
+    Routes (the hand-written CUDA kernels on the card, their plain twins on
+    the CPU, the same sequence on both):
       * no mask and ``W % column_step == 0``: the resident route,
-        ``acrwl1mf_resident`` -- the hand-written CUDA kernels on the card,
-        their plain twins on the CPU;
-      * a mask or a ragged last block: the plain weighted ``acrwl1mf`` on the
-        CPU. On CUDA this route needs the weighted streaming kernels (K2)
-        that are not ported yet, so it raises ``NotImplementedError``.
+        ``acrwl1mf_resident``;
+      * a mask or a ragged last block (every served granule): the weighted
+        route, ``acrwl1mf_masked``. The mask goes to the kernels as it is;
+        no padded or zeroed copy of the cube is made.
 
     Returns (mf, albedo) as (H, W) float32 tensors on the device, with
     ``fill_value`` at invalid pixels.
     """
+    from starcop_tpu_torch.ops.mag1c_kernels import acrwl1mf_masked, acrwl1mf_resident
+
     dev = resolve_device(device)
     h, w_dim, s = scene.shape
     step = int(column_step) if column_step else w_dim
     nb = -(-w_dim // step)
-    pad_w = nb * step - w_dim
-    resident = valid_mask is None and pad_w == 0
-    if not resident and dev.type == "cuda":
-        raise NotImplementedError(
-            "mag1c_column_blocks with a valid mask or a width that is not a multiple of "
-            "column_step needs the weighted streaming kernels (K2 in ROADMAP.md), which "
-            "are not ported yet; on CUDA only the unmasked route runs"
-        )
     x = torch.as_tensor(scene, dtype=torch.float32, device=dev)
     tpl = torch.as_tensor(template, dtype=torch.float32, device=dev)
 
-    if resident:
-        from starcop_tpu_torch.ops.mag1c_kernels import acrwl1mf_resident
-
+    if valid_mask is None and nb * step == w_dim:
         mf, albedo = acrwl1mf_resident(x, tpl, nb, step, num_iter=num_iter, alpha=alpha,
                                        device=dev)
         return unblock_columns(mf, h, step), unblock_columns(albedo, h, step)
 
     valid = (torch.ones((h, w_dim), dtype=torch.bool, device=dev) if valid_mask is None
              else torch.as_tensor(valid_mask, dtype=torch.bool, device=dev))
-    if pad_w:
-        x = F.pad(x, (0, 0, 0, pad_w))
-        valid = F.pad(valid, (0, pad_w))
-    wb = block_columns(valid[..., None], nb, step)[..., 0].to(x.dtype)
-    # Zero invalid pixels so fill values cannot reach the statistics.
-    xb = block_columns(x, nb, step) * wb[..., None]
-    with float32_precision():
-        mf, albedo = acrwl1mf(xb, tpl, wb, num_iter=num_iter, alpha=alpha)
-    keep = valid[:, :w_dim]
-    mf2 = unblock_columns(mf[..., 0], h, step)[:, :w_dim]
-    albedo2 = unblock_columns(albedo[..., 0], h, step)[:, :w_dim]
-    fill = torch.tensor(fill_value, dtype=mf2.dtype, device=dev)
-    return torch.where(keep, mf2, fill), torch.where(keep, albedo2, fill)
+    mf, albedo = acrwl1mf_masked(x, tpl, valid, nb, step, num_iter=num_iter, alpha=alpha,
+                                 device=dev)
+    mf2 = unblock_columns(mf, h, step)[:, :w_dim]
+    albedo2 = unblock_columns(albedo, h, step)[:, :w_dim]
+    return torch.where(valid, mf2, fill_value), torch.where(valid, albedo2, fill_value)
 
 
 def reference_oracle_acrwl1mf(

@@ -31,6 +31,16 @@ def _reflect_index(n: int, before: int, after: int, device) -> torch.Tensor:
     return torch.where(m < n, m, 2 * (n - 1) - m)
 
 
+def reflect_pad(tensor: torch.Tensor, pad_r: Tuple[int, int],
+                pad_c: Tuple[int, int]) -> torch.Tensor:
+    """Reflect-pad the last two axes by (before, after) rows and columns.
+    A gather rather than F.pad(mode="reflect"), which refuses pads wider
+    than the axis (a scene under 17 pixels)."""
+    rows = _reflect_index(tensor.shape[-2], *pad_r, tensor.device)
+    cols = _reflect_index(tensor.shape[-1], *pad_c, tensor.device)
+    return tensor[..., rows, :][..., cols]
+
+
 def padded_apply(tensor: torch.Tensor, fn: Callable, divisor: int = 32) -> torch.Tensor:
     """Apply ``fn`` to a (C, H, W) tensor reflect-padded to a multiple of
     ``divisor``. ``fn`` gets a (1, C, H', W') batch and returns (1, K, H', W')
@@ -39,11 +49,7 @@ def padded_apply(tensor: torch.Tensor, fn: Callable, divisor: int = 32) -> torch
         raise ValueError(f"Expected 3D (C, H, W) tensor, found {tensor.ndim}D")
     pad_r = find_padding(tensor.shape[-2], divisor)
     pad_c = find_padding(tensor.shape[-1], divisor)
-    # A gather rather than F.pad(mode="reflect"), which refuses pads wider
-    # than the axis (a scene under 17 pixels).
-    rows = _reflect_index(tensor.shape[-2], *pad_r, tensor.device)
-    cols = _reflect_index(tensor.shape[-1], *pad_c, tensor.device)
-    out = fn(tensor[:, rows][:, :, cols][None])[0]
+    out = fn(reflect_pad(tensor, pad_r, pad_c)[None])[0]
     rows = slice(pad_r[0], None if pad_r[1] <= 0 else -pad_r[1])
     cols = slice(pad_c[0], None if pad_c[1] <= 0 else -pad_c[1])
     if out.ndim == 3:

@@ -190,17 +190,6 @@ def test_column_blocks_masked_ragged_match_jax():
                                  alb.numpy()[~fill], np.asarray(alb_j)[~fill])
 
 
-def test_masked_route_on_cuda_raises(monkeypatch):
-    """Without the K2 kernels the masked/ragged route refuses the card; the
-    refusal comes before anything touches CUDA."""
-    x, tpl = _cube()
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match=r"K2 in ROADMAP\.md"):
-        tm.mag1c_column_blocks(x, tpl, np.ones((H, W), bool), column_step=STEP)
-    with pytest.raises(NotImplementedError, match="weighted streaming kernels"):
-        tm.mag1c_column_blocks(x[:, :45], tpl, None, column_step=STEP, device="cuda")
-
-
 def test_kernel_route_contracts():
     x, tpl = _cube()
     with pytest.raises(ValueError, match="num_iter must be >= 1"):
@@ -214,7 +203,10 @@ def test_kernel_route_contracts():
     want = tk.init_stats_plain(xt, NB, STEP)
     assert torch.equal(m0, want[0]) and torch.equal(c0, want[1])
     tk.acrwl1mf_resident(xt, tpl, NB, STEP, num_iter=2, device="cpu")
-    assert tk.LAUNCH_COUNTS == {"init_stats": 0, "filter_round": 0, "filter_glue": 0}
+    tk.acrwl1mf_masked(xt[:, :45], tpl, np.ones((H, 45), bool), NB, STEP, num_iter=2,
+                       device="cpu")
+    assert set(tk.LAUNCH_COUNTS) >= {"init_stats", "filter_round", "filter_glue"}
+    assert all(v == 0 for v in tk.LAUNCH_COUNTS.values())
 
 
 @pytest.mark.parametrize("mode", [tk.FIRST, tk.LOOP, tk.FINAL])
@@ -254,3 +246,157 @@ def test_build_commands_target_hopper(monkeypatch):
     assert any(a.startswith("-I") for a in compile_cpp)
     assert "-shared" in link and "-ltorch" in link
     assert all(c[0] == "nvcc" for c in cmds)
+
+
+# ---------------------------------------------------------------------------
+# The masked route (TPU kernels 5 and 6): weighted twins against the JAX package
+# ---------------------------------------------------------------------------
+
+
+def _masked_case(empty_block=False):
+    """The direct-swh cube cut to a ragged width (45 = 2 * 16 + 13), with the
+    fill value -9999 in every band at invalid pixels (a rectangle and 1 %
+    scattered) and, if asked, over the whole of block 1."""
+    x, tpl = _cube()
+    x = x[:, :45].copy()
+    valid = np.random.default_rng(7).random((H, 45)) >= 0.01
+    valid[5:9, 3:30] = False
+    if empty_block:
+        valid[:, 16:32] = False
+    x[~valid] = tm.NODATA
+    return x, tpl, valid
+
+
+def _jax_blocks(x, valid):
+    """JAX's (B, P, S) blocks (ops/mag1c.py:616-619, :735-742): padded to
+    nb * step columns, invalid pixels zeroed, and the (B, P) weight rows."""
+    pad = NB * STEP - x.shape[1]
+    xp = np.pad(np.where(valid[..., None], x, 0), ((0, 0), (0, pad), (0, 0)))
+    vp = np.pad(valid, ((0, 0), (0, pad)))
+    xb = xp.reshape(H, NB, STEP, -1).transpose(1, 0, 2, 3).reshape(NB, H * STEP, -1)
+    wb = vp.reshape(H, NB, STEP).transpose(1, 0, 2).reshape(NB, H * STEP)
+    return xb, wb
+
+
+def test_masked_twins_match_pallas_fused_interpret():
+    """The sequence of weighted twins against acrwl1mf_fused(glue="fused")
+    with a weight row, i.e. _first_round_kernel and _loop_round_kernel in
+    interpret mode (the pattern of tests/test_mag1c.py:140-170)."""
+    x, tpl, valid = _masked_case()
+    mf, r = tk.acrwl1mf_masked(x, tpl, valid, NB, STEP, num_iter=4, alpha=1e-4, device="cpu")
+    assert mf.shape == r.shape == (NB, H * STEP)
+    xb, wb = _jax_blocks(x, valid)
+    mf_j, r_j = jp.acrwl1mf_fused(jnp.asarray(xb), jnp.asarray(tpl),
+                                  jnp.asarray(wb, jnp.float32), num_iter=4, alpha=1e-4,
+                                  tile_p=256, interpret=True)
+    keep = wb
+    assert (mf.numpy()[~keep] == 0).all() and (r.numpy()[~keep] == 1).all()
+    _assert_detection_parity(mf.numpy()[keep], np.asarray(mf_j)[..., 0][keep],
+                             r.numpy()[keep], np.asarray(r_j)[..., 0][keep])
+
+
+def test_masked_twins_f64_match_jax_acrwl1mf():
+    """Without shrinkage the rank-2 Woodbury update is exact, so the float64
+    twins reproduce JAX's weighted acrwl1mf (a Cholesky solve per iteration)."""
+    x, tpl, valid = _masked_case()
+    xd, vt, td = torch.from_numpy(x).double(), torch.from_numpy(valid), torch.from_numpy(tpl).double()
+    m0, c0 = tk.init_stats_masked_plain(xd, vt, NB, STEP)
+    base = tk._woodbury_base(c0, m0, td, 0.0)
+    mf, r = tk.masked_filter_plain(xd, vt, NB, STEP, m0, *base, td, num_iter=6, alpha=0.0)
+    xb, wb = _jax_blocks(x.astype(np.float64), valid)
+    mf_j, r_j = jm.acrwl1mf(jnp.asarray(xb), jnp.asarray(tpl, jnp.float64),
+                            jnp.asarray(wb, jnp.float64), num_iter=6, alpha=0.0)
+    np.testing.assert_allclose(r.numpy(), np.asarray(r_j)[..., 0], rtol=1e-6)
+    np.testing.assert_allclose(mf.numpy(), np.asarray(mf_j)[..., 0], rtol=1e-6, atol=1e-3)
+
+
+def test_column_blocks_masked_ragged_match_pallas():
+    """The served route, with one wholly invalid block, against JAX's
+    use_pallas=True, interpret=True: fill where invalid, parity elsewhere."""
+    x, tpl, valid = _masked_case(empty_block=True)
+    kw = dict(column_step=STEP, num_iter=4, alpha=1e-4)
+    mf, alb = tm.mag1c_column_blocks(x, tpl, valid, device="cpu", **kw)
+    mf_j, alb_j = jm.mag1c_column_blocks(jnp.asarray(x), jnp.asarray(tpl), valid,
+                                         use_pallas=True, interpret=True, **kw)
+    mf, alb, mf_j, alb_j = (np.asarray(a) for a in (mf, alb, mf_j, alb_j))
+    np.testing.assert_array_equal(mf == tm.NODATA, ~valid)
+    np.testing.assert_array_equal(alb == tm.NODATA, ~valid)
+    np.testing.assert_array_equal(mf_j == tm.NODATA, ~valid)
+    assert (mf[:, 16:32] == tm.NODATA).all() and np.isfinite(mf).all()
+    _assert_detection_parity(mf[valid], mf_j[valid], alb[valid], alb_j[valid])
+
+
+def test_init_stats_masked_plain_matches_f64():
+    """Mean and centred covariance over the valid pixels of each block (the
+    ragged block's columns below W only); an empty block gets m0 = 0, C0 = 0
+    (n clamped to 1, as JAX's max(sum w, 1))."""
+    x, _, valid = _masked_case(empty_block=True)
+    m0, c0 = tk.init_stats_masked_plain(torch.from_numpy(x).double(), torch.from_numpy(valid),
+                                        NB, STEP)
+    counts = tk.block_valid_counts(torch.from_numpy(valid), NB, STEP)
+    for b in range(NB):
+        cols = slice(b * STEP, min((b + 1) * STEP, 45))
+        px = x[:, cols][valid[:, cols]].astype(np.float64)
+        assert int(counts[b]) == len(px)
+        if not len(px):
+            assert (m0[b] == 0).all() and (c0[b] == 0).all()
+            continue
+        m = px.mean(0)
+        np.testing.assert_allclose(m0[b].numpy(), m, rtol=1e-12)
+        np.testing.assert_allclose(c0[b].numpy(), (px - m).T @ (px - m) / len(px), rtol=1e-9,
+                                   atol=1e-15)
+
+
+def test_glue_twin_takes_n_per_block():
+    """filter_glue_plain with an (nb,) n equals each block's glue with its own n."""
+    rng = np.random.default_rng(5)
+    s, nb = 6, 3
+    a = rng.normal(size=(nb, s, s))
+    k0 = torch.from_numpy(np.linalg.inv(a @ a.transpose(0, 2, 1) + s * np.eye(s)))
+    m0, tpl = torch.from_numpy(rng.uniform(1, 3, (nb, s))), torch.from_numpy(-rng.uniform(0, 1, s))
+    carry = torch.zeros((nb, 4, s), dtype=torch.float64)
+    carry[:, 1] = tpl * m0
+    stats = torch.from_numpy(rng.normal(size=(nb, 2, s + 2)))
+    n = torch.tensor([100.0, 1.0, 37.0], dtype=torch.float64)
+    got = tk.filter_glue_plain(stats, carry, m0, tpl, k0, n=n, alpha=1e-4)
+    for b in range(nb):
+        one = tk.filter_glue_plain(stats[b:b + 1], carry[b:b + 1], m0[b:b + 1], tpl,
+                                   k0[b:b + 1], n=float(n[b]), alpha=1e-4)
+        torch.testing.assert_close(got[b:b + 1], one, rtol=1e-12, atol=0)
+
+
+class _FakeKernels:
+    """Stands in for torch.ops.starcop_mag1c: records each op it is asked
+    for and launches nothing (the outputs stay as the wrapper allocated them)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append(name)
+
+
+def test_masked_route_launches_masked_kernels(monkeypatch):
+    """A masked call on a device tensor (the meta device here; CUDA on the
+    card) takes the masked kernels, 1 / num_iter + 1 / num_iter launches, and
+    none of the resident ones; the unmasked call takes the resident ones.
+    Only CPU tensors run the twins."""
+    fake = _FakeKernels()
+    monkeypatch.setattr(tk, "_kernels", lambda: fake)
+    monkeypatch.setattr(tk, "_stream", lambda x: 0)
+    x, tpl, valid = _masked_case()
+    tk.reset_launch_counts()
+    mf, alb = tm.mag1c_column_blocks(x, tpl, valid, column_step=STEP, num_iter=3, device="meta")
+    assert mf.device.type == alb.device.type == "meta" and mf.shape == (H, 45)
+    assert tk.LAUNCH_COUNTS == {
+        "init_stats": 0, "filter_round": 0, "filter_glue": 3, "init_stats_masked": 1,
+        "filter_round_masked_first": 1, "filter_round_masked_loop": 3}
+    assert fake.calls == (["init_stats_masked"] + ["filter_round_masked", "filter_glue"] * 3
+                          + ["filter_round_masked"])
+    fake.calls.clear()
+    tk.reset_launch_counts()
+    xr, tpl = _cube()
+    tm.mag1c_column_blocks(xr, tpl, None, column_step=STEP, num_iter=3, device="meta")
+    assert tk.LAUNCH_COUNTS["init_stats"] == 1 and tk.LAUNCH_COUNTS["filter_round"] == 4
+    assert tk.LAUNCH_COUNTS["init_stats_masked"] == 0
+    assert fake.calls[0] == "init_stats" and "filter_round_masked" not in fake.calls

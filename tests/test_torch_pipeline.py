@@ -30,6 +30,7 @@ from starcop_tpu_torch.ops import padding as tpad  # noqa: E402
 from starcop_tpu_torch.ops.mag1c import mag1c_column_blocks  # noqa: E402
 from starcop_tpu_torch.ops.mag1c_kernels import acrwl1mf_resident  # noqa: E402
 from starcop_tpu_torch.scenes import emit_pipeline as tpipe  # noqa: E402
+from starcop_tpu_torch.serve.pipeline import emit_serving_pipeline  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 H, W, S, STEP = 128, 48, 12, 16
@@ -62,7 +63,9 @@ def test_granule_to_mask_matches_jax():
     model = SegmentationModel(EMIT_INPUT_PRODUCTS).eval()
     model.network.load_state_dict(flax_to_torch_state_dict(variables), strict=True)
     kw = dict(column_step=STEP, num_iter=4, alpha=1e-4)
-    pred, mf = tpipe.emit_granule_to_mask(cube, rgb, tpl, model, device="cpu", **kw)
+    pred_t, mf_t = tpipe.emit_granule_to_mask(cube, rgb, tpl, model, device="cpu", **kw)
+    assert isinstance(pred_t, torch.Tensor) and pred_t.device.type == "cpu"
+    pred, mf = pred_t.numpy(), mf_t.numpy()
 
     fused = jax.jit(lambda c, r: jpipe.emit_granule_to_mask(
         c, r, jnp.asarray(tpl), lambda b: jmodel.apply(variables, b, train=False), **kw))
@@ -158,7 +161,7 @@ def test_port_imports_nothing_of_jax():
                 assert name.split(".")[0] not in banned, f"{path}: imports {name}"
 
 
-def test_entry_points_need_a_card_or_cpu():
+def test_entry_points_need_a_card_or_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the no-card refusal cannot be shown")
     cube, rgb, tpl = _scene()
@@ -168,11 +171,14 @@ def test_entry_points_need_a_card_or_cpu():
         lambda: acrwl1mf_resident(cube, tpl, W // STEP, STEP),
         lambda: tpipe.emit_granule_to_mask(cube, rgb, tpl, lambda b: b[:, :1]),
         lambda: tpipe.emit_mag1c(cube, np.linspace(2122, 2400, S), np.full(S, 8.0)),
+        lambda: emit_serving_pipeline(lambda b: b[:, :1], str(tmp_path)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
+    assert len(emit_serving_pipeline(lambda b: b[:, :1], str(tmp_path),
+                                     devices=[torch.device("cpu")]).compute_fns) == 1
 
 
 def test_float32_precision_turns_tf32_off_and_restores():
