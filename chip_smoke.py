@@ -20,11 +20,13 @@ every hand-written kernel against its plain torch twin on the card:
      > 0), albedo within rtol 1e-4 of the f64 twin, and bitwise equal on a
      rerun;
   5. emit_granule_to_mask on a seeded U-Net whose output spreads over
-     (0, 1) (Kaiming-normal convolutions, randomised batch-norm statistics),
+     (0, 1) and follows the filter (Kaiming-normal convolutions, randomised
+     batch-norm statistics, the first layer's mag1c weights x MF_GAIN),
      with launch counts zeroed just before and read just after: each kernel
      launched as often as one filter needs, mask (1280, 1242) finite in
      [0, 1] with a standard deviation > 0.05, correlation > 0.9999 with the
-     same path on the plain filter and >= 99.9% of pixels within 1e-3 of it;
+     same path on the plain filter and >= 99.9% of pixels within 1e-3 of it,
+     and correlation < 0.99 with the same model fed mf = 0;
   6. CUDA-event timings (median over >= 10 samples after warm-up), and one
      torch.profiler trace of granule -> mask (device busy share, top kernels);
   7. the masked route (TPU kernels 5 and 6) on a served granule: synthetic
@@ -53,12 +55,41 @@ every hand-written kernel against its plain torch twin on the card:
      u12 host encode are timed;
   9. the u12, u10 and u16 wires of two granules uploaded back to back,
      decoded on the card and held against the host's decode of the same
-     payload: within half a quantization step, the valid mask exact.
+     payload: within half a quantization step, the valid mask exact;
+ 10. the unmasked bf16 stream (stream_dtype=bf16, TPU rows 2, 9 and 10,
+     whose statistics are phase 3's init_stats) on the bench scene:
+     blocked_transpose (centred by m0, bf16) equal to its twin bitwise,
+     filter_round_bsp (FIRST, LOOP, FINAL) within 4x the f32 twin's error
+     against the f64 twin + 1e-6 on the same bf16 stream; the whole bf16
+     filter with mf correlation > 0.9999 with the plain twin on its own
+     Woodbury base, meeting the JAX bf16 contract (tests/test_mag1c.py:
+     199-217, with at most 1e-5 of the pixels flipping decisively: see
+     bf16_contract) against phase 4's f32 filter, bitwise equal on a rerun;
+     emit_granule_to_mask at bf16 with counts zeroed around it: 1 / 1 / 31 /
+     30 launches of init_stats / blocked_transpose / filter_round_bsp /
+     filter_glue and no K1 or K2 round, and the same counts for
+     emit_granule_to_mask_batched over two copies of the scene;
+ 11. the masked bf16 stream (bf16 dots, TPU rows 5-6) on phase 7's granule
+     with the same per-kernel checks on the live blocks (init_stats_bsp
+     within 1e-5 of its f64 twin), the fill value exact at invalid pixels,
+     the whole filter against the plain twin at correlation > 0.999 and
+     threshold-500 agreement >= 0.999, and no farther from the twin run in
+     f64 than 4x the f32 twin is (bf16 dots amplify one-ulp differences; the
+     decisive flips of the kernel and of both twins against the f32 route
+     are printed); then ScenePipeline over the 4 granules with the bf16
+     stream and the bf16-resident U-Net (cast_for_inference of the seeded
+     model): no scene error, per granule 1 / 1 / 1 / 30 / 30 launches of
+     blocked_transpose / init_stats_bsp / filter_round_bsp masked FIRST /
+     LOOP+FINAL / filter_glue and nothing else, each served mag1c meeting
+     the bf16 contract against phase 8's f32 served mag1c, and the
+     bf16-resident mask correlating > 0.999 with the f32 model's on the same
+     mf (tests/test_models.py:255).
 
 Prints the card line, "timings" and "profile" JSON lines and a "kernels" JSON
 line, and ends with {"ok": true, "device": {...}}. Any failed check exits non-zero
 without the ok line. Peak rates for the bounds are NVIDIA's H100 SXM data
-sheet figures (3.35 TB/s HBM, 67 TFLOP/s float32 outside the tensor cores).
+sheet figures (3.35 TB/s HBM, 67 TFLOP/s float32 outside the tensor cores,
+989 TFLOP/s dense bf16 on the tensor cores for products of bf16 inputs).
 """
 
 from __future__ import annotations
@@ -76,7 +107,9 @@ H, W, STEP, NUM_ITER, ALPHA = 1280, 1242, 54, 30, 1e-4
 MSTEP, FILL = 32, -9999.0  # the serving default column_step; EMIT's fill value
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense, tensor cores: the rate of products of bf16 inputs
 REPLACES = "starcop_tpu/ops/mag1c_pallas.py"
+MF_GAIN = 1000.0  # the seeded U-Net's first-layer gain on the mag1c channel
 
 
 class CheckFailed(RuntimeError):
@@ -114,8 +147,8 @@ def cuda_ms(fn, *, reps: int = 12, inner: int = 1, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -160,6 +193,25 @@ def corr(a, b) -> float:
     flat = lambda t: (t.double().cpu().numpy() if hasattr(t, "cpu")  # noqa: E731
                       else np.asarray(t, np.float64)).ravel()
     return float(np.corrcoef(flat(a), flat(b))[0, 1])
+
+
+def kernel_rows(plans, fields, path):
+    """One kernels-line row per plan (without launches): the kernel's, its
+    plain twin's and the library call's times at this run's inputs, its
+    bound, and the check fields."""
+    out = []
+    for name, plan in plans.items():
+        ms = cuda_ms(plan["kernel"], reps=7, inner=5)
+        plain_ms = cuda_ms(plan["plain"], reps=5, inner=1, warmup=1)
+        lib_ms = None if plan["library"] is None else cuda_ms(plan["library"], reps=5, warmup=1)
+        bms, bby = plan["bound"]
+        out.append(dict(
+            name=name, route="cuda", source="starcop_tpu_torch/csrc/mag1c.cu",
+            replaces=f"{REPLACES}:{plan['replaces']}", tpu_kernel=plan["tpu_kernel"], path=path,
+            max_abs_err=fields[name]["max_abs_err"], rel_err_vs_f64=fields[name]["rel_err"],
+            check=fields[name]["check"], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+            library_ms=lib_ms, **({"note": plan["note"]} if "note" in plan else {})))
+    return out
 
 
 def masked_granule(seed: int, centers, fwhm) -> dict:
@@ -339,18 +391,7 @@ def masked_phase(dev, template, granule):
                            n_valid * (5.0 * s + 12)),
             replaces="664", tpu_kernel="_loop_round_kernel (row 6; LOOP and FINAL)"),
     }
-    out = []
-    for name, plan in plans.items():
-        ms = cuda_ms(plan["kernel"], reps=7, inner=5)
-        plain_ms = cuda_ms(plan["plain"], reps=5, inner=1, warmup=1)
-        lib_ms = None if plan["library"] is None else cuda_ms(plan["library"], reps=5, warmup=1)
-        bms, bby = plan["bound"]
-        out.append(dict(
-            name=name, route="cuda", source="starcop_tpu_torch/csrc/mag1c.cu",
-            replaces=f"{REPLACES}:{plan['replaces']}", tpu_kernel=plan["tpu_kernel"],
-            max_abs_err=rows[name]["max_abs_err"], rel_err_vs_f64=rows[name]["rel_err"],
-            check=rows[name]["check"], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-            library_ms=lib_ms))
+    out = kernel_rows(plans, rows, "served granules (ScenePipeline, f32 upload)")
     timings = {"masked_filter_ms": cuda_ms(lambda: mag1c_column_blocks(x, tpl, valid, **kw),
                                            reps=7)}
     return out, rows["filter_glue"], timings, torch.where(valid, mf_32, FILL)
@@ -361,7 +402,8 @@ def serving_phase(dev, model, granules, mf_plain0):
     and uploads, the compute stage decodes, filters on the masked kernels,
     runs the U-Net and downloads once, the writer writes GeoTIFFs), once
     with the f32 and once with the u12 upload, both with the default f16
-    download. Returns (launch counts of the f32 run, timings)."""
+    download. Returns (launch counts of the f32 run, its outputs by granule
+    name, timings)."""
     import tempfile
 
     import torch
@@ -467,7 +509,7 @@ def serving_phase(dev, model, granules, mf_plain0):
     payload0 = upload(sp.encode_payload(g0, "f32"))
     timings["served_compute_ms"] = cuda_ms(lambda: compute(payload0), reps=5, warmup=1)
     profile_granule(lambda: compute(payload0), "served_granule")
-    return runs["f32"][2], timings
+    return runs["f32"][2], runs["f32"][1], timings
 
 
 def upload_phase(dev, granules):
@@ -499,16 +541,398 @@ def upload_phase(dev, granules):
                   f"{e_cube:.2e}, RGB {e_rgb:.2e} quantization steps (<= 0.5), valid mask equal")
 
 
-def seeded_model(dev, seed: int = 0):
-    """A full-width SegmentationModel whose output spreads over (0, 1):
-    Kaiming-normal (fan-out) convolutions, zero conv biases, batch-norm
-    running means N(0, 0.05) and variances U(0.8, 1.2). At the default
-    init the U-Net's output is nearly constant, and a mask check could not
-    tell a wrong filter from a right one."""
+def contract_terms(ref, got):
+    """The terms of the JAX suite's bf16 detection contract
+    (tests/test_mag1c.py:199-217) of ``got`` against the f32 result ``ref``:
+    (indices of the decisive pixels, those outside [250, 1000] in ref, that
+    fall on the other side of 500; the pixel count; agreement at 500; median
+    relative error where ref > 1000; that pixel count; a text of up to 8
+    flips)."""
+    flat = lambda t: np.asarray(t.cpu() if hasattr(t, "cpu") else t, np.float64).ravel()  # noqa: E731
+    a, b = flat(ref), flat(got)
+    det_a, det_b = a > 500, b > 500
+    flipped = np.flatnonzero((det_a != det_b) & ((a < 250) | (a > 1000)))
+    agree = float((det_a == det_b).mean())
+    big = a > 1000
+    med = float(np.median(np.abs(b[big] - a[big]) / a[big])) if big.any() else float("nan")
+    shown = "".join(f" [{i}: {a[i]:.1f} -> {b[i]:.1f}]" for i in flipped[:8])
+    return flipped, a.size, agree, med, int(big.sum()), shown
+
+
+def bf16_contract(ref, got, what: str) -> None:
+    """The JAX suite's bf16 detection contract of ``got`` against the f32
+    result ``ref`` (see contract_terms): decisive pixels on the same side of
+    500, agreement > 0.995, median relative error < 2 % over detections.
+
+    That suite asks for no decisive flip among ~1e3 pixels, a flip rate it
+    can resolve to ~1e-3. A whole granule has ~1.5e6 pixels, and the L1
+    reweighting pins a pixel whose mf touches 0 in an early round, so under
+    a bf16 stream an isolated pixel can collapse from above 1000 to 0 or
+    escape the pin: here at most 1e-5 of the pixels may flip decisively,
+    and each flip is printed. Phase 11 shows the masked route's plain twin,
+    in f32 and in f64, flipping alike (masked_bf16_phase)."""
+    flipped, size, agree, med, n_big, shown = contract_terms(ref, got)
+    allowed = int(1e-5 * size)
+    check(len(flipped) <= allowed and agree > 0.995 and med < 0.02,
+          f"{what}: {len(flipped)} decisive pixels of {size} differ (<= {allowed}){shown}; "
+          f"agreement {agree:.6f} (> 0.995), median rel err {med:.2e} over {n_big} "
+          f"detections (< 2e-2)")
+
+
+def bsp_round_errs(xs, valid, step, m0, carry, r, mf, mode, bf16_dots, live):
+    """filter_round_bsp against its f32 and f64 twins on the same bf16 stream
+    over the blocks ``live``: (kernel outputs, kernel rel err vs the f64
+    twin, the f32 twin's, max |kernel - f32 twin|)."""
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+
+    d64 = lambda t: None if t is None else t.double()  # noqa: E731
+    args = dict(mode=mode, bf16_dots=bf16_dots)
+    out_k = mk.filter_round_bsp(xs, valid, step, m0, carry, r, mf, **args)
+    out_32 = mk.filter_round_bsp_plain(xs, valid, step, m0, carry, r, mf, **args)
+    out_64 = mk.filter_round_bsp_plain(xs, valid, step, d64(m0), d64(carry), d64(r), d64(mf),
+                                       **args)
+    pick = lambda o: [o[0][live], o[1][live]] + (  # noqa: E731
+        [] if o[2] is None else [o[2].sum(1)[live]])
+    ek = max(rel_err(a, b) for a, b in zip(pick(out_k), pick(out_64)))
+    ep = max(rel_err(a, b) for a, b in zip(pick(out_32), pick(out_64)))
+    ab = max(float((a - b).abs().max()) for a, b in zip(pick(out_k), pick(out_32)))
+    return out_k, ek, ep, ab
+
+
+def bsp_rounds(xs, valid, step, m0, carry, glue_kw, bf16_dots, live, what):
+    """FIRST, LOOP (after one glue) and FINAL passes of filter_round_bsp, each
+    within 4x the f32 twin's error against the f64 twin + 1e-6. Returns
+    (the kernel-row fields, the FIRST and LOOP outputs)."""
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+
+    first, ek_f, ep_f, ab_f = bsp_round_errs(xs, valid, step, m0, carry, None, None, mk.FIRST,
+                                             bf16_dots, live)
+    carry1 = mk.filter_glue(first[2], carry, **glue_kw)
+    loop, ek_l, ep_l, ab_l = bsp_round_errs(xs, valid, step, m0, carry1, first[1], first[0],
+                                            mk.LOOP, bf16_dots, live)
+    _, ek_z, ep_z, ab_z = bsp_round_errs(xs, valid, step, m0, mk.filter_glue(loop[2], carry1,
+                                                                             **glue_kw),
+                                         first[1], loop[0], mk.FINAL, bf16_dots, live)
+    errs = {}
+    for mode, ek, ep, ab in (("first", ek_f, ep_f, ab_f), ("loop", ek_l, ep_l, ab_l),
+                             ("final", ek_z, ep_z, ab_z)):
+        check(ek <= 4 * ep + 1e-6, f"{what} ({mode}) vs f64 twin: rel err {ek:.3e} "
+                                   f"(f32 twin {ep:.3e})")
+        errs[mode] = (ek, ab)
+    rule = "rel err vs f64 twin <= 4x f32 twin's + 1e-6 on the same bf16 stream"
+    return errs, rule, first, (loop, carry1)
+
+
+def bf16_phase(dev, x, tpl, mf_f32):
+    """Phase 10, the unmasked bf16 stream at the bench geometry (TPU rows 2
+    and 9; row 10's statistics are K1's init_stats, held in phase 3): each
+    kernel against its twins, then the whole filter against the plain twin
+    and against the f32 filter ``mf_f32`` (K1, (nb, P)). Returns
+    (kernel-row dicts without launches, timings)."""
+    import torch
+
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+
+    nb, s = W // STEP, x.shape[-1]
+    rows, p, npix = mk.stream_rows(s), H * STEP, H * W
+    fields = {}
+
+    m0, c0 = mk.init_stats(x, nb, STEP)
+    xs = mk.blocked_transpose(x, nb, STEP, rows, m0)
+    check(torch.equal(xs, mk.blocked_transpose_plain(x, nb, STEP, rows, m0)),
+          "blocked_transpose (bf16, centred by m0) equals its twin bitwise, pad rows included")
+    fields["blocked_transpose"] = dict(rel_err=0.0, max_abs_err=0.0,
+                                       check="bitwise equal to its twin")
+
+    k0, tgt0, cit0, norm0 = mk._woodbury_base(c0, m0, tpl, ALPHA)
+    k0 = k0.contiguous()
+    carry = mk.pack_carry(tgt0, cit0, norm0)
+    glue_kw = dict(m0=m0, template=tpl, k0=k0, n=p, alpha=ALPHA)
+    errs, rule, (mf1, r1, _), ((_, _, _), carry1) = bsp_rounds(
+        xs, None, STEP, m0, carry, glue_kw, False, slice(None), "filter_round_bsp")
+    fields["filter_round_bsp"] = dict(rel_err=max(e for e, _ in errs.values()),
+                                      max_abs_err=max(a for _, a in errs.values()), check=rule)
+
+    kw = dict(num_iter=NUM_ITER, alpha=ALPHA)
+    mf_k, r_k = mk.acrwl1mf_resident_bsp(x, tpl, nb, STEP, device=dev, **kw)
+    mf_32, _ = mk.bsp_filter_plain(xs, None, STEP, m0, k0, tgt0, cit0, norm0, tpl, p, **kw)
+    check(bool(torch.isfinite(mf_k).all() and torch.isfinite(r_k).all()),
+          "bf16 filter output finite")
+    c32 = corr(mf_k, mf_32)
+    check(c32 > 0.9999, f"bf16 filter mf correlation with the plain twin on its own Woodbury "
+                        f"base {c32:.7f} (> 0.9999)")
+    bf16_contract(mf_f32, mf_k, "bf16 filter vs the f32 filter (K1) on the same scene")
+    print(f"info: bf16 filter mf correlation with the f32 filter {corr(mf_k, mf_f32):.7f}",
+          flush=True)
+    mf_again, _ = mk.acrwl1mf_resident_bsp(x, tpl, nb, STEP, device=dev, **kw)
+    check(bool(torch.equal(mf_again, mf_k)), "bf16 filter rerun bitwise identical")
+
+    n_round = -(-p // mk.ROUND_CHUNK)
+    stream_bytes = 2.0 * npix * s  # the live band rows of the bf16 stream
+    plans = {
+        "blocked_transpose": dict(
+            kernel=lambda: mk.blocked_transpose(x, nb, STEP, rows, m0),
+            plain=lambda: mk.blocked_transpose_plain(x, nb, STEP, rows, m0),
+            library=lambda: (x.reshape(H, nb, STEP, s).permute(1, 3, 0, 2)
+                             - m0[:, :, None, None]).to(torch.bfloat16),
+            bound=bound_ms(4.0 * npix * s + 4.0 * nb * s + stream_bytes, 1.0 * npix * s),
+            note="library: permute, subtract and cast (no pad rows); bound: live band rows",
+            replaces="170", tpu_kernel="_blocked_transpose_swh_kernel (row 2; row 1 "
+                                       "_blocked_transpose_kernel :92 computes the same) and "
+                                       "the XLA centre-and-cast :1706"),
+        "filter_round_bsp": dict(
+            kernel=lambda: mk.filter_round_bsp(xs, None, STEP, m0, carry1, r1, mf1, mode=mk.LOOP),
+            plain=lambda: mk.filter_round_bsp_plain(xs, None, STEP, m0, carry1, r1, mf1,
+                                                    mode=mk.LOOP),
+            library=None,
+            bound=bound_ms(stream_bytes + 4.0 * (3 * npix + nb * 5 * s + nb * n_round * (s + 2)),
+                           npix * (4.0 * s + 12)),
+            replaces="1048", tpu_kernel="_resident_kernel / _resident_filter_body (row 9; "
+                                        "bf16 storage, f32 products)"),
+    }
+    out = kernel_rows(plans, fields, "bf16 granule -> mask (unmasked route, step 54)")
+    timings = {"bf16_filter_ms": cuda_ms(lambda: mk.acrwl1mf_resident_bsp(x, tpl, nb, STEP,
+                                                                          device=dev, **kw)),
+               "bf16_filter_plain_f32_ms": cuda_ms(lambda: mk.bsp_filter_plain(
+                   xs, None, STEP, m0, k0, tgt0, cit0, norm0, tpl, p, **kw), reps=5, warmup=1)}
+    return out, timings
+
+
+def masked_bf16_phase(dev, template, granule):
+    """Phase 11a, the masked bf16 stream on a served granule (TPU rows 5-6
+    with bf16 dots): each kernel against its twins on the blocks with valid
+    pixels, then the whole filter, with the plain twin in f32 and in f64 as
+    witnesses of how far bf16 dots alone move it. Returns (kernel-row dicts
+    without launches, timings)."""
+    import torch
+
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.ops.mag1c import mag1c_column_blocks, unblock_columns
+
+    x = torch.as_tensor(granule["cube"], device=dev)
+    valid = torch.as_tensor(granule["valid"], device=dev)
+    tpl = torch.as_tensor(template, dtype=torch.float32, device=dev)
+    nb, s = -(-W // MSTEP), x.shape[-1]
+    rows, p = mk.stream_rows(s), H * MSTEP
+    counts = mk.block_valid_counts(valid, nb, MSTEP)
+    live = counts > 0
+    n = counts.clamp(min=1).float()
+    n_valid = int(counts.sum())
+    fields = {}
+
+    m0 = mk.masked_block_means(x, valid, nb, MSTEP, n)
+    xs = mk.blocked_transpose(x, nb, MSTEP, rows, m0, valid=valid)
+    check(torch.equal(xs, mk.blocked_transpose_plain(x, nb, MSTEP, rows, m0, valid=valid)),
+          "blocked_transpose (bf16, centred, masked, ragged) equals its twin bitwise")
+    check(not bool(xs[20].any()), "blocked_transpose: the wholly invalid block 20 is all zero")
+    fields["blocked_transpose_masked"] = dict(rel_err=0.0, max_abs_err=0.0,
+                                              check="bitwise equal to its twin")
+    c0r = mk.init_stats_bsp(xs, n)
+    c0_64 = mk.init_stats_bsp_plain(xs.double(), n.double())
+    c0_32 = mk.init_stats_bsp_plain(xs, n)
+    e_c0 = rel_err(c0r[live], c0_64[live])
+    check(e_c0 <= 1e-5 and bool((c0r[~live] == 0).all()),
+          f"init_stats_bsp (n per block) vs f64 twin: C0 rel err {e_c0:.3e} (<= 1e-5) on the "
+          f"live blocks, 0 on the empty one")
+    fields["init_stats_bsp"] = dict(rel_err=e_c0, max_abs_err=float((c0r - c0_32).abs().max()),
+                                    check="C0 rel err vs f64 twin <= 1e-5 on live blocks")
+
+    k0, tgt0, cit0, norm0 = mk._woodbury_base(c0r[:, :s, :s], m0, tpl, ALPHA)
+    k0 = k0.contiguous()
+    carry = mk.pack_carry(tgt0, cit0, norm0)
+    glue_kw = dict(m0=m0, template=tpl, k0=k0, n=n, alpha=ALPHA)
+    errs, rule, (mf1, r1, _), ((mf2, _, _), carry1) = bsp_rounds(
+        xs, valid, MSTEP, m0, carry, glue_kw, True, live, "filter_round_bsp (masked, bf16 dots)")
+    fields["filter_round_bsp_masked_first"] = dict(rel_err=errs["first"][0],
+                                                   max_abs_err=errs["first"][1], check=rule)
+    fields["filter_round_bsp_masked_loop"] = dict(
+        rel_err=max(errs["loop"][0], errs["final"][0]),
+        max_abs_err=max(errs["loop"][1], errs["final"][1]), check=rule + " (LOOP and FINAL)")
+    keep = mk._keep_rows(valid, nb, MSTEP)
+    check(bool((r1[~keep] == 1).all() and (mf1[~keep] == 0).all() and (mf2[~keep] == 0).all()),
+          "filter_round_bsp (masked): mf = 0 and R = 1 wherever a pixel does not count")
+
+    kw = dict(column_step=MSTEP, num_iter=NUM_ITER, alpha=ALPHA, device=dev)
+    mf_k, alb_k = mag1c_column_blocks(x, tpl, valid, stream_dtype=torch.bfloat16, **kw)
+    check(bool(torch.isfinite(mf_k[valid]).all() and torch.isfinite(alb_k[valid]).all()),
+          "masked bf16 filter finite at valid pixels")
+    check(bool((mf_k[~valid] == FILL).all() and (alb_k[~valid] == FILL).all()
+               and (mf_k[:, 20 * MSTEP:21 * MSTEP] == FILL).all()),
+          "masked bf16 filter: fill value exactly at invalid pixels and across block 20")
+    # Witnesses: the plain twin from the kernel route's Woodbury base, in f32
+    # and in f64 (bf16 dots round both alike; only the arithmetic between
+    # the roundings differs). bf16 dots round cit and g, so a one-ulp
+    # difference (another summation order, or f64) can move a product by
+    # 2^-9, and 30 reweighting rounds amplify it: the whole filter is held
+    # by how far the twin's own f32 arithmetic moves it.
+    base = (m0, k0, tgt0, cit0, norm0, tpl, n)
+    twin_kw = dict(bf16_dots=True, num_iter=NUM_ITER, alpha=ALPHA)
+    grid = lambda mf: unblock_columns(mf, H, MSTEP)[:, :W][valid]  # noqa: E731
+    mf_32 = grid(mk.bsp_filter_plain(xs, valid, MSTEP, *base, **twin_kw)[0])
+    mf_64 = grid(mk.bsp_filter_plain(xs, valid, MSTEP, *(t.double() for t in base),
+                                     **twin_kw)[0])
+    mf_kv = mf_k[valid]
+    c32, c_k64, c_3264 = corr(mf_kv, mf_32), corr(mf_kv, mf_64), corr(mf_32, mf_64)
+    det = int((mf_32 > 500).sum())
+    agree = float(((mf_kv > 500) == (mf_32 > 500)).double().mean())
+    check(c32 > 0.999 and det > 0 and agree >= 0.999,
+          f"masked bf16 filter vs the plain twin on its own Woodbury base: mf correlation "
+          f"{c32:.7f} (> 0.999), threshold-500 agreement {agree:.6f} (>= 0.999) over {det} "
+          f"detections")
+    check(1 - c_k64 <= 4 * (1 - c_3264) + 1e-6,
+          f"masked bf16 filter vs the f64 twin (bf16 dots): 1 - correlation {1 - c_k64:.3e} "
+          f"(<= 4x the f32 twin's {1 - c_3264:.3e} + 1e-6)")
+    # The decisive flips against the f32 route (K2) on the same granule: the
+    # kernel's, and the twins' in f32 and f64.
+    mf_f32 = mag1c_column_blocks(x, tpl, valid, **kw)[0][valid]
+    flips = {}
+    for name, mf in (("kernel", mf_kv), ("f32 twin", mf_32), ("f64 twin", mf_64)):
+        flipped, _, agr, med, n_big, shown = contract_terms(mf_f32, mf)
+        flips[name] = set(flipped.tolist())
+        print(f"info: masked bf16 {name} vs the f32 filter (K2): {len(flipped)} decisive flips"
+              f"{shown}; agreement {agr:.6f}, median rel err {med:.2e} over {n_big}", flush=True)
+    print(f"info: decisive flips shared by the kernel and the f32 / f64 twin: "
+          f"{len(flips['kernel'] & flips['f32 twin'])} / {len(flips['kernel'] & flips['f64 twin'])}"
+          f" of the kernel's {len(flips['kernel'])}; f32 and f64 twin share "
+          f"{len(flips['f32 twin'] & flips['f64 twin'])}", flush=True)
+    mf_again, _ = mag1c_column_blocks(x, tpl, valid, stream_dtype=torch.bfloat16, **kw)
+    check(bool(torch.equal(mf_again, mf_k)), "masked bf16 filter rerun bitwise identical")
+
+    n_round = -(-p // mk.ROUND_CHUNK)
+    live_bytes = 2.0 * nb * s * p  # the live band rows of the whole stream
+    stream_bytes = 2.0 * n_valid * s + H * W  # the valid pixels' live bands and the mask
+    xs32 = xs.float()
+
+    def library_centred_stats():
+        return torch.bmm(xs32, xs32.transpose(1, 2)) / n[:, None, None]
+
+    plans = {
+        "blocked_transpose_masked": dict(
+            kernel=lambda: mk.blocked_transpose(x, nb, MSTEP, rows, m0, valid=valid),
+            plain=lambda: mk.blocked_transpose_plain(x, nb, MSTEP, rows, m0, valid=valid),
+            library=None,
+            bound=bound_ms(4.0 * n_valid * s + H * W + 4.0 * nb * s + live_bytes,
+                           1.0 * n_valid * s),
+            note="bound: the valid pixels read, the live band rows written",
+            replaces="1796", tpu_kernel="XLA centre, mask and transpose of the masked stream "
+                                        ":1796-1798 (no Pallas kernel)"),
+        "init_stats_bsp": dict(
+            kernel=lambda: mk.init_stats_bsp(xs, n),
+            plain=lambda: mk.init_stats_bsp_plain(xs, n),
+            library=library_centred_stats,
+            bound=bound_ms(live_bytes + 4.0 * nb * (1 + s * s), 1.0 * n_valid * s * (s + 1),
+                           BF16_FLOP_PER_S),
+            note="one call = 2 __global__ launches; bound: the live band rows, products of "
+                 "bf16 inputs at the tensor-core rate; library on the stream upcast to f32",
+            replaces="1814", tpu_kernel="XLA second moment of the bf16 stream :1814-1824 (no "
+                                        "Pallas kernel)"),
+        "filter_round_bsp_masked_first": dict(
+            kernel=lambda: mk.filter_round_bsp(xs, valid, MSTEP, m0, carry, None, None,
+                                               mode=mk.FIRST, bf16_dots=True),
+            plain=lambda: mk.filter_round_bsp_plain(xs, valid, MSTEP, m0, carry, None, None,
+                                                    mode=mk.FIRST, bf16_dots=True),
+            library=None,
+            bound=bound_ms(stream_bytes + 4.0 * (2 * nb * p + nb * 5 * s + nb * n_round * (s + 2)),
+                           n_valid * (6.0 * s + 12)),
+            replaces="594", tpu_kernel="_first_round_kernel, bf16_dots=True (row 5)"),
+        "filter_round_bsp_masked_loop": dict(
+            kernel=lambda: mk.filter_round_bsp(xs, valid, MSTEP, m0, carry1, r1, mf1,
+                                               mode=mk.LOOP, bf16_dots=True),
+            plain=lambda: mk.filter_round_bsp_plain(xs, valid, MSTEP, m0, carry1, r1, mf1,
+                                                    mode=mk.LOOP, bf16_dots=True),
+            library=None,
+            bound=bound_ms(stream_bytes + 4.0 * (3 * nb * p + nb * 5 * s + nb * n_round * (s + 2)),
+                           n_valid * (4.0 * s + 12)),
+            replaces="664", tpu_kernel="_loop_round_kernel, bf16_dots=True (row 6; LOOP and "
+                                       "FINAL)"),
+    }
+    out = kernel_rows(plans, fields, "served granules, bf16 stream (ScenePipeline, f32 upload)")
+    timings = {"bf16_masked_filter_ms": cuda_ms(
+        lambda: mag1c_column_blocks(x, tpl, valid, stream_dtype=torch.bfloat16, **kw), reps=7)}
+    return out, timings
+
+
+def serving_bf16_phase(dev, model, model_bf16, granules, f32_outputs):
+    """Phase 11b: ScenePipeline over the served granules with the bf16
+    stream and the bf16-resident U-Net (f32 upload, f16 download), against
+    phase 8's f32 pipeline. Returns (launch counts, timings)."""
+    import tempfile
+
+    import torch
+
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.scenes.emit_pipeline import plume_mask
+    from starcop_tpu_torch.serve import pipeline as sp
+
+    names = [f"granule_{i}" for i in range(len(granules))]
+    store = dict(zip(names, granules))
+    upload = sp.Uploader(dev)
+    compute = sp.make_compute_fn(model_bf16, dev, column_step=MSTEP, num_iter=NUM_ITER,
+                                 stream_dtype=torch.bfloat16)
+    payload0 = upload(sp.encode_payload(granules[0], "f32"))
+    compute(payload0)  # warm-up
+    timings = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        pipe = sp.ScenePipeline(lambda name: upload(sp.encode_payload(store[name], "f32")),
+                                compute, sp.make_write_fn(out_dir))
+        mk.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = pipe.run(names)
+        wall = time.perf_counter() - t0
+        launches = dict(mk.LAUNCH_COUNTS)
+    print(f"served launches (bf16 stream, bf16 U-Net, {len(names)} granules): "
+          f"{json.dumps(launches)}", flush=True)
+    errors = {r.name: r.error for r in results if r.error is not None}
+    check(len(results) == len(names) and not errors,
+          f"bf16 stream: {len(results)} scenes served, errors {errors}")
+    per = {k: v / len(names) for k, v in launches.items()}
+    want = {k: 0 for k in launches}
+    want.update({"blocked_transpose": 1, "init_stats_bsp": 1,
+                 "filter_round_bsp_masked_first": 1, "filter_round_bsp_masked_loop": NUM_ITER,
+                 "filter_glue": NUM_ITER})
+    check(per == want, f"bf16 stream: launches per granule {per} (want {want}: no K1, K2 or "
+                       f"unmasked bsp kernel)")
+    by_name = {r.name: r.outputs for r in results}
+    for name, g in zip(names, granules):
+        ok = g["valid"]
+        got, ref = by_name[name]["mag1c"], f32_outputs[name]["mag1c"]
+        check(np.array_equal(got == FILL, ~ok), f"{name}: bf16-stream NODATA exactly at the "
+                                               f"invalid pixels")
+        bf16_contract(ref[ok], got[ok], f"{name}: served bf16-stream mag1c vs phase 8's f32")
+        print(f"info: {name} served mask correlation, bf16 stream + bf16 U-Net vs f32 + f32: "
+              f"{corr(by_name[name]['prediction'], f32_outputs[name]['prediction']):.6f}",
+              flush=True)
+    mf0 = torch.as_tensor(by_name["granule_0"]["mag1c"], device=dev)
+    rgb0 = torch.as_tensor(np.moveaxis(granules[0]["rgb"], -1, 0), device=dev)
+    with torch.inference_mode():  # plume_mask feeds NODATA to the model as 0
+        pb = plume_mask(mf0[None], rgb0[None], model_bf16)[0]
+        pf = plume_mask(mf0[None], rgb0[None], model)[0]
+    mc = corr(pb, pf)
+    check(mc > 0.999, f"bf16-resident U-Net mask vs the f32 model's on granule 0's served mf: "
+                      f"correlation {mc:.6f} (> 0.999), std {float(pb.float().std()):.4f}")
+    timings["pipeline_bf16_ms_per_granule"] = wall * 1e3 / len(names)
+    timings["pipeline_bf16_granules_per_s"] = len(names) / wall
+    for stage in ("read", "compute", "write"):
+        timings[f"pipeline_bf16_{stage}_ms_median"] = 1e3 * statistics.median(
+            r.timings[f"{stage}_s"] for r in results)
+    timings["served_compute_bf16_ms"] = cuda_ms(lambda: compute(payload0), reps=5, warmup=1)
+    return launches, timings
+
+
+def seeded_model(dev, seed: int = 0, bf16: bool = False):
+    """A full-width SegmentationModel whose output spreads over (0, 1) and
+    follows the filter: Kaiming-normal (fan-out) convolutions, zero conv
+    biases, batch-norm running means N(0, 0.05) and variances U(0.8, 1.2),
+    and the first convolution's weights on the mag1c channel scaled by
+    MF_GAIN. At the default init the U-Net's output is nearly constant, and
+    without the gain it barely depends on mf (the mask correlated 0.999945
+    with the same model fed mf = 0): either way a mask check could not tell
+    a wrong filter from a right one. ``bf16`` gives the same weights
+    bf16-resident (``cast_for_inference``)."""
     import torch
     from torch import nn
 
-    from starcop_tpu_torch.models.segmenter import SegmentationModel
+    from starcop_tpu_torch.models.segmenter import SegmentationModel, cast_for_inference
 
     gen = torch.Generator().manual_seed(seed)
     model = SegmentationModel()
@@ -521,6 +945,9 @@ def seeded_model(dev, seed: int = 0):
             elif isinstance(mod, nn.BatchNorm2d):
                 mod.running_mean.normal_(0.0, 0.05, generator=gen)
                 mod.running_var.uniform_(0.8, 1.2, generator=gen)
+        model.network.encoder.features[0][0].weight[:, 0] *= MF_GAIN
+    if bf16:
+        cast_for_inference(model)
     return model.to(dev).eval()
 
 
@@ -537,7 +964,11 @@ def main() -> int:
     from starcop_tpu_torch.ops.ch4_template import generate_template_from_bands
     from starcop_tpu_torch.ops.mag1c import block_columns, unblock_columns
     from starcop_tpu_torch.ops.padding import find_padding
-    from starcop_tpu_torch.scenes.emit_pipeline import emit_granule_to_mask, plume_mask
+    from starcop_tpu_torch.scenes.emit_pipeline import (
+        emit_granule_to_mask,
+        emit_granule_to_mask_batched,
+        plume_mask,
+    )
 
     # 1. device --------------------------------------------------------------
     card = subprocess.run(
@@ -700,6 +1131,12 @@ def main() -> int:
     check(pcorr > 0.9999, f"mask correlation with the plain-filter path {pcorr:.8f} (> 0.9999)")
     close = float((np.abs(pred - pred_plain) <= 1e-3).mean())
     check(close >= 0.999, f"mask within 1e-3 of the plain-filter path on {close:.6f} of pixels")
+    with torch.inference_mode():
+        pred_blind = plume_mask(torch.zeros_like(mf_d)[None], torch.as_tensor(rgb, device=dev)[None],
+                                model)[0].cpu().numpy()
+    blind = corr(pred, pred_blind)
+    check(blind < 0.99, f"mask follows the filter: correlation {blind:.6f} with the same model "
+                        f"fed mf = 0 (< 0.99)")
     check(np.array_equal(mf_slice, unblock_columns(mf_k, H, STEP).cpu().numpy()),
           "slice mf equals the filter run")
 
@@ -784,29 +1221,98 @@ def main() -> int:
                                                                        granules[0])
 
     # 8. the served path: ScenePipeline over 4 granules ------------------------------
-    served, serving_timings = serving_phase(dev, model, granules, mf_plain0)
+    served, f32_served, serving_timings = serving_phase(dev, model, granules, mf_plain0)
 
     # 9. the quantized uploads, decoded on the card, against the host decode ---------
     upload_phase(dev, granules[:2])
+
+    # 10. the unmasked bf16 stream at the bench geometry ------------------------------
+    bf16_rows, bf16_timings = bf16_phase(dev, x, tpl, mf_k)
+    mk.reset_launch_counts()
+    pred_b, mf_b = emit_granule_to_mask(scene["radiance"], rgb, template, model,
+                                        column_step=STEP, num_iter=NUM_ITER, alpha=ALPHA,
+                                        stream_dtype=torch.bfloat16)
+    launches_b = dict(mk.LAUNCH_COUNTS)
+    print("bf16 main-path launches:", json.dumps(launches_b), flush=True)
+    want = {k: 0 for k in launches_b}
+    want.update({"init_stats": 1, "blocked_transpose": 1, "filter_round_bsp": NUM_ITER + 1,
+                 "filter_glue": NUM_ITER})
+    check(launches_b == want, f"bf16 granule -> mask launches {launches_b} (want {want}: one "
+                              f"bf16 filter, no K1 or K2 round)")
+    pred_b = pred_b.cpu().numpy()
+    check(pred_b.shape == (H, W) and bool(np.isfinite(pred_b).all()),
+          f"bf16 granule -> mask: mask {pred_b.shape} finite")
+    bf16_contract(mf_slice, mf_b, "bf16 granule -> mask mf vs the f32 slice's")
+    for row in bf16_rows:
+        row["launches"] = launches_b[row["name"]]
+    # The batched entry point: two copies of the scene side by side, one filter.
+    mk.reset_launch_counts()
+    _, mf_bb = emit_granule_to_mask_batched(np.stack([scene["radiance"]] * 2),
+                                            np.stack([rgb] * 2), template, model,
+                                            column_step=STEP, num_iter=NUM_ITER, alpha=ALPHA,
+                                            stream_dtype=torch.bfloat16)
+    launches_bb = dict(mk.LAUNCH_COUNTS)
+    cb = corr(mf_bb[1], mf_b)
+    check(launches_bb == want and cb > 0.9999,
+          f"bf16 batched granules -> masks (B = 2): launches {launches_bb} as one filter's, "
+          f"each scene's mf correlation {cb:.7f} with the single call's (> 0.9999)")
+    with torch.inference_mode():
+        bf16_timings["granule_to_mask_bf16_ms"] = cuda_ms(lambda: emit_granule_to_mask(
+            x, x_dev_rgb, template, model, column_step=STEP, num_iter=NUM_ITER, alpha=ALPHA,
+            stream_dtype=torch.bfloat16))
+    glue = next(k for k in kernels if k["name"] == "filter_glue")
+    init = next(k for k in kernels if k["name"] == "init_stats")
+    init.update(bf16_launches=launches_b["init_stats"],
+                also_replaces=f"{REPLACES}:1164 (_init_stats_kernel, row 10, on the bf16 route)")
+    shared = (init, launches_b["init_stats"]), (glue, launches_b["filter_glue"])
+    bf16_timings["bf16_filter_bound_ms"] = (
+        sum(k["bound_ms"] * k["launches"] for k in bf16_rows)
+        + sum(k["bound_ms"] * c for k, c in shared))
+    bf16_timings["bf16_filter_kernels_ms"] = (
+        sum(k["ms"] * k["launches"] for k in bf16_rows) + sum(k["ms"] * c for k, c in shared))
+    profile_granule(lambda: emit_granule_to_mask(x, x_dev_rgb, template, model,
+                                                 column_step=STEP, num_iter=NUM_ITER,
+                                                 alpha=ALPHA, stream_dtype=torch.bfloat16),
+                    "granule_to_mask_bf16")
+
+    # 11. the masked bf16 stream on a served granule, then served with the bf16-resident
+    # U-Net ------------------------------------------------------------------------------
+    masked_bf16_rows, masked_bf16_timings = masked_bf16_phase(dev, template, granules[0])
+    model_bf16 = seeded_model(dev, bf16=True)
+    served_b, served_bf16_timings = serving_bf16_phase(dev, model, model_bf16, granules,
+                                                       f32_served)
+    with torch.inference_mode():
+        served_bf16_timings["unet_forward_bf16_ms"] = cuda_ms(lambda: model_bf16(unet_in))
+    count_key = {"blocked_transpose_masked": "blocked_transpose"}
+    for row in masked_bf16_rows:
+        row["launches"] = served_b[count_key.get(row["name"], row["name"])]
+    n_g = len(granules)
+    masked_bf16_timings["bf16_masked_filter_bound_ms"] = (
+        sum(k["bound_ms"] * k["launches"] / n_g for k in masked_bf16_rows)
+        + glue["bound_ms"] * served_b["filter_glue"] / n_g)
+    masked_bf16_timings["bf16_masked_filter_kernels_ms"] = (
+        sum(k["ms"] * k["launches"] / n_g for k in masked_bf16_rows)
+        + glue["ms"] * served_b["filter_glue"] / n_g)
     per_granule = {k: v / len(granules) for k, v in served.items()}
     for row in masked_rows:
         row["launches"] = served[row["name"]]
-        row["path"] = f"served granules ({len(granules)}, ScenePipeline, f32 upload)"
         if row["name"] == "init_stats_masked":
             row["note"] = notes["init_stats"]
-    glue = next(k for k in kernels if k["name"] == "filter_glue")
     glue.update(served_launches=served["filter_glue"],
                 served_rel_err_vs_f64=glue_masked["rel_err"],
-                served_max_abs_err=glue_masked["max_abs_err"])
+                served_max_abs_err=glue_masked["max_abs_err"],
+                bf16_launches=launches_b["filter_glue"],
+                bf16_served_launches=served_b["filter_glue"])
     masked_timings["masked_filter_bound_ms"] = (
         sum(k["bound_ms"] * per_granule[k["name"]] for k in masked_rows)
         + glue["bound_ms"] * per_granule["filter_glue"])
     masked_timings["masked_filter_kernels_ms"] = (
         sum(k["ms"] * per_granule[k["name"]] for k in masked_rows)
         + glue["ms"] * per_granule["filter_glue"])
-    kernels += masked_rows
+    kernels += masked_rows + bf16_rows + masked_bf16_rows
     print("timings " + json.dumps({"card": card, **timings, **masked_timings,
-                                   **serving_timings}), flush=True)
+                                   **serving_timings, **bf16_timings, **masked_bf16_timings,
+                                   **served_bf16_timings}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

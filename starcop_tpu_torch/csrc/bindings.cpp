@@ -21,6 +21,16 @@ int starcop_filter_round(int mode, const float* x, const unsigned char* valid, c
 int starcop_filter_glue(const float* partial, const float* carry_in, float* carry_out,
                         const float* m0, const float* tmpl, const float* k0, const float* nin,
                         int S, int nb, int nchunks, float alpha, void* stream);
+int starcop_blocked_transpose(const float* x, const float* m0, const unsigned char* valid,
+                              void* out, int H, int W, int S, int R, int nb, int step,
+                              void* stream);
+int starcop_init_stats_bsp(const void* xs, const float* n_given, float* partial, float* c0,
+                           int nb, int R, int P, int chunk, int nchunks, void* stream);
+int starcop_filter_round_bsp(int mode, const void* xs, const unsigned char* valid,
+                             int bf16_dots, const float* m0, const float* carry, float* r,
+                             const float* mf_in, float* mf_out, float* partial, int H, int W,
+                             int S, int R, int nb, int step, int chunk, int nchunks,
+                             float cov_scale, void* stream);
 }
 
 namespace {
@@ -152,6 +162,83 @@ void filter_glue(const at::Tensor& partial, const at::Tensor& carry_in,
                "filter_glue");
 }
 
+// The bf16 stream (nb, R, P): R >= S band rows (a multiple of 8).
+void check_stream(const at::Tensor& xs, const at::Tensor& like, int64_t nb, int64_t rows,
+                  int64_t p) {
+  check(xs, like, "xs", {nb, rows, p}, at::kBFloat16);
+  TORCH_CHECK(rows % 8 == 0 && rows <= starcop_max_bands(), "stream rows ", rows,
+              " must be a multiple of 8 and <= ", starcop_max_bands());
+}
+
+void blocked_transpose(const at::Tensor& x, const at::Tensor& m0,
+                       const std::optional<at::Tensor>& valid, const at::Tensor& out,
+                       int64_t nb, int64_t step, int64_t stream) {
+  const Cube c = check_cube(x, nb, step, valid ? &*valid : nullptr);
+  TORCH_CHECK(out.dim() == 3, "out must be (nb, R, H*step)");
+  const int64_t rows = out.size(1);
+  TORCH_CHECK(rows >= c.s, "out has ", rows, " band rows for ", c.s, " bands");
+  check_stream(out, x, nb, rows, c.h * step);
+  check(m0, x, "m0", {nb, c.s});
+  check_launch(starcop_blocked_transpose(x.data_ptr<float>(), m0.data_ptr<float>(),
+                                         valid ? valid->data_ptr<uint8_t>() : nullptr,
+                                         out.data_ptr(), c.h, c.w, c.s, rows, nb, step,
+                                         reinterpret_cast<void*>(stream)),
+               "blocked_transpose");
+}
+
+void init_stats_bsp(const at::Tensor& xs, const at::Tensor& n, const at::Tensor& partial,
+                    const at::Tensor& c0, int64_t chunk, int64_t stream) {
+  TORCH_CHECK(xs.dim() == 3, "xs must be (nb, R, P)");
+  const int64_t nb = xs.size(0), rows = xs.size(1), p = xs.size(2);
+  check_stream(xs, xs, nb, rows, p);
+  const int64_t nchunks = partial.size(1);
+  TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
+  check(partial, xs, "partial", {nb, nchunks, 1 + rows + rows * rows});
+  check(c0, xs, "c0", {nb, rows, rows});
+  check(n, xs, "n", {nb});
+  check_launch(starcop_init_stats_bsp(xs.data_ptr(), n.data_ptr<float>(),
+                                      partial.data_ptr<float>(), c0.data_ptr<float>(), nb, rows,
+                                      p, chunk, nchunks, reinterpret_cast<void*>(stream)),
+               "init_stats_bsp");
+}
+
+void filter_round_bsp(int64_t mode, const at::Tensor& xs, const std::optional<at::Tensor>& valid,
+                      bool bf16_dots, const at::Tensor& m0, const at::Tensor& carry,
+                      const at::Tensor& r, const at::Tensor& mf_in, const at::Tensor& mf_out,
+                      const at::Tensor& partial, int64_t step, int64_t chunk, double cov_scale,
+                      int64_t stream) {
+  TORCH_CHECK(xs.dim() == 3 && m0.dim() == 2, "xs must be (nb, R, P) and m0 (nb, S)");
+  const int64_t nb = xs.size(0), rows = xs.size(1), p = xs.size(2), s = m0.size(1);
+  check_stream(xs, xs, nb, rows, p);
+  TORCH_CHECK(s >= 1 && s <= rows, "m0 has ", s, " bands for a stream of ", rows, " rows");
+  TORCH_CHECK(step >= 1 && p % step == 0, "P = ", p, " is not H * step for step ", step);
+  const int64_t h = p / step;
+  int64_t w = nb * step;
+  if (valid) {
+    TORCH_CHECK(valid->dim() == 2 && valid->size(0) == h, "valid must be (H, W) with H = ", h);
+    w = valid->size(1);
+    TORCH_CHECK((nb - 1) * step < w && w <= nb * step, "valid width ", w, " does not give nb = ",
+                nb, " blocks of ", step, " columns");
+    check(*valid, xs, "valid", {h, w}, at::kByte);
+  }
+  const int64_t nchunks = partial.size(1);
+  TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
+  check(m0, xs, "m0", {nb, s});
+  check(carry, xs, "carry", {nb, 4, s});
+  check(r, xs, "r", {nb, p});
+  check(mf_in, xs, "mf_in", {nb, p});
+  check(mf_out, xs, "mf_out", {nb, p});
+  check(partial, xs, "partial", {nb, nchunks, s + 2});
+  check_launch(starcop_filter_round_bsp(
+                   static_cast<int>(mode), xs.data_ptr(),
+                   valid ? valid->data_ptr<uint8_t>() : nullptr, bf16_dots, m0.data_ptr<float>(),
+                   carry.data_ptr<float>(), r.data_ptr<float>(), mf_in.data_ptr<float>(),
+                   mf_out.data_ptr<float>(), partial.data_ptr<float>(), h, w, s, rows, nb, step,
+                   chunk, nchunks, static_cast<float>(cov_scale),
+                   reinterpret_cast<void*>(stream)),
+               "filter_round_bsp");
+}
+
 }  // namespace
 
 TORCH_LIBRARY(starcop_mag1c, m) {
@@ -172,4 +259,14 @@ TORCH_LIBRARY(starcop_mag1c, m) {
   m.def("filter_glue(Tensor partial, Tensor carry_in, Tensor(a!) carry_out, Tensor m0, "
         "Tensor tmpl, Tensor k0, Tensor nin, float alpha, int stream) -> ()",
         &filter_glue);
+  m.def("blocked_transpose(Tensor x, Tensor m0, Tensor? valid, Tensor(a!) out, int nb, "
+        "int step, int stream) -> ()",
+        &blocked_transpose);
+  m.def("init_stats_bsp(Tensor xs, Tensor n, Tensor(a!) partial, Tensor(b!) c0, int chunk, "
+        "int stream) -> ()",
+        &init_stats_bsp);
+  m.def("filter_round_bsp(int mode, Tensor xs, Tensor? valid, bool bf16_dots, Tensor m0, "
+        "Tensor carry, Tensor(a!) r, Tensor mf_in, Tensor(b!) mf_out, Tensor(c!) partial, "
+        "int step, int chunk, float cov_scale, int stream) -> ()",
+        &filter_round_bsp);
 }

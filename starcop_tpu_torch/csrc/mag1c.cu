@@ -51,10 +51,34 @@
 // fixed order, so a rerun is bitwise identical. Cross-chunk reductions and
 // the glue's dot products accumulate in f64.
 //
+// The bf16 stream (stream_dtype=bf16) works on the blocked (nb, R, P)
+// layout: band row s of column block b is R*P contiguous values, R >= S a
+// multiple of 8 (rows S..R-1 zero), pixel p = h*step + j.
+//
+//   blocked_transpose <- _blocked_transpose_kernel (:92) and
+//                        _blocked_transpose_swh_kernel (:170) followed by
+//                        the XLA centre-and-cast (:1706, :1796-1798): the
+//                        (H, W, S) cube to the blocked layout, centred by m0,
+//                        optionally masked, stored bf16.
+//   init_stats        <- _init_stats_kernel (:1164) as well: the unmasked
+//                        route takes m0 and C0 from the cube itself, so no
+//                        f32 blocked copy is made.
+//   init_stats_bsp    <- the XLA second moment of the masked bf16 stream
+//                        (:1814-1824).
+//   filter_round_bsp  <- _resident_kernel (:1048) with bf16 storage and f32
+//                        math (unmasked), and _first_round_kernel (:594) /
+//                        _loop_round_kernel (:664) with bf16_dots (masked).
+//
+// One bf16 block is 7.7 MB and the whole stream ~178 MB at EMIT size, far
+// beyond an SM's 228 KB and the 50 MB L2, so the stream is read once per
+// pass as K1 reads the cube: every filter_round_bsp launch is bound by the
+// stream's HBM bytes, half of the f32 cube's.
+//
 // Interface: plain C functions taking raw pointers and the caller's stream;
 // bindings.cpp registers them as torch ops. Each returns the cudaError_t of
 // its launches.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -62,6 +86,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSub = 32;       // pixels per shared-memory tile in init_stats (one warp)
+constexpr int kMaxBands = 128;
 constexpr float kEpsilon = 1e-9f;
 constexpr float kScaling = 1e5f;
 
@@ -106,6 +131,42 @@ __device__ __forceinline__ float warp_sum(float v) {
 // SP = 16 * TS >= S bands (padding bands stay zero).
 // Partial record per (b, c): [n | mean(S) | scatter(S*S)].
 // ---------------------------------------------------------------------------
+
+// acc[i][k] += sum over the tile's first n_span rows of
+// tile[pl][ty + 16 i] * tile[pl][tx + 16 k].
+template <int TS>
+__device__ __forceinline__ void scatter_tile(const float (*tile)[16 * TS + 1], int n_span,
+                                             float (&acc)[TS][TS]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  for (int pl = 0; pl < n_span; ++pl) {
+    float av[TS], bv[TS];
+#pragma unroll
+    for (int i = 0; i < TS; ++i) av[i] = tile[pl][ty + 16 * i];
+#pragma unroll
+    for (int k = 0; k < TS; ++k) bv[k] = tile[pl][tx + 16 * k];
+#pragma unroll
+    for (int i = 0; i < TS; ++i)
+#pragma unroll
+      for (int k = 0; k < TS; ++k) acc[i][k] = fmaf(av[i], bv[k], acc[i][k]);
+  }
+}
+
+// The partial record [n | mean(S) | scatter(S*S)] of (b, c).
+template <int TS>
+__device__ __forceinline__ void write_stats_record(float* rec, int n, const float* mean,
+                                                   const float (&acc)[TS][TS], int S) {
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  if (tid == 0) rec[0] = (float)n;
+  if (tid < S) rec[1 + tid] = mean[tid];
+#pragma unroll
+  for (int i = 0; i < TS; ++i)
+#pragma unroll
+    for (int k = 0; k < TS; ++k) {
+      const int a = ty + 16 * i, bb = tx + 16 * k;
+      if (a < S && bb < S) rec[1 + S + a * S + bb] = acc[i][k];
+    }
+}
+
 template <int TS, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
 init_stats_partial_kernel(const float* __restrict__ x, const unsigned char* __restrict__ valid,
@@ -180,31 +241,57 @@ init_stats_partial_kernel(const float* __restrict__ x, const unsigned char* __re
 #pragma unroll
       for (int k = 0; k < TS; ++k)
         acc[i][k] = fmaf(coef * delta[ty + 16 * i], delta[tx + 16 * k], acc[i][k]);
-    for (int pl = 0; pl < n_span; ++pl) {
-      float av[TS], bv[TS];
-#pragma unroll
-      for (int i = 0; i < TS; ++i) av[i] = tile[pl][ty + 16 * i];
-#pragma unroll
-      for (int k = 0; k < TS; ++k) bv[k] = tile[pl][tx + 16 * k];
-#pragma unroll
-      for (int i = 0; i < TS; ++i)
-#pragma unroll
-        for (int k = 0; k < TS; ++k) acc[i][k] = fmaf(av[i], bv[k], acc[i][k]);
-    }
+    scatter_tile<TS>(tile, n_span, acc);
     n_run += n_tile;
     __syncthreads();
   }
+  write_stats_record<TS>(partial + ((long long)b * nchunks + c) * (1 + S + S * S), n_run, mean,
+                         acc, S);
+}
 
-  float* rec = partial + ((long long)b * nchunks + c) * (1 + S + S * S);
-  if (tid == 0) rec[0] = (float)n_run;
-  if (tid < S) rec[1 + tid] = mean[tid];
+// ---------------------------------------------------------------------------
+// init_stats_bsp, pass 1: the raw second moment sum xs xs^T of the centred
+// bf16 stream (nb, R, P), which is zero wherever a pixel does not count, in
+// init_stats_partial_kernel's tiles (f32 products and sums, no re-centring,
+// as :1814-1824). Row s of a tile is 32 contiguous pixels of band row s, so
+// a warp's load is one coalesced span. The records carry zero means, so the
+// shared reduce adds their scatters alone. One read of the stream.
+// ---------------------------------------------------------------------------
+template <int TS>
+__global__ void __launch_bounds__(kThreads)
+init_stats_bsp_partial_kernel(const __nv_bfloat16* __restrict__ xs, float* __restrict__ partial,
+                              int R, int P, int chunk, int nchunks) {
+  constexpr int SP = 16 * TS;
+  __shared__ float tile[kSub][SP + 1];
+  __shared__ float mean[SP];  // zero
+
+  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int p_beg = c * chunk;
+  const int p_end = min(P, p_beg + chunk);
+  const __nv_bfloat16* xb = xs + (long long)b * R * P;
+
+  float acc[TS][TS];
 #pragma unroll
   for (int i = 0; i < TS; ++i)
 #pragma unroll
-    for (int k = 0; k < TS; ++k) {
-      const int a = ty + 16 * i, bb = tx + 16 * k;
-      if (a < S && bb < S) rec[1 + S + a * S + bb] = acc[i][k];
+    for (int k = 0; k < TS; ++k) acc[i][k] = 0.f;
+
+  for (int e = tid; e < kSub * (SP + 1); e += kThreads) (&tile[0][0])[e] = 0.f;
+  if (tid < SP) mean[tid] = 0.f;
+  __syncthreads();
+
+  for (int p0 = p_beg; p0 < p_end; p0 += kSub) {
+    const int n_span = min(kSub, p_end - p0);
+    for (int e = tid; e < kSub * R; e += kThreads) {
+      const int s = e / kSub, pl = e - s * kSub;
+      if (pl < n_span) tile[pl][s] = __bfloat162float(xb[(long long)s * P + p0 + pl]);
     }
+    __syncthreads();
+    scatter_tile<TS>(tile, n_span, acc);
+    __syncthreads();
+  }
+  write_stats_record<TS>(partial + ((long long)b * nchunks + c) * (1 + R + R * R),
+                         p_end - p_beg, mean, acc, R);
 }
 
 // ---------------------------------------------------------------------------
@@ -213,11 +300,13 @@ init_stats_partial_kernel(const float* __restrict__ x, const unsigned char* __re
 //   m = sum_c n_c mean_c / n,
 //   C = sum_c [M_c + n_c (mean_c - m)(mean_c - m)^T] / n,
 // with n clamped to >= 1 (a block with no valid pixel gets m0 = 0, C0 = 0,
-// as JAX's max(sum w, 1)).
+// as JAX's max(sum w, 1)). With n_given (init_stats_bsp, whose records carry
+// zero means) n is the block's given valid count instead and m0 is not
+// written.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
-init_stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ m0,
-                         float* __restrict__ c0, int S, int nchunks) {
+init_stats_reduce_kernel(const float* __restrict__ partial, const float* __restrict__ n_given,
+                         float* __restrict__ m0, float* __restrict__ c0, int S, int nchunks) {
   extern __shared__ double mean_all[];  // S
   const int b = blockIdx.x, tid = threadIdx.x;
   const int rec_len = 1 + S + S * S;
@@ -225,7 +314,7 @@ init_stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ 
 
   double n = 0.0;
   for (int c = 0; c < nchunks; ++c) n += (double)base[(long long)c * rec_len];
-  n = fmax(n, 1.0);
+  n = n_given != nullptr ? (double)n_given[b] : fmax(n, 1.0);
   for (int s = tid; s < S; s += kThreads) {
     double acc = 0.0;
     for (int c = 0; c < nchunks; ++c) {
@@ -233,7 +322,7 @@ init_stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ 
       acc += (double)rec[0] * (double)rec[1 + s];
     }
     mean_all[s] = acc / n;
-    m0[(long long)b * S + s] = (float)(acc / n);
+    if (m0 != nullptr) m0[(long long)b * S + s] = (float)(acc / n);
   }
   __syncthreads();
   for (int e = tid; e < S * S; e += kThreads) {
@@ -378,6 +467,181 @@ filter_round_kernel(const float* __restrict__ x, const unsigned char* __restrict
     for (int w = 0; w < kWarps; ++w)
       acc += s < S ? red_u[w][s] : red_g[w][s - S];
     rec[s] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// blocked_transpose: the (H, W, S) f32 cube -> the centred bf16 stream
+// (nb, R, P), out[b, s, h*step + j] = bf16(x[h, b*step + j, s] - m0[b, s])
+// (round to nearest even), rows S..R-1 zero. Optionally masked by the
+// (H, W) uint8 valid mask (0 where the mask is unset or the column is >= W,
+// selected, never multiplied). A CTA stages TP pixels x S
+// bands in shared memory: it reads them pixel-major, as the cube lies (runs
+// of step * S contiguous floats), and writes them band-major, TP contiguous
+// pixels per band row. Bound by HBM bytes (one read, one write).
+// ---------------------------------------------------------------------------
+constexpr int kTransposePixels = 64;
+
+__global__ void __launch_bounds__(kThreads)
+blocked_transpose_kernel(const float* __restrict__ x, const float* __restrict__ m0,
+                         const unsigned char* __restrict__ valid, __nv_bfloat16* __restrict__ out,
+                         int W, int S, int R, int step, int P) {
+  constexpr int TP = kTransposePixels;
+  extern __shared__ float staged[];  // [TP][S + 1]
+  const int b = blockIdx.y, p0 = blockIdx.x * TP, tid = threadIdx.x;
+  const int n_span = min(TP, P - p0);
+  for (int e = tid; e < n_span * S; e += kThreads) {
+    const int pl = e / S, s = e - pl * S;
+    const int p = p0 + pl, h = p / step;
+    const int col = b * step + (p - h * step);
+    const long long hw = (long long)h * W + col;
+    float v = 0.f;
+    if (col < W && (valid == nullptr || valid[hw] != 0)) v = x[hw * S + s] - m0[(long long)b * S + s];
+    staged[pl * (S + 1) + s] = v;
+  }
+  __syncthreads();
+  __nv_bfloat16* ob = out + (long long)b * R * P + p0;
+  for (int e = tid; e < R * TP; e += kThreads) {
+    const int s = e / TP, pl = e - s * TP;
+    if (pl < n_span)
+      ob[(long long)s * P + pl] = __float2bfloat16_rn(s < S ? staged[pl * (S + 1) + s] : 0.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// filter_round_bsp: one streaming pass of the filter over the centred bf16
+// stream (nb, R, P), the counterpart of filter_round for the blocked layout.
+//
+// A CTA of TP threads owns a chunk of one block and walks it in tiles of TP
+// pixels, thread t on pixel p0 + t. Per tile: each thread reads its pixel's S
+// band values (one coalesced 2*TP-byte row per band), stages them in shared
+// memory and forms proj = cit.xs - cit.mu (and q = m0.xs in FIRST); then mf,
+// R and g = cov_scale R mf as filter_round does; then thread t < S adds its
+// band's u[t] += sum over the tile of xs[t, p] g[p]. The per-chunk record is
+// [u(S) | sum g | sum g^2] for filter_glue. Sums run in a fixed order, so a
+// rerun is bitwise identical.
+//
+// BF16_DOTS (the masked route, _first_round_kernel / _loop_round_kernel with
+// bf16_dots=True): cit, m0 and g are rounded to bf16 before their products
+// with the stream (:633-636, :693-701, _lane_dot :555-574), as JAX's bf16 MXU
+// dots take them; the products are then exact in f32 and accumulate in f32.
+// cit.mu, m0.m0, sum g, sum g^2 and the glue stay f32. Without it (the
+// unmasked resident route, _resident_kernel :1088-1095) bf16 is storage only
+// and every product is f32.
+//
+// MASKED reads the (H, W) uint8 mask and the width W as filter_round_masked
+// does: a pixel that does not count loads nothing and gets mf = 0, R = 1.
+// ---------------------------------------------------------------------------
+constexpr int kRoundBspThreads = 128;
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <int MODE, bool MASKED, bool BF16_DOTS>
+__global__ void __launch_bounds__(kRoundBspThreads)
+filter_round_bsp_kernel(const __nv_bfloat16* __restrict__ xs,
+                        const unsigned char* __restrict__ valid, const float* __restrict__ m0,
+                        const float* __restrict__ carry, float* __restrict__ r,
+                        const float* __restrict__ mf_in, float* __restrict__ mf_out,
+                        float* __restrict__ partial, int W, int S, int R, int step, int P,
+                        int chunk, int nchunks, float cov_scale) {
+  constexpr int TP = kRoundBspThreads;
+  constexpr int LD = TP + 2;  // staged row pitch: an odd number of words, no bank conflicts
+  extern __shared__ __nv_bfloat16 xt[];  // [S][LD]
+  __shared__ float cit_d[kMaxBands], m0_d[kMaxBands], g_d[TP];
+  __shared__ float red[2][TP / 32];
+  __shared__ float consts[2];  // cit . mu, m0 . m0
+
+  const int c = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+  const float* cb = carry + (long long)b * 4 * S;
+  const float* mb = m0 + (long long)b * S;
+  for (int s = t; s < S; s += TP) {
+    cit_d[s] = BF16_DOTS ? bf16_round(cb[2 * S + s]) : cb[2 * S + s];
+    m0_d[s] = BF16_DOTS ? bf16_round(mb[s]) : mb[s];
+  }
+  if (t == 0) {
+    float shift = 0.f, m0n = 0.f;
+    for (int s = 0; s < S; ++s) {
+      shift = fmaf(cb[2 * S + s], cb[s], shift);
+      m0n = fmaf(mb[s], mb[s], m0n);
+    }
+    consts[0] = shift;
+    consts[1] = m0n;
+  }
+  __syncthreads();
+  const float shift = consts[0], m0n = consts[1], norm = cb[3 * S];
+
+  float uacc = 0.f, gsum = 0.f, gsq = 0.f;
+  const int p_beg = c * chunk;
+  const int p_end = min(P, p_beg + chunk);
+  const __nv_bfloat16* xb = xs + (long long)b * R * P;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  for (int p0 = p_beg; p0 < p_end; p0 += TP) {
+    const int p = p0 + t;
+    const bool in = p < p_end;
+    bool ok = in;
+    if (MASKED && in) {
+      const int h = p / step;
+      const int col = b * step + (p - h * step);
+      ok = col < W && valid[(long long)h * W + col] != 0;
+    }
+    float proj = 0.f, q = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const __nv_bfloat16 v = ok ? xb[(long long)s * P + p] : zero;
+      if (MODE != kFinal) xt[s * LD + t] = v;
+      const float xv = __bfloat162float(v);
+      proj = fmaf(cit_d[s], xv, proj);
+      if (MODE == kFirst) q = fmaf(m0_d[s], xv, q);
+    }
+    float ru = 1.f, mf = 0.f;
+    if (ok) {
+      const long long i = (long long)b * P + p;
+      if (MODE == kFirst) {
+        ru = q / m0n + 1.f;
+        mf = fmaxf((proj - shift) / (ru * norm), 0.f);
+      } else {
+        ru = r[i];
+        const float reg = 1.f / (ru * (mf_in[i] + kEpsilon));
+        mf = fmaxf((proj - shift - reg) / (ru * norm), 0.f);
+      }
+    }
+    if (in) {
+      const long long i = (long long)b * P + p;
+      if (MODE == kFirst) r[i] = ru;
+      mf_out[i] = MODE == kFinal ? mf * kScaling : mf;
+    }
+    if (MODE == kFinal) continue;
+    const float g = cov_scale * (ru * mf);  // 0 where the pixel does not count
+    gsum += g;
+    gsq = fmaf(g, g, gsq);
+    g_d[t] = BF16_DOTS ? bf16_round(g) : g;
+    __syncthreads();
+    if (t < S) {
+      const __nv_bfloat16* row = xt + t * LD;
+      for (int k = 0; k < TP; ++k) uacc = fmaf(__bfloat162float(row[k]), g_d[k], uacc);
+    }
+    __syncthreads();
+  }
+  if (MODE == kFinal) return;
+
+  gsum = warp_sum(gsum);
+  gsq = warp_sum(gsq);
+  if (t % 32 == 0) {
+    red[0][t / 32] = gsum;
+    red[1][t / 32] = gsq;
+  }
+  __syncthreads();
+  float* rec = partial + ((long long)b * nchunks + c) * (S + 2);
+  if (t < S) rec[t] = uacc;
+  if (t == 0) {
+    float sum_g = 0.f, sum_g2 = 0.f;
+    for (int w = 0; w < TP / 32; ++w) {
+      sum_g += red[0][w];
+      sum_g2 += red[1][w];
+    }
+    rec[S] = sum_g;
+    rec[S + 1] = sum_g2;
   }
 }
 
@@ -549,6 +813,42 @@ cudaError_t launch_round(int mode, const float* x, const unsigned char* valid, c
   return cudaGetLastError();
 }
 
+template <int TS>
+cudaError_t launch_init_bsp(const void* xs, float* partial, int R, int P, int chunk, int nchunks,
+                            int nb, cudaStream_t st) {
+  init_stats_bsp_partial_kernel<TS><<<dim3(nchunks, nb), kThreads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(xs), partial, R, P, chunk, nchunks);
+  return cudaGetLastError();
+}
+
+template <bool MASKED, bool BF16_DOTS>
+cudaError_t launch_round_bsp(int mode, const __nv_bfloat16* xs, const unsigned char* valid,
+                             const float* m0, const float* carry, float* r, const float* mf_in,
+                             float* mf_out, float* partial, int W, int S, int R, int step, int P,
+                             int chunk, int nchunks, int nb, float cov_scale, cudaStream_t st) {
+  const dim3 grid(nchunks, nb);
+  const size_t smem = (size_t)S * (kRoundBspThreads + 2) * sizeof(__nv_bfloat16);
+  if (mode == kFirst)
+    filter_round_bsp_kernel<kFirst, MASKED, BF16_DOTS><<<grid, kRoundBspThreads, smem, st>>>(
+        xs, valid, m0, carry, r, mf_in, mf_out, partial, W, S, R, step, P, chunk, nchunks,
+        cov_scale);
+  else if (mode == kLoop)
+    filter_round_bsp_kernel<kLoop, MASKED, BF16_DOTS><<<grid, kRoundBspThreads, smem, st>>>(
+        xs, valid, m0, carry, r, mf_in, mf_out, partial, W, S, R, step, P, chunk, nchunks,
+        cov_scale);
+  else
+    filter_round_bsp_kernel<kFinal, MASKED, BF16_DOTS><<<grid, kRoundBspThreads, smem, st>>>(
+        xs, valid, m0, carry, r, mf_in, mf_out, partial, W, S, R, step, P, chunk, nchunks,
+        cov_scale);
+  return cudaGetLastError();
+}
+
+template <bool MASKED, typename... Args>
+cudaError_t launch_round_bsp_dots(bool bf16_dots, Args... args) {
+  return bf16_dots ? launch_round_bsp<MASKED, true>(args...)
+                   : launch_round_bsp<MASKED, false>(args...);
+}
+
 }  // namespace
 
 extern "C" {
@@ -580,8 +880,69 @@ int starcop_init_stats(const float* x, const unsigned char* valid, float* partia
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  init_stats_reduce_kernel<<<nb, kThreads, S * sizeof(double), st>>>(partial, m0, c0, S, nchunks);
+  init_stats_reduce_kernel<<<nb, kThreads, S * sizeof(double), st>>>(partial, nullptr, m0, c0, S,
+                                                                     nchunks);
   return (int)cudaGetLastError();
+}
+
+// The (H, W, S) f32 cube -> the bf16 stream (nb, R, P) centred by m0
+// (nb, S); valid (H, W) masks when given.
+int starcop_blocked_transpose(const float* x, const float* m0, const unsigned char* valid,
+                              void* out, int H, int W, int S, int R, int nb, int step,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S < 1 || S > kMaxBands || R < S) return (int)cudaErrorInvalidValue;
+  const int P = H * step;
+  const dim3 grid((P + kTransposePixels - 1) / kTransposePixels, nb);
+  const size_t smem = (size_t)kTransposePixels * (S + 1) * sizeof(float);
+  blocked_transpose_kernel<<<grid, kThreads, smem, st>>>(
+      x, m0, valid, static_cast<__nv_bfloat16*>(out), W, S, R, step, P);
+  return (int)cudaGetLastError();
+}
+
+// C0 (nb, R, R) = sum xs xs^T / n_given[b] of the centred bf16 stream
+// (nb, R, P).
+int starcop_init_stats_bsp(const void* xs, const float* n_given, float* partial, float* c0,
+                           int nb, int R, int P, int chunk, int nchunks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch ((R + 15) / 16) {
+    case 1: err = launch_init_bsp<1>(xs, partial, R, P, chunk, nchunks, nb, st); break;
+    case 2: err = launch_init_bsp<2>(xs, partial, R, P, chunk, nchunks, nb, st); break;
+    case 3: err = launch_init_bsp<3>(xs, partial, R, P, chunk, nchunks, nb, st); break;
+    case 4: err = launch_init_bsp<4>(xs, partial, R, P, chunk, nchunks, nb, st); break;
+    case 5: err = launch_init_bsp<5>(xs, partial, R, P, chunk, nchunks, nb, st); break;
+    case 6: err = launch_init_bsp<6>(xs, partial, R, P, chunk, nchunks, nb, st); break;
+    case 7: err = launch_init_bsp<7>(xs, partial, R, P, chunk, nchunks, nb, st); break;
+    case 8: err = launch_init_bsp<8>(xs, partial, R, P, chunk, nchunks, nb, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  init_stats_reduce_kernel<<<nb, kThreads, R * sizeof(double), st>>>(partial, n_given, nullptr,
+                                                                     c0, R, nchunks);
+  return (int)cudaGetLastError();
+}
+
+// One pass over the bf16 stream (nb, R, P) with S <= R live bands; valid ==
+// nullptr: every pixel counts (the unmasked resident route), else the (H, W)
+// mask and the width W select. bf16_dots rounds cit, m0 and g to bf16.
+int starcop_filter_round_bsp(int mode, const void* xs, const unsigned char* valid,
+                             int bf16_dots, const float* m0, const float* carry, float* r,
+                             const float* mf_in, float* mf_out, float* partial, int H, int W,
+                             int S, int R, int nb, int step, int chunk, int nchunks,
+                             float cov_scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode < kFirst || mode > kFinal || S < 1 || S > kMaxBands || R < S)
+    return (int)cudaErrorInvalidValue;
+  const auto* x = static_cast<const __nv_bfloat16*>(xs);
+  const int P = H * step;
+  if (valid != nullptr)
+    return (int)launch_round_bsp_dots<true>(bf16_dots != 0, mode, x, valid, m0, carry, r, mf_in,
+                                            mf_out, partial, W, S, R, step, P, chunk, nchunks,
+                                            nb, cov_scale, st);
+  return (int)launch_round_bsp_dots<false>(bf16_dots != 0, mode, x, valid, m0, carry, r, mf_in,
+                                           mf_out, partial, W, S, R, step, P, chunk, nchunks, nb,
+                                           cov_scale, st);
 }
 
 // valid == nullptr: filter_round; else filter_round_masked.

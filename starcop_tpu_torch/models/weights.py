@@ -16,11 +16,13 @@
 Conv kernels (kh, kw, I, O) -> (O, I, kh, kw) (depthwise (kh, kw, 1, C) ->
 (C, 1, kh, kw)); BN scale/bias/mean/var -> weight/bias/running_mean/
 running_var, plus ``num_batches_tracked`` so ``load_state_dict(strict=True)``
-passes. ``load_lightning_state_dict`` reads a released Lightning checkpoint.
+passes. ``load_lightning_state_dict`` reads a released Lightning checkpoint,
+``load_pretrained_state_dict`` a checkpoint file or folder of either kind.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -77,6 +79,47 @@ def flax_to_torch_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Te
     sd["segmentation_head.0.weight"] = _conv(params["segmentation_head"]["kernel"])
     sd["segmentation_head.0.bias"] = _tensor(params["segmentation_head"]["bias"])
     return sd
+
+
+CHECKPOINT_NAMES = ("final_checkpoint_model.ckpt", "model.pt", "best.npz",
+                    "final_checkpoint_model.npz")
+
+
+def _npz_variables(path: str) -> Dict[str, Any]:
+    """A framework .npz checkpoint (flat keys ``params/...`` and
+    ``batch_stats/...``; ``step`` and ``opt_state/...`` skipped) -> nested
+    ``{"params", "batch_stats"}`` variables."""
+    tree: Dict[str, Dict] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            parts = key.split("/")
+            if parts[0] not in ("params", "batch_stats"):
+                continue
+            node = tree.setdefault(parts[0], {})
+            for p in parts[1:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[key]
+    return tree
+
+
+def load_pretrained_state_dict(path_or_folder: str) -> Dict[str, torch.Tensor]:
+    """The ``MobileNetV2UNet`` state_dict of a checkpoint file, or of the
+    first of ``CHECKPOINT_NAMES`` found in a folder (the candidates and the
+    .npz layout of starcop_tpu/setup_shims.py:85-121): a framework .npz
+    through ``flax_to_torch_state_dict``, a Lightning .ckpt or a torch .pt
+    through ``load_lightning_state_dict`` (loaded with
+    ``weights_only=True``: tensors and plain containers only)."""
+    path = path_or_folder
+    if os.path.isdir(path):
+        for name in CHECKPOINT_NAMES:
+            if os.path.exists(os.path.join(path, name)):
+                path = os.path.join(path, name)
+                break
+    if path.endswith((".ckpt", ".pt")):
+        return load_lightning_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    if path.endswith(".npz"):
+        return flax_to_torch_state_dict(_npz_variables(path))
+    raise ValueError(f"Pretrained weights not found at: {path_or_folder}")
 
 
 def load_lightning_state_dict(checkpoint: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -3,7 +3,8 @@
 Counterpart of ``starcop_tpu/ops/mag1c.py``. The plain torch functions here
 (``rmf``, ``acrwl1mf``, the SPD-inverse helpers) restate the JAX math on any
 device; ``mag1c_column_blocks`` runs a whole scene through the hand-written
-CUDA kernels (``ops/mag1c_kernels.py``), with or without a valid mask.
+CUDA kernels (``ops/mag1c_kernels.py``), with or without a valid mask, on
+the f32 cube or a bf16 copy of it.
 
 Semantics (pinned against the JAX package and the float64 oracle by
 tests/test_torch_mag1c.py):
@@ -226,6 +227,17 @@ def acrwl1mf(
     return mf * SCALING, r
 
 
+def is_bf16_stream(stream_dtype) -> bool:
+    """True for the bf16 stream (``torch.bfloat16``), False for the f32 one
+    (None or ``torch.float32``); any other value raises ``ValueError``."""
+    if stream_dtype is None or stream_dtype == torch.float32:
+        return False
+    if stream_dtype == torch.bfloat16:
+        return True
+    raise ValueError(f"stream_dtype must be None, torch.float32 or torch.bfloat16, "
+                     f"got {stream_dtype!r}")
+
+
 def mag1c_column_blocks(
     scene,
     template,
@@ -235,6 +247,7 @@ def mag1c_column_blocks(
     num_iter: int = 30,
     alpha: float = 1e-4,
     fill_value: float = NODATA,
+    stream_dtype=None,
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Matched filter over an (H, W, S) scene in ``column_step``-wide blocks.
@@ -243,18 +256,24 @@ def mag1c_column_blocks(
     detector columns differ), so the batch axis is columns, not tiles.
 
     Routes (the hand-written CUDA kernels on the card, their plain twins on
-    the CPU, the same sequence on both):
-      * no mask and ``W % column_step == 0``: the resident route,
-        ``acrwl1mf_resident``;
-      * a mask or a ragged last block (every served granule): the weighted
-        route, ``acrwl1mf_masked``. The mask goes to the kernels as it is;
-        no padded or zeroed copy of the cube is made.
+    the CPU, the same sequence on both), by ``stream_dtype`` (None or
+    ``torch.float32``: the f32 cube; ``torch.bfloat16``: a centred bf16 copy
+    of it, half the bytes per pass) and the mask:
+      * f32, no mask and ``W % column_step == 0``: ``acrwl1mf_resident``;
+      * f32, a mask or a ragged last block (every served granule):
+        ``acrwl1mf_masked``. The mask goes to the kernels as it is; no
+        padded or zeroed copy of the cube is made;
+      * bf16, no mask and ``W % column_step == 0``: ``acrwl1mf_resident_bsp``
+        (bf16 storage, f32 products);
+      * bf16, a mask or a ragged last block: ``acrwl1mf_masked_bf16``
+        (JAX's bf16 dots).
 
     Returns (mf, albedo) as (H, W) float32 tensors on the device, with
     ``fill_value`` at invalid pixels.
     """
-    from starcop_tpu_torch.ops.mag1c_kernels import acrwl1mf_masked, acrwl1mf_resident
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
 
+    bf16 = is_bf16_stream(stream_dtype)
     dev = resolve_device(device)
     h, w_dim, s = scene.shape
     step = int(column_step) if column_step else w_dim
@@ -263,14 +282,14 @@ def mag1c_column_blocks(
     tpl = torch.as_tensor(template, dtype=torch.float32, device=dev)
 
     if valid_mask is None and nb * step == w_dim:
-        mf, albedo = acrwl1mf_resident(x, tpl, nb, step, num_iter=num_iter, alpha=alpha,
-                                       device=dev)
+        resident = mk.acrwl1mf_resident_bsp if bf16 else mk.acrwl1mf_resident
+        mf, albedo = resident(x, tpl, nb, step, num_iter=num_iter, alpha=alpha, device=dev)
         return unblock_columns(mf, h, step), unblock_columns(albedo, h, step)
 
     valid = (torch.ones((h, w_dim), dtype=torch.bool, device=dev) if valid_mask is None
              else torch.as_tensor(valid_mask, dtype=torch.bool, device=dev))
-    mf, albedo = acrwl1mf_masked(x, tpl, valid, nb, step, num_iter=num_iter, alpha=alpha,
-                                 device=dev)
+    masked = mk.acrwl1mf_masked_bf16 if bf16 else mk.acrwl1mf_masked
+    mf, albedo = masked(x, tpl, valid, nb, step, num_iter=num_iter, alpha=alpha, device=dev)
     mf2 = unblock_columns(mf, h, step)[:, :w_dim]
     albedo2 = unblock_columns(albedo, h, step)[:, :w_dim]
     return torch.where(valid, mf2, fill_value), torch.where(valid, albedo2, fill_value)

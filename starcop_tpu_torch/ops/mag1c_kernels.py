@@ -29,6 +29,26 @@ A pixel that does not count (invalid, or a column past W) contributes
 xc = 0 by a select, never a multiply (the fill value -9999 and NaN must
 never reach a sum), and ends with mf = 0 and R = 1 (:2039-2040).
 
+The bf16 stream (``stream_dtype=bf16``) runs on the blocked (nb, R, P)
+layout, R = the band count rounded up to a multiple of 8 (zero rows):
+
+  ``blocked_transpose``  <- ``_blocked_transpose_kernel`` (:92) and
+                            ``_blocked_transpose_swh_kernel`` (:170) with
+                            the XLA centre-and-cast after them (:1706,
+                            :1796-1798): the cube to the centred bf16
+                            stream, optionally masked.
+  ``init_stats``         <- ``_init_stats_kernel`` (:1164) too: the
+                            unmasked route's m0 and C0, from the cube.
+  ``init_stats_bsp``     <- the XLA second moment of the masked bf16 stream
+                            (:1814-1824).
+  ``filter_round_bsp``   <- ``_resident_kernel`` (:1048) on the unmasked
+                            route (bf16 storage, f32 products), and
+                            ``_first_round_kernel`` / ``_loop_round_kernel``
+                            with ``bf16_dots`` on the masked route.
+
+``acrwl1mf_resident_bsp`` (every pixel valid) and ``acrwl1mf_masked_bf16``
+(a valid mask) are the two bf16 filters; the glue is ``filter_glue``.
+
 The TPU kernels hold a column block in VMEM; an SM has 228 KB of shared
 memory, so here each iteration streams the cube once (see csrc/mag1c.cu for
 the design). One filter is 1 ``init_stats[_masked]``, ``num_iter + 1``
@@ -67,14 +87,16 @@ from starcop_tpu_torch.ops.mag1c import (
 )
 
 FIRST, LOOP, FINAL = 0, 1, 2
-INIT_CHUNK = 2048   # pixels of one block per init_stats CTA
-ROUND_CHUNK = 1024  # pixels of one block per filter_round CTA
+INIT_CHUNK = 2048   # pixels of one block per init_stats[_bsp] CTA
+ROUND_CHUNK = 1024  # pixels of one block per filter_round[_bsp] CTA
 
-# filter_round_masked counts its FIRST launches (row 5 of the TPU kernel
-# table) apart from its LOOP and FINAL ones (row 6).
+# The masked rounds count their FIRST launches (row 5 of the TPU kernel
+# table) apart from their LOOP and FINAL ones (row 6).
 LAUNCH_COUNTS: Dict[str, int] = {
     "init_stats": 0, "filter_round": 0, "filter_glue": 0,
     "init_stats_masked": 0, "filter_round_masked_first": 0, "filter_round_masked_loop": 0,
+    "blocked_transpose": 0, "init_stats_bsp": 0, "filter_round_bsp": 0,
+    "filter_round_bsp_masked_first": 0, "filter_round_bsp_masked_loop": 0,
 }
 _COUNT_LOCK = threading.Lock()
 
@@ -164,14 +186,19 @@ def init_stats_plain(x: torch.Tensor, nb: int, step: int):
     return m0, torch.einsum("bps,bpt->bst", xc, xc) / xb.shape[1]
 
 
+def _keep_rows(valid: torch.Tensor, nb: int, step: int) -> torch.Tensor:
+    """The (nb, P) bool rows of the pixels that count: the (H, W) valid
+    mask, False past W."""
+    keep = F.pad(valid.to(torch.uint8), (0, nb * step - valid.shape[1])).bool()
+    return block_columns(keep[..., None], nb, step)[..., 0]
+
+
 def _masked_blocks(x: torch.Tensor, valid: torch.Tensor, nb: int, step: int):
     """The cube as (nb, P, S) blocks with 0 selected at the pixels that do
     not count, and the (nb, P) bool rows of those that do (the valid mask,
     False past W). Pads a copy of the cube to nb * step columns: twins only."""
-    pad = nb * step - x.shape[1]
-    keep = F.pad(valid.to(torch.uint8), (0, pad)).bool()
-    keep = block_columns(keep[..., None], nb, step)[..., 0]
-    xb = block_columns(F.pad(x, (0, 0, 0, pad)), nb, step)
+    keep = _keep_rows(valid, nb, step)
+    xb = block_columns(F.pad(x, (0, 0, 0, nb * step - x.shape[1])), nb, step)
     return torch.where(keep[..., None], xb, 0.0), keep
 
 
@@ -187,13 +214,21 @@ def init_stats_masked_plain(x: torch.Tensor, valid: torch.Tensor, nb: int, step:
     return m0, torch.einsum("bps,bpt->bst", xc, xc) / n[..., None]
 
 
-def _round_math(xc, m0, carry, r, mf_prev, *, mode, cov_scale, keep=None):
+def _bf16_rounded(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even) and back to its own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _round_math(xc, m0, carry, r, mf_prev, *, mode, cov_scale, keep=None, bf16_dots=False):
     """One pass on the centred blocks xc (nb, P, S); ``keep`` (nb, P) bool
-    selects mf = 0 and R = 1 at the pixels that do not count."""
+    selects mf = 0 and R = 1 at the pixels that do not count. ``bf16_dots``
+    rounds cit, m0 and g to bf16 before their products with xc, as JAX's
+    bf16 dots do (mag1c_pallas.py:633-636, :693-701, :555-574)."""
+    dot = _bf16_rounded if bf16_dots else (lambda t: t)
     mu, cit, norm = carry[:, 0], carry[:, 2], carry[:, 3, :1]
-    proj = torch.einsum("bps,bs->bp", xc, cit) - (cit * mu).sum(1, keepdim=True)
+    proj = torch.einsum("bps,bs->bp", xc, dot(cit)) - (cit * mu).sum(1, keepdim=True)
     if mode == FIRST:
-        q = torch.einsum("bps,bs->bp", xc, m0)
+        q = torch.einsum("bps,bs->bp", xc, dot(m0))
         r = q / (m0 * m0).sum(1, keepdim=True) + 1.0
         if keep is not None:
             r = torch.where(keep, r, 1.0)
@@ -206,7 +241,7 @@ def _round_math(xc, m0, carry, r, mf_prev, *, mode, cov_scale, keep=None):
     if mode == FINAL:
         return mf * SCALING, r, None
     g = cov_scale * (r * mf)
-    u = torch.einsum("bps,bp->bs", xc, g)
+    u = torch.einsum("bps,bp->bs", xc, dot(g))
     stats = torch.cat([u, g.sum(1, keepdim=True), (g * g).sum(1, keepdim=True)], dim=1)
     return mf, r, stats[:, None, :]
 
@@ -234,6 +269,70 @@ def filter_round_masked_plain(x, valid, nb, step, m0, carry, r, mf_prev, *, mode
     xb, keep = _masked_blocks(x, valid, nb, step)
     xc = torch.where(keep[..., None], xb - m0[:, None, :], 0.0)
     return _round_math(xc, m0, carry, r, mf_prev, mode=mode, cov_scale=cov_scale, keep=keep)
+
+
+def stream_rows(s: int) -> int:
+    """Band rows R of the blocked layout: ``s`` rounded up to a multiple of 8."""
+    return -(-s // 8) * 8
+
+
+def blocked_transpose_plain(x, nb, step, rows, m0, *, valid=None):
+    """The (H, W, S) f32 cube -> the centred bf16 stream (nb, rows, P):
+    out[b, s, h * step + j] = x[h, b * step + j, s] - m0[b, s] rounded to
+    bf16 (nearest even), rows S..rows-1 zero, and 0 where the (H, W)
+    ``valid`` mask is unset or the column is past W. Without a mask W must
+    be nb * step."""
+    if valid is None:
+        xc = block_columns(x, nb, step) - m0[:, None, :]
+    else:
+        xb, keep = _masked_blocks(x, valid, nb, step)
+        xc = torch.where(keep[..., None], xb - m0[:, None, :], 0.0)
+    out = F.pad(xc.transpose(1, 2), (0, 0, 0, rows - x.shape[2]))
+    return out.to(torch.bfloat16).contiguous()
+
+
+def init_stats_bsp_plain(xs: torch.Tensor, n):
+    """C0 = xs xs^T / n (nb, R, R) of the centred stream xs (nb, R, P), not
+    re-centred; ``n`` (nb,) the valid counts. In f32 for a bf16 stream,
+    else in the stream's dtype."""
+    x = xs.float() if xs.dtype == torch.bfloat16 else xs
+    n = torch.as_tensor(n, dtype=x.dtype, device=x.device)
+    return torch.einsum("bsp,btp->bst", x, x) / n[:, None, None]
+
+
+def filter_round_bsp_plain(xs, valid, step, m0, carry, r, mf_prev, *, mode, cov_scale=1.0,
+                           bf16_dots=False):
+    """One pass over the centred stream xs (nb, R, P), in the dtype of m0:
+    ``filter_round_plain``'s math on its first S = m0.shape[1] rows, with
+    the bf16 rounding of ``bf16_dots`` and, given the (H, W) ``valid`` mask,
+    ``filter_round_masked_plain``'s selects."""
+    s = m0.shape[1]
+    xc = xs[:, :s].transpose(1, 2).to(m0.dtype)
+    keep = None
+    if valid is not None:
+        keep = _keep_rows(valid, xs.shape[0], step)
+        xc = torch.where(keep[..., None], xc, 0.0)
+    return _round_math(xc, m0, carry, r, mf_prev, mode=mode, cov_scale=cov_scale, keep=keep,
+                       bf16_dots=bf16_dots)
+
+
+MEAN_ROWS = 64  # rows of the cube per select in masked_block_means
+
+
+def masked_block_means(x: torch.Tensor, valid: torch.Tensor, nb: int, step: int, n):
+    """The mean of each column block's valid pixels, (nb, S) in x's dtype
+    (JAX's f32 ``_weighted_mean``, mag1c_pallas.py:1795); ``n`` (nb,) the
+    valid counts clamped to >= 1. Invalid pixels are selected out, MEAN_ROWS
+    rows at a time, so no zeroed copy of the whole cube is made. The sums
+    run in f64, so the mean is rounded once, whatever the device's or the
+    chunks' summation order."""
+    keep = valid.bool()[..., None]
+    cols = x.new_zeros(x.shape[1:], dtype=torch.float64)  # (W, S)
+    for h in range(0, x.shape[0], MEAN_ROWS):
+        cols += torch.where(keep[h:h + MEAN_ROWS], x[h:h + MEAN_ROWS], 0.0).sum(
+            0, dtype=torch.float64)
+    cols = F.pad(cols, (0, 0, 0, nb * step - x.shape[1]))
+    return (cols.reshape(nb, step, -1).sum(1) / n[:, None]).to(x.dtype)
 
 
 def _k0_matvec(k0, v):
@@ -365,6 +464,57 @@ def filter_glue(stats, carry, m0, template, k0, *, n, alpha):
     return out
 
 
+def blocked_transpose(x, nb, step, rows, m0, *, valid=None):
+    """The (H, W, S) f32 cube -> the bf16 stream (nb, rows, P) centred by m0
+    (nb, S), masked by ``valid`` when given; see ``blocked_transpose_plain``."""
+    if x.device.type == "cpu":
+        return blocked_transpose_plain(x, nb, step, rows, m0, valid=valid)
+    out = torch.empty((nb, rows, x.shape[0] * step), dtype=torch.bfloat16, device=x.device)
+    _kernels().blocked_transpose(x, m0, None if valid is None else _mask_u8(valid), out, nb,
+                                 step, _stream(x))
+    _count("blocked_transpose")
+    return out
+
+
+def init_stats_bsp(xs: torch.Tensor, n: torch.Tensor):
+    """C0 (nb, R, R) of the centred bf16 stream over the (nb,) f32 valid
+    counts ``n``; see ``init_stats_bsp_plain``. One call is two launches, as
+    ``init_stats``."""
+    if xs.device.type == "cpu":
+        return init_stats_bsp_plain(xs, n)
+    nb, rows, p = xs.shape
+    partial = torch.empty((nb, -(-p // INIT_CHUNK), 1 + rows + rows * rows), dtype=torch.float32,
+                          device=xs.device)
+    c0 = torch.empty((nb, rows, rows), dtype=torch.float32, device=xs.device)
+    _kernels().init_stats_bsp(xs, n.contiguous(), partial, c0, INIT_CHUNK, _stream(xs))
+    _count("init_stats_bsp")
+    return c0
+
+
+def filter_round_bsp(xs, valid, step, m0, carry, r, mf_prev, *, mode, cov_scale=1.0,
+                     bf16_dots=False):
+    """One streaming pass over the bf16 stream; see ``filter_round_bsp_plain``.
+    On CUDA the stats come back per pixel chunk, (nb, nchunks, S + 2)."""
+    if xs.device.type == "cpu":
+        return filter_round_bsp_plain(xs, valid, step, m0, carry, r, mf_prev, mode=mode,
+                                      cov_scale=cov_scale, bf16_dots=bf16_dots)
+    nb, _, p = xs.shape
+    mf = torch.empty((nb, p), dtype=torch.float32, device=xs.device)
+    if mode == FIRST:
+        r = torch.empty_like(mf)
+        mf_prev = mf  # not read in the first round
+    stats = torch.empty((nb, -(-p // ROUND_CHUNK), m0.shape[1] + 2), dtype=torch.float32,
+                        device=xs.device)
+    _kernels().filter_round_bsp(mode, xs, None if valid is None else _mask_u8(valid), bf16_dots,
+                                m0, carry, r, mf_prev, mf, stats, step, ROUND_CHUNK,
+                                float(cov_scale), _stream(xs))
+    if valid is None:
+        _count("filter_round_bsp")
+    else:
+        _count("filter_round_bsp_masked_first" if mode == FIRST else "filter_round_bsp_masked_loop")
+    return mf, r, (None if mode == FINAL else stats)
+
+
 # ---------------------------------------------------------------------------
 # The filter
 # ---------------------------------------------------------------------------
@@ -489,5 +639,98 @@ def acrwl1mf_masked(
         k0, tgt0, cit0, norm0 = _woodbury_base(c0, m0, tpl, alpha)
         rnd = functools.partial(filter_round_masked, x, valid, nb, step, m0,
                                 cov_scale=covariance_update_scaling)
+        return _filter_sequence(rnd, filter_glue, m0, k0.contiguous(), tgt0, cit0, norm0, tpl,
+                                n, num_iter=num_iter, alpha=alpha)
+
+
+def bsp_filter_plain(xs, valid, step, m0, k0, tgt0, cit0, norm0, template, n, *,
+                     bf16_dots: bool = False, num_iter: int = 30, alpha: float = 0.0,
+                     cov_scale: float = 1.0):
+    """The whole filter over the blocked stream xs (nb, R, P) from the
+    Woodbury base with the plain twins, in the dtype of its inputs; ``n``
+    the pixel count of every block (a number) or of each block ((nb,)).
+    Both bf16 routes: ``valid`` None and no ``bf16_dots`` (every pixel
+    valid), or the (H, W) mask with ``bf16_dots``. Returns (mf scaled by
+    1e5, R), each (nb, P)."""
+    _check_num_iter(num_iter)
+    rnd = functools.partial(filter_round_bsp_plain, xs, valid, step, m0, cov_scale=cov_scale,
+                            bf16_dots=bf16_dots)
+    return _filter_sequence(rnd, filter_glue_plain, m0, k0, tgt0, cit0, norm0, template, n,
+                            num_iter=num_iter, alpha=alpha)
+
+
+def acrwl1mf_resident_bsp(
+    scene_hws,
+    template,
+    nb: int,
+    step: int,
+    *,
+    num_iter: int = 30,
+    alpha: float = 0.0,
+    covariance_update_scaling: float = 1.0,
+    device: DeviceLike = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The filter over the (H, nb * step, S) cube with a bf16 stream, every
+    pixel valid (``acrwl1mf_fused(x_layout="bsp", glue="resident")`` at
+    bf16): ``init_stats`` on the cube (JAX reads a blocked f32 copy for the
+    same m0 and C0), the Woodbury base, ``blocked_transpose`` into the bf16
+    stream centred by m0, then ``filter_round_bsp`` (bf16 storage, f32
+    products) and ``filter_glue``. Returns (mf scaled by 1e5, R) as
+    (nb, H * step) rows, p = h * step + j.
+    """
+    _check_num_iter(num_iter)
+    dev = resolve_device(device)
+    x = torch.as_tensor(scene_hws, dtype=torch.float32, device=dev).contiguous()
+    tpl = torch.as_tensor(template, dtype=torch.float32, device=dev)
+    if x.shape[1] != nb * step:
+        raise ValueError("scene width must equal nb*step")
+    with float32_precision():
+        m0, c0 = init_stats(x, nb, step)
+        k0, tgt0, cit0, norm0 = _woodbury_base(c0, m0, tpl, alpha)
+        xs = blocked_transpose(x, nb, step, stream_rows(x.shape[2]), m0)
+        rnd = functools.partial(filter_round_bsp, xs, None, step, m0,
+                                cov_scale=covariance_update_scaling)
+        return _filter_sequence(rnd, filter_glue, m0, k0.contiguous(), tgt0, cit0, norm0, tpl,
+                                x.shape[0] * step, num_iter=num_iter, alpha=alpha)
+
+
+def acrwl1mf_masked_bf16(
+    scene_hws,
+    template,
+    valid_mask,
+    nb: int,
+    step: int,
+    *,
+    num_iter: int = 30,
+    alpha: float = 0.0,
+    covariance_update_scaling: float = 1.0,
+    device: DeviceLike = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weighted filter of ``acrwl1mf_masked`` with a bf16 stream
+    (``acrwl1mf_fused(glue="fused", stream_dtype=bf16)`` with a weight row):
+    the f32 mean of each block's valid pixels, ``blocked_transpose`` into the
+    centred, masked bf16 stream, its second moment by ``init_stats_bsp``
+    (not re-centred, as :1814-1824), the Woodbury base, then
+    ``filter_round_bsp`` with the mask and bf16 dots, and ``filter_glue``
+    with the per-block valid counts. Returns (mf scaled by 1e5, R) as
+    (nb, H * step) rows, mf = 0 and R = 1 at the pixels that do not count.
+    """
+    _check_num_iter(num_iter)
+    dev = resolve_device(device)
+    x = torch.as_tensor(scene_hws, dtype=torch.float32, device=dev).contiguous()
+    tpl = torch.as_tensor(template, dtype=torch.float32, device=dev)
+    valid = _mask_u8(torch.as_tensor(valid_mask, device=dev))
+    if valid.shape != x.shape[:2] or not (nb - 1) * step < x.shape[1] <= nb * step:
+        raise ValueError(f"valid mask {tuple(valid.shape)} and {nb} blocks of {step} columns "
+                         f"do not fit the cube {tuple(x.shape)}")
+    s = x.shape[2]
+    with float32_precision():
+        n = block_valid_counts(valid, nb, step).clamp(min=1).to(torch.float32)
+        m0 = masked_block_means(x, valid, nb, step, n)
+        xs = blocked_transpose(x, nb, step, stream_rows(s), m0, valid=valid)
+        c0r = init_stats_bsp(xs, n)
+        k0, tgt0, cit0, norm0 = _woodbury_base(c0r[:, :s, :s], m0, tpl, alpha)
+        rnd = functools.partial(filter_round_bsp, xs, valid, step, m0,
+                                cov_scale=covariance_update_scaling, bf16_dots=True)
         return _filter_sequence(rnd, filter_glue, m0, k0.contiguous(), tgt0, cit0, norm0, tpl,
                                 n, num_iter=num_iter, alpha=alpha)

@@ -84,6 +84,7 @@ def emit_granule_to_mask(
     num_iter: int = 30,
     alpha: float = 1e-4,
     valid_mask=None,
+    stream_dtype=None,
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Raw granule -> plume mask, every stage on the device.
@@ -97,6 +98,9 @@ def emit_granule_to_mask(
             mode, which normalises its input).
         valid_mask: optional (H, W) bool; invalid pixels leave the filter's
             statistics and come out NODATA in mf (0 in the model input).
+        stream_dtype: the filter's stream, None / ``torch.float32`` or
+            ``torch.bfloat16`` (half the bytes per pass; see
+            ``ops.mag1c.mag1c_column_blocks``).
 
     Returns:
         (prediction (H, W), mf (H, W)) float32 tensors on ``device``.
@@ -107,7 +111,7 @@ def emit_granule_to_mask(
         rgb = torch.as_tensor(rgb_chw, dtype=torch.float32, device=dev)
         mf, _ = mag1c_column_blocks(
             x, template, valid_mask, column_step=column_step, num_iter=num_iter,
-            alpha=alpha, device=dev,
+            alpha=alpha, stream_dtype=stream_dtype, device=dev,
         )
         return plume_mask(mf[None], rgb[None], model_apply)[0], mf
 
@@ -121,6 +125,7 @@ def emit_granule_to_mask_batched(
     column_step: int = 54,
     num_iter: int = 30,
     alpha: float = 1e-4,
+    stream_dtype=None,
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B same-shaped granules -> plume masks in one filter and one U-Net call.
@@ -137,6 +142,7 @@ def emit_granule_to_mask_batched(
         rgbs_chw: (B, 3, H, W) radiance at the RGB picks.
         template: (S,) target spectrum.
         model_apply: (B, 4, H', W') input -> (B, 1, H', W') logits.
+        stream_dtype: the filter's stream, as in ``emit_granule_to_mask``.
 
     Returns:
         (prediction (B, H, W), mf (B, H, W)) float32 tensors on ``device``.
@@ -154,7 +160,7 @@ def emit_granule_to_mask_batched(
         wide = x.permute(1, 0, 2, 3).reshape(h, b * w, s)  # (H, B*W, S)
         mf_wide, _ = mag1c_column_blocks(
             wide, template, None, column_step=column_step, num_iter=num_iter, alpha=alpha,
-            device=dev,
+            stream_dtype=stream_dtype, device=dev,
         )
         mf = mf_wide.reshape(h, b, w).permute(1, 0, 2)  # (B, H, W)
         rgb = torch.as_tensor(rgbs_chw, dtype=torch.float32, device=dev)

@@ -40,7 +40,7 @@ from starcop_tpu_torch.data.emit import EMITRawScene, glt_gather
 from starcop_tpu_torch.data.geotiff import write_geotiff
 from starcop_tpu_torch.device import DeviceLike, resolve_device
 from starcop_tpu_torch.ops.ch4_template import generate_template_from_bands
-from starcop_tpu_torch.ops.mag1c import NODATA
+from starcop_tpu_torch.ops.mag1c import NODATA, is_bf16_stream
 from starcop_tpu_torch.scenes.emit_pipeline import emit_granule_to_mask
 
 logger = logging.getLogger("starcop_tpu_torch.serve")
@@ -425,13 +425,6 @@ def _download_f16(download_dtype) -> bool:
     return name == "f16"
 
 
-def _check_stream_dtype(stream_dtype) -> None:
-    if stream_dtype is not None and stream_dtype not in (torch.float32, np.float32, "f32"):
-        raise NotImplementedError(
-            f"stream_dtype={stream_dtype!r}: the bf16 stream needs the bf16-dots kernels "
-            "(K2's bf16_dots, K3 and K4 in ROADMAP.md), which are not ported yet")
-
-
 def _model_on(model_apply: Callable, dev: torch.device) -> Callable:
     """An nn.Module on ``dev`` (a copy when it lives elsewhere); any other
     callable as given."""
@@ -470,11 +463,12 @@ def make_compute_fn(
     """The compute stage on ``device`` (None: the CUDA card): payload ->
     products. Uploads the payload itself when the reader did not (an
     explicit device list), waits for the upload's event, decodes the wire,
-    runs ``emit_granule_to_mask`` with the valid mask, and downloads
+    runs ``emit_granule_to_mask`` with the valid mask and ``stream_dtype``
+    (None / ``torch.float32`` or ``torch.bfloat16``), and downloads
     (prediction, mf) as ONE stacked transfer: f16 (mf / 16, clamped to
     +-65504) or f32 (``download_dtype`` None / "f32"). NODATA is restored on
     the host from the reader's mask after an f16 download."""
-    _check_stream_dtype(stream_dtype)
+    is_bf16_stream(stream_dtype)  # refuses an unknown stream dtype before any work
     down_f16 = _download_f16(download_dtype)
     dev = resolve_device(device)
     model = _model_on(model_apply, dev)
@@ -501,7 +495,8 @@ def make_compute_fn(
             cube, rgb, valid = decode_wire(payload["codec"], wire, h, w)
             pred, mf = emit_granule_to_mask(cube, rgb, templates[key], model,
                                             column_step=column_step, num_iter=num_iter,
-                                            valid_mask=valid, device=dev)
+                                            valid_mask=valid, stream_dtype=stream_dtype,
+                                            device=dev)
             if down_f16:
                 both = torch.stack([pred, mf / MF_F16_SCALE]).clamp(-F16_MAX, F16_MAX)
                 both = both.to(torch.float16)
@@ -577,16 +572,19 @@ def emit_serving_pipeline(
     instead of overflowing), NODATA restored exactly from the host mask.
     Pass None / "f32" for the f32 results as computed.
 
-    ``stream_dtype``: only None / f32; the bf16 stream raises
-    ``NotImplementedError`` until its kernels are ported (ROADMAP).
+    ``stream_dtype``: the matched filter's stream, None / ``torch.float32``
+    (the f32 cube) or ``torch.bfloat16`` (a centred bf16 copy, half the
+    bytes per pass, held to the JAX package's bf16 detection contract);
+    anything else raises ``ValueError``.
 
     ``compress_outputs``: DEFLATE setting of the output GeoTIFFs (bool or
     zlib level, see ``write_geotiff``); off by default, since the f32
     rasters barely compress.
     """
-    _check_stream_dtype(stream_dtype)
+    is_bf16_stream(stream_dtype)  # refuses an unknown stream dtype before any work
     codec = wire_codec(upload_dtype)
-    kw = dict(column_step=column_step, num_iter=num_iter, download_dtype=download_dtype)
+    kw = dict(column_step=column_step, num_iter=num_iter, download_dtype=download_dtype,
+              stream_dtype=stream_dtype)
     write_fn = make_write_fn(output_dir, compress_outputs)
 
     def encode(path: str) -> Dict:

@@ -390,7 +390,9 @@ def test_masked_route_launches_masked_kernels(monkeypatch):
     assert mf.device.type == alb.device.type == "meta" and mf.shape == (H, 45)
     assert tk.LAUNCH_COUNTS == {
         "init_stats": 0, "filter_round": 0, "filter_glue": 3, "init_stats_masked": 1,
-        "filter_round_masked_first": 1, "filter_round_masked_loop": 3}
+        "filter_round_masked_first": 1, "filter_round_masked_loop": 3,
+        "blocked_transpose": 0, "init_stats_bsp": 0, "filter_round_bsp": 0,
+        "filter_round_bsp_masked_first": 0, "filter_round_bsp_masked_loop": 0}
     assert fake.calls == (["init_stats_masked"] + ["filter_round_masked", "filter_glue"] * 3
                           + ["filter_round_masked"])
     fake.calls.clear()
@@ -400,3 +402,36 @@ def test_masked_route_launches_masked_kernels(monkeypatch):
     assert tk.LAUNCH_COUNTS["init_stats"] == 1 and tk.LAUNCH_COUNTS["filter_round"] == 4
     assert tk.LAUNCH_COUNTS["init_stats_masked"] == 0
     assert fake.calls[0] == "init_stats" and "filter_round_masked" not in fake.calls
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_bf16_routes_launch_bsp_kernels(monkeypatch, masked):
+    """stream_dtype=bf16 on a device tensor (meta here) takes the bf16
+    stream's kernels: unmasked, K1's init_stats on the cube, one centred
+    bf16 transpose, num_iter + 1 filter_round_bsp and num_iter glues; masked
+    (and ragged), one masked bf16 transpose, init_stats_bsp and the masked
+    rounds with bf16 dots. No K1 or K2 round either way."""
+    fake = _FakeKernels()
+    monkeypatch.setattr(tk, "_kernels", lambda: fake)
+    monkeypatch.setattr(tk, "_stream", lambda x: 0)
+    if masked:
+        x, tpl, valid = _masked_case()
+    else:
+        (x, tpl), valid = _cube(), None
+    tk.reset_launch_counts()
+    mf, _ = tm.mag1c_column_blocks(x, tpl, valid, column_step=STEP, num_iter=3,
+                                   stream_dtype=torch.bfloat16, device="meta")
+    assert mf.device.type == "meta" and mf.shape == x.shape[:2]
+    want = {k: 0 for k in tk.LAUNCH_COUNTS}
+    if masked:
+        want.update(blocked_transpose=1, init_stats_bsp=1, filter_round_bsp_masked_first=1,
+                    filter_round_bsp_masked_loop=3, filter_glue=3)
+        head = ["blocked_transpose", "init_stats_bsp"]
+    else:
+        want.update(init_stats=1, blocked_transpose=1, filter_round_bsp=4, filter_glue=3)
+        head = ["init_stats", "blocked_transpose"]
+    assert tk.LAUNCH_COUNTS == want
+    assert fake.calls == head + ["filter_round_bsp", "filter_glue"] * 3 + ["filter_round_bsp"]
+    with pytest.raises(ValueError, match="stream_dtype"):
+        tm.mag1c_column_blocks(x, tpl, valid, column_step=STEP, stream_dtype=torch.float16,
+                               device="cpu")

@@ -149,6 +149,8 @@ def test_port_imports_nothing_of_jax():
     banned = {"jax", "jaxlib", "flax", "optax", "starcop_tpu"}
     files = sorted((ROOT / "starcop_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert {ROOT / "starcop_tpu_torch/cli/__init__.py",
+            ROOT / "starcop_tpu_torch/cli/serve.py"} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
             if isinstance(node, ast.Import):

@@ -40,6 +40,7 @@ from starcop_tpu_torch.ops.ch4_template import generate_template_from_bands  # n
 from starcop_tpu_torch.scenes import emit_pipeline as tpipe  # noqa: E402
 from starcop_tpu_torch.serve import pipeline as tserve  # noqa: E402
 from starcop_tpu_torch.serve.pipeline import ScenePipeline, emit_serving_pipeline  # noqa: E402
+from tests.test_mag1c import assert_bf16_detection_equivalent  # noqa: E402
 
 WL = np.arange(2100.0, 2490.0, 7.4)  # selects 50 bands in [2122, 2488] nm
 CPU = [torch.device("cpu")]
@@ -495,8 +496,8 @@ def test_two_cpu_workers_match_one(tmp_path):
 
 
 def test_serving_options_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        emit_serving_pipeline(None, str(tmp_path), stream_dtype=torch.bfloat16, devices=CPU)
+    with pytest.raises(ValueError, match="stream_dtype"):
+        emit_serving_pipeline(None, str(tmp_path), stream_dtype=torch.float16, devices=CPU)
     with pytest.raises(ValueError, match="upload_dtype"):
         emit_serving_pipeline(None, str(tmp_path), upload_dtype="u8", devices=CPU)
     with pytest.raises(ValueError, match="download_dtype"):
@@ -630,3 +631,110 @@ def test_counts_and_precision_hold_across_worker_threads():
     assert not seen_on and torch.backends.cudnn.allow_tf32
     tk.reset_launch_counts()
     torch.backends.cudnn.allow_tf32 = old_tf32
+
+
+# ---------------------------------------------------------------------------
+# The serving CLI, the checkpoint loader and the bf16 stream
+# ---------------------------------------------------------------------------
+
+
+def _flax_variables(rng):
+    """Flax variables of the U-Net's shapes (jax.eval_shape, no init
+    compile) filled from numpy: LeCun-normal (fan-in) kernels, Flax's
+    default, and randomised batch-norm statistics."""
+    jmodel = FlaxSegmentationModel(list(EMIT_INPUT_PRODUCTS), model_type="unet_semseg",
+                                   encoder_weights=None)
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0),
+                                                jnp.zeros((1, 4, 32, 32), jnp.float32)))
+
+    def fill(path, leaf):
+        name = path[-1].key
+        if name == "kernel":  # (kh, kw, in, out)
+            v = rng.normal(size=leaf.shape) / np.sqrt(np.prod(leaf.shape[:3]))
+        elif name in ("scale", "var"):
+            v = rng.uniform(0.8, 1.2, leaf.shape)
+        else:  # bias, mean
+            v = rng.normal(0, 0.05, leaf.shape)
+        return v.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def _save_npz(path, variables):
+    """The JAX package's checkpoint layout (train/checkpoint.py): flat
+    "params/..." and "batch_stats/..." keys, plus a step and optimiser state
+    a loader must skip."""
+    flat = {"step": np.asarray(7), "opt_state/0/mu": np.zeros(3, np.float32)}
+    for keys, leaf in jax.tree_util.tree_leaves_with_path(variables):
+        flat["/".join(k.key for k in keys)] = np.asarray(leaf)
+    np.savez(path, **flat)
+
+
+def test_load_pretrained_state_dict(tmp_path):
+    """A framework .npz (file or folder, setup_shims.py's candidate names)
+    gives the Flax variables' state_dict; a Lightning .ckpt its network's."""
+    from starcop_tpu_torch.models.weights import CHECKPOINT_NAMES, load_pretrained_state_dict
+
+    variables = _flax_variables(np.random.default_rng(1))
+    want = flax_to_torch_state_dict(variables)
+    folder = tmp_path / "run"
+    folder.mkdir()
+    _save_npz(folder / "best.npz", variables)
+    for where in (folder, folder / "best.npz"):
+        got = load_pretrained_state_dict(str(where))
+        assert got.keys() == want.keys()
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    ckpt = tmp_path / "lightning"
+    ckpt.mkdir()
+    state = {"network." + k: v for k, v in want.items()}
+    state["normalizer.factors"] = torch.ones(4)
+    torch.save({"state_dict": state, "epoch": 3}, ckpt / CHECKPOINT_NAMES[0])
+    got = load_pretrained_state_dict(str(ckpt))
+    assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+    with pytest.raises(ValueError, match="not found"):
+        load_pretrained_state_dict(str(tmp_path / "missing"))
+
+
+def test_serve_cli_matches_jax_cli(tmp_path, capsys, monkeypatch):
+    """Both serve CLIs on the same two h5 granules and .npz checkpoint, each
+    with its defaults (bf16-resident U-Net, f16 download) and --bf16-stream.
+    JAX on the CPU runs its f32 filter whatever the stream, so the port's
+    bf16 mag1c is held to the bf16 detection contract against it; the masks
+    come from two bf16 U-Nets fed slightly different mf. The granules have
+    1,024 rows, so a step-32 block holds 32,768 pixels, near a served EMIT
+    granule's 40,960: the smaller the blocks, the more often bf16 dots let a
+    pixel escape the L1 reweighting's pin at 0 and end decisively above 500
+    (at 512 rows one pixel of 45,197 did once the block means were summed in
+    another order; at 64 rows JAX's own bf16 route does, test_torch_bf16.py::
+    test_bf16_flips_on_small_blocks_are_jax_own)."""
+    from starcop_tpu.cli.serve import main as jax_main
+    from starcop_tpu_torch.cli.serve import main as port_main
+
+    monkeypatch.setenv("STARCOP_COMPILE_CACHE", "0")
+    gran = tmp_path / "granules"
+    gran.mkdir()
+    for i in range(2):
+        _granule(gran, f"EMIT_cli_{i}", 50 + i, h=1024, w=93)
+    (tmp_path / "ckpt").mkdir()
+    _save_npz(tmp_path / "ckpt" / "best.npz", _flax_variables(np.random.default_rng(2)))
+    common = ["--granules-dir", str(gran), "--checkpoint", str(tmp_path / "ckpt"),
+              "--bf16-stream"]
+    assert port_main(common + ["--output", str(tmp_path / "port"), "--device", "cpu"]) == 0
+    assert jax_main(common + ["--output", str(tmp_path / "jax")]) == 0
+    printed = capsys.readouterr().out
+    assert printed.count(": ok read") == 4, printed
+
+    for i in range(2):
+        out = {}
+        for pkg in ("port", "jax"):
+            base = tmp_path / pkg / f"EMIT_cli_{i}"
+            out[pkg] = {k: tgeotiff.read_geotiff(str(base / f"{k}.tif"))[0][0]
+                        for k in ("mag1c", "prediction")}
+        mf, mf_j = out["port"]["mag1c"], out["jax"]["mag1c"]
+        np.testing.assert_array_equal(mf == FILL, mf_j == FILL)
+        keep = mf_j != FILL
+        assert (mf_j[keep] > 1000).sum() > 50
+        assert_bf16_detection_equivalent(mf_j[keep], mf[keep])
+        p, p_j = out["port"]["prediction"], out["jax"]["prediction"]
+        assert np.all((p >= 0) & (p <= 1))
+        assert np.corrcoef(p.ravel(), p_j.ravel())[0, 1] > 0.99
