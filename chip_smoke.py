@@ -85,6 +85,30 @@ every hand-written kernel against its plain torch twin on the card:
      bf16-resident mask correlating > 0.999 with the f32 model's on the same
      mf (tests/test_models.py:255).
 
+ 12. the kernels of the remaining routes on the bench blocks (TPU rows 3, 4,
+     7-8, 9 at f32 and 10 on the blocked stream): blocked_transpose_shw (the
+     band-major cube to the raw f32 stream, 56 rows) equal to its twin
+     bitwise; init_stats_stream within 1e-5 of its f64 twin;
+     filter_round_bsp on the raw stream (FIRST, LOOP, FINAL), fused_iter
+     (WOODBURY and CHOLESKY, first and not first) and filter_round_mono
+     (FIRST and LOOP: mf, R and the carry) within 4x the f32 twin's error
+     against the f64 twin + 1e-6;
+ 13. their whole filters on the bench scene, launch counts zeroed just
+     before and read just after each and checked equal to the design
+     (mono 1 / 1 / 30 init_stats_stream / filter_round_mono FIRST / LOOP +
+     FINAL and no filter_glue; woodbury 1 / 31 / 30 init_stats_stream /
+     fused_iter / filter_glue; cholesky 1 / 31 init_stats_stream /
+     fused_iter, its glue in torch; resident and shw 1 / 31 / 30, shw with
+     one blocked_transpose_shw):
+     acrwl1mf_fused(glue=mono, woodbury, cholesky, resident) on the raw f32
+     stream and mag1c_column_blocks(scene_layout="shw") finite, with mf
+     correlation > 0.9999 with phase 4's f32 twin, threshold-500 agreement
+     >= 0.999 with its f64 twin (detections > 0) and albedo within 1e-4;
+     mono, woodbury and shw at bf16 meeting bf16_contract against their f32
+     route; every filter bitwise equal on a rerun; each filter timed beside
+     the Woodbury base of the stream's statistics, and the mono and resident
+     filters traced.
+
 Prints the card line, "timings" and "profile" JSON lines and a "kernels" JSON
 line, and ends with {"ok": true, "device": {...}}. Any failed check exits non-zero
 without the ok line. Peak rates for the bounds are NVIDIA's H100 SXM data
@@ -206,7 +230,7 @@ def kernel_rows(plans, fields, path):
         lib_ms = None if plan["library"] is None else cuda_ms(plan["library"], reps=5, warmup=1)
         bms, bby = plan["bound"]
         out.append(dict(
-            name=name, route="cuda", source="starcop_tpu_torch/csrc/mag1c.cu",
+            name=name, route="cuda", source=plan.get("source", "starcop_tpu_torch/csrc/mag1c.cu"),
             replaces=f"{REPLACES}:{plan['replaces']}", tpu_kernel=plan["tpu_kernel"], path=path,
             max_abs_err=fields[name]["max_abs_err"], rel_err_vs_f64=fields[name]["rel_err"],
             check=fields[name]["check"], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
@@ -247,6 +271,7 @@ def masked_phase(dev, template, granule):
 
     from starcop_tpu_torch.ops import mag1c_kernels as mk
     from starcop_tpu_torch.ops.mag1c import mag1c_column_blocks, unblock_columns
+    from starcop_tpu_torch.ops.mag1c_fused import acrwl1mf_fused
 
     x = torch.as_tensor(granule["cube"], device=dev)
     valid = torch.as_tensor(granule["valid"], device=dev)
@@ -579,14 +604,14 @@ def bf16_contract(ref, got, what: str) -> None:
           f"detections (< 2e-2)")
 
 
-def bsp_round_errs(xs, valid, step, m0, carry, r, mf, mode, bf16_dots, live):
-    """filter_round_bsp against its f32 and f64 twins on the same bf16 stream
+def bsp_round_errs(xs, valid, step, m0, carry, r, mf, mode, bf16_dots, live, center=False):
+    """filter_round_bsp against its f32 and f64 twins on the same stream
     over the blocks ``live``: (kernel outputs, kernel rel err vs the f64
     twin, the f32 twin's, max |kernel - f32 twin|)."""
     from starcop_tpu_torch.ops import mag1c_kernels as mk
 
     d64 = lambda t: None if t is None else t.double()  # noqa: E731
-    args = dict(mode=mode, bf16_dots=bf16_dots)
+    args = dict(mode=mode, bf16_dots=bf16_dots, center=center)
     out_k = mk.filter_round_bsp(xs, valid, step, m0, carry, r, mf, **args)
     out_32 = mk.filter_round_bsp_plain(xs, valid, step, m0, carry, r, mf, **args)
     out_64 = mk.filter_round_bsp_plain(xs, valid, step, d64(m0), d64(carry), d64(r), d64(mf),
@@ -599,20 +624,20 @@ def bsp_round_errs(xs, valid, step, m0, carry, r, mf, mode, bf16_dots, live):
     return out_k, ek, ep, ab
 
 
-def bsp_rounds(xs, valid, step, m0, carry, glue_kw, bf16_dots, live, what):
+def bsp_rounds(xs, valid, step, m0, carry, glue_kw, bf16_dots, live, what, center=False):
     """FIRST, LOOP (after one glue) and FINAL passes of filter_round_bsp, each
     within 4x the f32 twin's error against the f64 twin + 1e-6. Returns
     (the kernel-row fields, the FIRST and LOOP outputs)."""
     from starcop_tpu_torch.ops import mag1c_kernels as mk
 
     first, ek_f, ep_f, ab_f = bsp_round_errs(xs, valid, step, m0, carry, None, None, mk.FIRST,
-                                             bf16_dots, live)
+                                             bf16_dots, live, center)
     carry1 = mk.filter_glue(first[2], carry, **glue_kw)
     loop, ek_l, ep_l, ab_l = bsp_round_errs(xs, valid, step, m0, carry1, first[1], first[0],
-                                            mk.LOOP, bf16_dots, live)
+                                            mk.LOOP, bf16_dots, live, center)
     _, ek_z, ep_z, ab_z = bsp_round_errs(xs, valid, step, m0, mk.filter_glue(loop[2], carry1,
                                                                              **glue_kw),
-                                         first[1], loop[0], mk.FINAL, bf16_dots, live)
+                                         first[1], loop[0], mk.FINAL, bf16_dots, live, center)
     errs = {}
     for mode, ek, ep, ab in (("first", ek_f, ep_f, ab_f), ("loop", ek_l, ep_l, ab_l),
                              ("final", ek_z, ep_z, ab_z)):
@@ -708,6 +733,7 @@ def masked_bf16_phase(dev, template, granule):
 
     from starcop_tpu_torch.ops import mag1c_kernels as mk
     from starcop_tpu_torch.ops.mag1c import mag1c_column_blocks, unblock_columns
+    from starcop_tpu_torch.ops.mag1c_fused import acrwl1mf_fused
 
     x = torch.as_tensor(granule["cube"], device=dev)
     valid = torch.as_tensor(granule["valid"], device=dev)
@@ -916,6 +942,270 @@ def serving_bf16_phase(dev, model, model_bf16, granules, f32_outputs):
         timings[f"pipeline_bf16_{stage}_ms_median"] = 1e3 * statistics.median(
             r.timings[f"{stage}_s"] for r in results)
     timings["served_compute_bf16_ms"] = cuda_ms(lambda: compute(payload0), reps=5, warmup=1)
+    return launches, timings
+
+
+FUSED_SOURCE = "starcop_tpu_torch/csrc/mag1c_fused.cu"
+
+
+def held_against_twins(what, out_k, out_32, out_64):
+    """The kernel's outputs (lists of tensors) within 4x the f32 twin's error
+    against the f64 twin + 1e-6, the rule of the other f32 kernels. Returns
+    (rel err vs the f64 twin, max |kernel - f32 twin|)."""
+    ek = max(rel_err(a, b) for a, b in zip(out_k, out_64))
+    ep = max(rel_err(a, b) for a, b in zip(out_32, out_64))
+    check(ek <= 4 * ep + 1e-6, f"{what} vs f64 twin: rel err {ek:.3e} (f32 twin {ep:.3e})")
+    return ek, max(float((a - b).abs().max()) for a, b in zip(out_k, out_32))
+
+
+def stream_kernels_phase(dev, x, tpl):
+    """Phase 12, the kernels of the remaining routes on the bench blocks: TPU
+    row 3 (``blocked_transpose_shw``: the band-major cube to the raw f32
+    stream (nb, 56, P)), row 10 on that stream (``init_stats_stream``), row 9
+    at f32 (``filter_round_bsp`` centring the raw stream), row 4
+    (``fused_iter`` WOODBURY and CHOLESKY, first and not first) and rows 7-8
+    (``filter_round_mono`` FIRST and LOOP: mf, R and the carry), each against
+    its twins. Returns (kernel-row dicts without launches, the band-major
+    cube, the stream, its m0 and C0)."""
+    import torch
+
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+
+    nb, s = W // STEP, x.shape[-1]
+    rows, p, npix = mk.stream_rows(s), H * STEP, H * W
+    d64 = lambda t: None if t is None else t.double()  # noqa: E731
+    fields = {}
+
+    x_shw = x.permute(2, 0, 1).contiguous()  # the band-major cube (set-up)
+    xs = mk.blocked_transpose_shw(x_shw, nb, STEP, rows)
+    check(torch.equal(xs, mk.blocked_transpose_shw_plain(x_shw, nb, STEP, rows)),
+          "blocked_transpose_shw equals its twin bitwise, pad rows included")
+    fields["blocked_transpose_shw"] = dict(rel_err=0.0, max_abs_err=0.0,
+                                           check="bitwise equal to its twin")
+
+    m0, c0 = mk.init_stats_stream(xs, s)
+    m0_64, c0_64 = mk.init_stats_stream_plain(xs.double(), s)
+    m0_32, c0_32 = mk.init_stats_stream_plain(xs, s)
+    e_m0, e_c0 = rel_err(m0, m0_64), rel_err(c0, c0_64)
+    check(e_m0 <= 1e-5 and e_c0 <= 1e-5, f"init_stats_stream vs f64 twin: m0 rel err "
+                                         f"{e_m0:.3e}, C0 rel err {e_c0:.3e} (<= 1e-5)")
+    fields["init_stats_stream"] = dict(
+        rel_err=max(e_m0, e_c0),
+        max_abs_err=max(float((m0 - m0_32).abs().max()), float((c0 - c0_32).abs().max())),
+        check="m0, C0 rel err vs f64 twin <= 1e-5")
+
+    k0, tgt0, cit0, norm0 = mk._woodbury_base(c0, m0, tpl, ALPHA)
+    k0 = k0.contiguous()
+    carry = mk.pack_carry(tgt0, cit0, norm0)
+    glue_kw = dict(m0=m0, template=tpl, k0=k0, n=p, alpha=ALPHA)
+    errs, rule, (mf1, r1, _), ((mf2, _, _), carry1) = bsp_rounds(
+        xs, None, STEP, m0, carry, glue_kw, False, slice(None),
+        "filter_round_bsp (raw f32 stream, centred in the kernel)", center=True)
+    fields["filter_round_bsp_f32"] = dict(rel_err=max(e for e, _ in errs.values()),
+                                          max_abs_err=max(a for _, a in errs.values()),
+                                          check=rule.replace("bf16", "raw f32"))
+
+    # Row 4 from the round's R and mf; the first call reads JAX's dummy carry.
+    carry_first = mk.pack_carry(tgt0, torch.zeros_like(cit0), torch.ones_like(norm0))
+    for woodbury, name in ((True, "fused_iter_woodbury"), (False, "fused_iter_cholesky")):
+        got = []
+        for first, carry_in, mf_in in ((True, carry_first, mf1), (False, carry1, mf2)):
+            kw = dict(first=first, woodbury=woodbury, center=True)
+            outs = (mk.fused_iter(xs, None, m0, carry_in, r1, mf_in, **kw),
+                    mk.fused_iter_plain(xs, None, m0, carry_in, r1, mf_in, **kw),
+                    mk.fused_iter_plain(xs, None, d64(m0), d64(carry_in), d64(r1), d64(mf_in),
+                                        **kw))
+            flat = [[o[0], o[1].sum(1)] if woodbury else [o[0], *o[1]] for o in outs]
+            got.append(held_against_twins(f"{name} ({'first' if first else 'not first'})",
+                                          *flat))
+        fields[name] = dict(rel_err=max(e for e, _ in got), max_abs_err=max(a for _, a in got),
+                            check="mf and statistics rel err vs f64 twin <= 4x f32 twin's "
+                                  "+ 1e-6, first and not first")
+
+    n = torch.full((nb,), float(p), dtype=torch.float32, device=dev)
+    mono_kw = dict(alpha=ALPHA, center=True)
+    counter = mk.mono_counters(xs)  # zeroed once; each launch leaves it at 0
+
+    def mono_round(mode, carry_in, r_in, mf_in):
+        outs = (mk.filter_round_mono(xs, m0, carry_in, r_in, mf_in, tpl, k0, n, mode=mode,
+                                     counter=counter, **mono_kw),
+                mk.filter_round_mono_plain(xs, m0, carry_in, r_in, mf_in, tpl, k0, n, mode=mode,
+                                           **mono_kw),
+                mk.filter_round_mono_plain(xs, d64(m0), d64(carry_in), d64(r_in), d64(mf_in),
+                                           tpl.double(), d64(k0), n.double(), mode=mode,
+                                           **mono_kw))
+        mode_name = {mk.FIRST: "first", mk.LOOP: "loop"}[mode]
+        err = held_against_twins(f"filter_round_mono ({mode_name}: mf, R, carry)",
+                                 *([t for t in o if t is not None] for o in outs))
+        return outs[0], err
+
+    (mfm1, rm1, cm1), e_first = mono_round(mk.FIRST, carry, None, None)
+    _, e_loop = mono_round(mk.LOOP, cm1, rm1, mfm1)
+    rule = "mf, R and carry rel err vs f64 twin <= 4x f32 twin's + 1e-6"
+    fields["filter_round_mono_first"] = dict(rel_err=e_first[0], max_abs_err=e_first[1],
+                                             check=rule)
+    fields["filter_round_mono_loop"] = dict(rel_err=e_loop[0], max_abs_err=e_loop[1], check=rule)
+
+    n_round, stream_bytes = -(-p // mk.ROUND_CHUNK), 4.0 * npix * s
+    xs_live = xs[:, :s]
+    rows_bytes = lambda k: 4.0 * (k * npix + nb * 5 * s + nb * n_round * (s + 2))  # noqa: E731
+    glue_ops = nb * (10.0 * s * s + 40 * s)  # filter_glue's
+
+    def library_stream_stats():
+        xc = xs_live - xs_live.mean(2, keepdim=True)
+        return torch.bmm(xc, xc.transpose(1, 2)) / p
+
+    fused_kw = dict(r=r1, mf_prev=mf1, first=False, center=True)
+    plans = {
+        "blocked_transpose_shw": dict(
+            kernel=lambda: mk.blocked_transpose_shw(x_shw, nb, STEP, rows),
+            plain=lambda: mk.blocked_transpose_shw_plain(x_shw, nb, STEP, rows),
+            library=lambda: x_shw.view(s, H, nb, STEP).permute(2, 0, 1, 3).contiguous(),
+            bound=bound_ms(2 * stream_bytes, 0.0), source=FUSED_SOURCE,
+            note="bound: the live band rows read and written; library: permute + contiguous "
+                 "(no pad rows)",
+            replaces="295", tpu_kernel="_blocked_transpose_shw_kernel (row 3)"),
+        "init_stats_stream": dict(
+            kernel=lambda: mk.init_stats_stream(xs, s),
+            plain=lambda: mk.init_stats_stream_plain(xs, s),
+            library=library_stream_stats,
+            bound=bound_ms(stream_bytes + 4.0 * nb * (s + s * s),
+                           npix * (s * (s + 1) + 2.0 * s)),
+            note="one call = 2 __global__ launches; library: mean + bmm on the live rows",
+            replaces="1164", tpu_kernel="_init_stats_kernel (row 10) on the raw f32 stream"),
+        "filter_round_bsp_f32": dict(
+            kernel=lambda: mk.filter_round_bsp(xs, None, STEP, m0, carry1, r1, mf1, mode=mk.LOOP,
+                                               center=True),
+            plain=lambda: mk.filter_round_bsp_plain(xs, None, STEP, m0, carry1, r1, mf1,
+                                                    mode=mk.LOOP, center=True),
+            library=None, bound=bound_ms(stream_bytes + rows_bytes(3), npix * (5.0 * s + 12)),
+            replaces="1048", tpu_kernel="_resident_kernel (row 9), the raw f32 stream "
+                                        "centred in the kernel"),
+        "fused_iter_woodbury": dict(
+            kernel=lambda: mk.fused_iter(xs, None, m0, carry1, woodbury=True, **fused_kw),
+            plain=lambda: mk.fused_iter_plain(xs, None, m0, carry1, woodbury=True, **fused_kw),
+            library=None, bound=bound_ms(stream_bytes + rows_bytes(3), npix * (5.0 * s + 12)),
+            source=FUSED_SOURCE, replaces="386",
+            tpu_kernel="_fused_iter_kernel, woodbury=True (row 4)"),
+        "fused_iter_cholesky": dict(
+            kernel=lambda: mk.fused_iter(xs, None, m0, carry1, woodbury=False, **fused_kw),
+            plain=lambda: mk.fused_iter_plain(xs, None, m0, carry1, woodbury=False, **fused_kw),
+            library=None,
+            bound=bound_ms(stream_bytes + 4.0 * (3 * npix + nb * (5 * s + s * s)),
+                           npix * (s * (s + 1) + 5.0 * s + 12)),
+            source=FUSED_SOURCE, replaces="386",
+            note="one call = 2 __global__ launches; bound: per pixel the centring (S), proj "
+                 "(2 S), modx (2 S) and the scatter's triangle (S (S + 1)), as init_stats_stream",
+            tpu_kernel="_fused_iter_kernel, woodbury=False (row 4)"),
+        "filter_round_mono_first": dict(
+            kernel=lambda: mk.filter_round_mono(xs, m0, carry, None, None, tpl, k0, n,
+                                                mode=mk.FIRST, counter=counter, **mono_kw),
+            plain=lambda: mk.filter_round_mono_plain(xs, m0, carry, None, None, tpl, k0, n,
+                                                     mode=mk.FIRST, **mono_kw),
+            library=None,
+            bound=bound_ms(stream_bytes + rows_bytes(2) + 4.0 * nb * s * s,
+                           npix * (7.0 * s + 12) + glue_ops),
+            source=FUSED_SOURCE, replaces="880", tpu_kernel="_mono_first_kernel (row 7)"),
+        "filter_round_mono_loop": dict(
+            kernel=lambda: mk.filter_round_mono(xs, m0, cm1, rm1, mfm1, tpl, k0, n, mode=mk.LOOP,
+                                                counter=counter, **mono_kw),
+            plain=lambda: mk.filter_round_mono_plain(xs, m0, cm1, rm1, mfm1, tpl, k0, n,
+                                                     mode=mk.LOOP, **mono_kw),
+            library=None,
+            bound=bound_ms(stream_bytes + rows_bytes(3) + 4.0 * nb * s * s,
+                           npix * (5.0 * s + 12) + glue_ops),
+            source=FUSED_SOURCE, replaces="927",
+            tpu_kernel="_mono_loop_kernel (row 8; LOOP and FINAL)"),
+    }
+    out = kernel_rows(plans, fields, "acrwl1mf_fused on the bench blocks, raw f32 stream; "
+                                     "scene_layout='shw'")
+    return out, x_shw, xs, m0, c0
+
+
+def fused_routes_phase(dev, x_shw, xs, m0, c0, tpl, mf_32, mf_64, r_64):
+    """Phase 13, the whole filters of the remaining routes on the bench
+    scene, each with its launch counts zeroed just before and read just
+    after: ``acrwl1mf_fused`` on the raw f32 stream with glue mono,
+    woodbury, cholesky and resident, and ``mag1c_column_blocks
+    (scene_layout="shw")``, held against phase 4's twins (f64: threshold-500
+    agreement >= 0.999 with detections, albedo within 1e-4; f32 from K1's
+    Woodbury base: mf correlation > 0.9999); mono, woodbury and shw at bf16
+    held to bf16_contract against their f32 route; every filter bitwise
+    equal on a rerun. Returns (launch counts by route, timings)."""
+    import torch
+
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.ops.mag1c import mag1c_column_blocks, unblock_columns
+    from starcop_tpu_torch.ops.mag1c_fused import acrwl1mf_fused
+
+    nb, s = W // STEP, x_shw.shape[0]
+    xs_live = xs[:, :s].contiguous()  # glue woodbury / cholesky take S rows only
+    grid = lambda t: unblock_columns(t, H, STEP)  # noqa: E731
+    bf16 = torch.bfloat16
+
+    def fused(glue, stream, dtype=None):
+        def run():
+            mf, r = acrwl1mf_fused(stream, tpl, num_iter=NUM_ITER, alpha=ALPHA,
+                                   stream_dtype=dtype, x_layout="bsp", glue=glue, device=dev)
+            return grid(mf[..., 0]), grid(r[..., 0])
+        return run
+
+    def shw(dtype=None):
+        return lambda: mag1c_column_blocks(x_shw, tpl, None, column_step=STEP, num_iter=NUM_ITER,
+                                           alpha=ALPHA, stream_dtype=dtype, scene_layout="shw",
+                                           device=dev)
+
+    mono_counts = dict(init_stats_stream=1, filter_round_mono_first=1,
+                       filter_round_mono_loop=NUM_ITER)
+    shw_counts = dict(blocked_transpose_shw=1, init_stats_stream=1, filter_glue=NUM_ITER)
+    woodbury_counts = dict(init_stats_stream=1, fused_iter_woodbury=NUM_ITER + 1,
+                           filter_glue=NUM_ITER)
+    routes = {  # name: (run, launches by design, the f32 route it is held to at bf16)
+        "mono": (fused("mono", xs), mono_counts, None),
+        "woodbury": (fused("woodbury", xs_live), woodbury_counts, None),
+        "cholesky": (fused("cholesky", xs_live),
+                     dict(init_stats_stream=1, fused_iter_cholesky=NUM_ITER + 1), None),
+        "resident": (fused("resident", xs), dict(init_stats_stream=1, filter_glue=NUM_ITER,
+                                                 filter_round_bsp_f32=NUM_ITER + 1), None),
+        "shw": (shw(), dict(shw_counts, filter_round_bsp_f32=NUM_ITER + 1), None),
+        "mono_bf16": (fused("mono", xs, bf16), mono_counts, "mono"),
+        "woodbury_bf16": (fused("woodbury", xs_live, bf16), woodbury_counts, "woodbury"),
+        "shw_bf16": (shw(bf16), dict(shw_counts, filter_round_bsp=NUM_ITER + 1), "shw"),
+    }
+    mf32, mf64, r64 = grid(mf_32), grid(mf_64), grid(r_64)
+    det = int((mf64 > 500).sum())
+    outs, launches, timings = {}, {}, {}
+    for name, (run, design, f32_route) in routes.items():
+        mk.reset_launch_counts()
+        mf, r = run()
+        counts = dict(mk.LAUNCH_COUNTS)
+        want = {k: 0 for k in counts}
+        want.update(design)
+        check(counts == want, f"{name}: launches {({k: v for k, v in counts.items() if v})} "
+                              f"(want {design})")
+        launches[name] = counts
+        check(bool(torch.isfinite(mf).all() and torch.isfinite(r).all()),
+              f"{name}: filter output finite")
+        if f32_route is None:
+            c32 = corr(mf, mf32)
+            agree = float(((mf > 500) == (mf64 > 500)).double().mean())
+            alb = float(((r.double() - r64).abs() / r64.abs()).max())
+            check(c32 > 0.9999 and det > 0 and agree >= 0.999 and alb <= 1e-4,
+                  f"{name}: mf correlation with phase 4's f32 twin {c32:.7f} (> 0.9999), "
+                  f"threshold-500 agreement with its f64 twin {agree:.6f} (>= 0.999) over {det} "
+                  f"detections, albedo rel err {alb:.3e} (<= 1e-4)")
+            print(f"info: {name} mf correlation with the f64 twin {corr(mf, mf64):.7f}",
+                  flush=True)
+        else:
+            bf16_contract(outs[f32_route], mf, f"{name} vs the f32 {f32_route} route")
+        check(bool(torch.equal(run()[0], mf)), f"{name}: rerun bitwise identical")
+        outs[name] = mf
+        timings[f"{name}_filter_ms"] = cuda_ms(run, reps=7, warmup=1)
+    print("fused-route launches: " + json.dumps(
+        {k: {n: v for n, v in c.items() if v} for k, c in launches.items()}), flush=True)
+    timings["stream_woodbury_base_ms"] = cuda_ms(lambda: mk._woodbury_base(c0, m0, tpl, ALPHA))
+    profile_granule(routes["mono"][0], "fused_mono_filter")
+    profile_granule(routes["resident"][0], "fused_resident_filter")
     return launches, timings
 
 
@@ -1310,9 +1600,34 @@ def main() -> int:
         sum(k["ms"] * per_granule[k["name"]] for k in masked_rows)
         + glue["ms"] * per_granule["filter_glue"])
     kernels += masked_rows + bf16_rows + masked_bf16_rows
+
+    # 12. the kernels of the remaining routes on the bench blocks ----------------------
+    route_rows, x_shw, xs_stream, m0_s, c0_s = stream_kernels_phase(dev, x, tpl)
+
+    # 13. the whole filters of those routes, launches counted per route --------------
+    route_launches, route_timings = fused_routes_phase(dev, x_shw, xs_stream, m0_s, c0_s, tpl,
+                                                       mf_32, mf_64, r_64)
+    counted_on = {"blocked_transpose_shw": "shw", "init_stats_stream": "shw",
+                  "filter_round_bsp_f32": "shw", "fused_iter_woodbury": "woodbury",
+                  "fused_iter_cholesky": "cholesky", "filter_round_mono_first": "mono",
+                  "filter_round_mono_loop": "mono"}
+    for row in route_rows:
+        row["launches"] = route_launches[counted_on[row["name"]]][row["name"]]
+    for route, names in (("mono", ("init_stats_stream", "filter_round_mono_first",
+                                   "filter_round_mono_loop")),
+                         ("woodbury", ("init_stats_stream", "fused_iter_woodbury")),
+                         ("shw", ("blocked_transpose_shw", "init_stats_stream",
+                                  "filter_round_bsp_f32"))):
+        used = [k for k in route_rows if k["name"] in names]
+        glues = route_launches[route]["filter_glue"]
+        route_timings[f"{route}_filter_bound_ms"] = (
+            sum(k["bound_ms"] * k["launches"] for k in used) + glue["bound_ms"] * glues)
+        route_timings[f"{route}_filter_kernels_ms"] = (
+            sum(k["ms"] * k["launches"] for k in used) + glue["ms"] * glues)
+    kernels += route_rows
     print("timings " + json.dumps({"card": card, **timings, **masked_timings,
                                    **serving_timings, **bf16_timings, **masked_bf16_timings,
-                                   **served_bf16_timings}), flush=True)
+                                   **served_bf16_timings, **route_timings}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

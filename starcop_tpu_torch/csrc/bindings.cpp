@@ -1,4 +1,5 @@
-// torch op registrations for the matched-filter kernels in mag1c.cu.
+// torch op registrations for the matched-filter kernels in mag1c.cu and
+// mag1c_fused.cu.
 //
 // The kernels have a plain C interface; this file checks every tensor
 // (device, dtype, contiguity, shape) and passes raw pointers plus the
@@ -7,6 +8,10 @@
 // (starcop_tpu_torch/ops/mag1c_kernels.py). A refused launch raises.
 
 #include <torch/library.h>
+
+#include <initializer_list>
+#include <tuple>
+#include <utility>
 
 extern "C" {
 int starcop_max_bands();
@@ -26,11 +31,26 @@ int starcop_blocked_transpose(const float* x, const float* m0, const unsigned ch
                               void* stream);
 int starcop_init_stats_bsp(const void* xs, const float* n_given, float* partial, float* c0,
                            int nb, int R, int P, int chunk, int nchunks, void* stream);
-int starcop_filter_round_bsp(int mode, const void* xs, const unsigned char* valid,
-                             int bf16_dots, const float* m0, const float* carry, float* r,
-                             const float* mf_in, float* mf_out, float* partial, int H, int W,
-                             int S, int R, int nb, int step, int chunk, int nchunks,
+int starcop_init_stats_stream(const float* xs, float* partial, float* m0, float* c0, int nb,
+                              int S, int R, int P, int chunk, int nchunks, void* stream);
+int starcop_filter_round_bsp(int mode, const void* xs, int f32, const unsigned char* valid,
+                             int bf16_dots, int center, const float* m0, const float* carry,
+                             float* r, const float* mf_in, float* mf_out, float* partial, int H,
+                             int W, int S, int R, int nb, int step, int chunk, int nchunks,
                              float cov_scale, void* stream);
+int starcop_blocked_transpose_shw(const float* x, float* out, int S, int R, int H, int W, int nb,
+                                  int step, void* stream);
+int starcop_fused_iter(int woodbury, int first, const void* xs, int f32,
+                       const unsigned char* valid, int center, const float* m0,
+                       const float* carry, const float* r, const float* mf_in, float* mf_out,
+                       float* partial, float* mean, float* cov, int nb, int S, int R, int P,
+                       int chunk, int nchunks, float cov_scale, void* stream);
+int starcop_filter_round_mono(int mode, const void* xs, int f32, int center, const float* m0,
+                              const float* carry_in, float* r, const float* mf_in, float* mf_out,
+                              float* partial, float* carry_out, unsigned int* counter,
+                              const float* k0, const float* tmpl, const float* nin, int nb,
+                              int S, int R, int P, int chunk, int nchunks, float cov_scale,
+                              float alpha, void* stream);
 }
 
 namespace {
@@ -162,12 +182,26 @@ void filter_glue(const at::Tensor& partial, const at::Tensor& carry_in,
                "filter_glue");
 }
 
-// The bf16 stream (nb, R, P): R >= S band rows (a multiple of 8).
+// The blocked stream (nb, R, P), R >= S band rows, stored ``dtype``.
 void check_stream(const at::Tensor& xs, const at::Tensor& like, int64_t nb, int64_t rows,
-                  int64_t p) {
-  check(xs, like, "xs", {nb, rows, p}, at::kBFloat16);
-  TORCH_CHECK(rows % 8 == 0 && rows <= starcop_max_bands(), "stream rows ", rows,
-              " must be a multiple of 8 and <= ", starcop_max_bands());
+                  int64_t p, at::ScalarType dtype = at::kBFloat16) {
+  check(xs, like, "xs", {nb, rows, p}, dtype);
+  TORCH_CHECK(rows >= 1 && rows <= starcop_max_bands(), "stream rows ", rows,
+              " outside [1, ", starcop_max_bands(), "]");
+}
+
+// The stream's storage: true for f32, false for bf16; anything else raises.
+bool stream_is_f32(const at::Tensor& xs) {
+  TORCH_CHECK(xs.dim() == 3, "xs must be (nb, R, P)");
+  const auto dt = xs.scalar_type();
+  TORCH_CHECK(dt == at::kFloat || dt == at::kBFloat16, "xs must be float32 or bfloat16");
+  return dt == at::kFloat;
+}
+
+// The per-pixel rows of a stream filter pass, each (nb, P) f32.
+void check_rows(const at::Tensor& like, int64_t nb, int64_t p,
+                std::initializer_list<std::pair<const at::Tensor*, const char*>> rows) {
+  for (const auto& [t, name] : rows) check(*t, like, name, {nb, p});
 }
 
 void blocked_transpose(const at::Tensor& x, const at::Tensor& m0,
@@ -203,14 +237,17 @@ void init_stats_bsp(const at::Tensor& xs, const at::Tensor& n, const at::Tensor&
 }
 
 void filter_round_bsp(int64_t mode, const at::Tensor& xs, const std::optional<at::Tensor>& valid,
-                      bool bf16_dots, const at::Tensor& m0, const at::Tensor& carry,
+                      bool bf16_dots, bool center, const at::Tensor& m0, const at::Tensor& carry,
                       const at::Tensor& r, const at::Tensor& mf_in, const at::Tensor& mf_out,
                       const at::Tensor& partial, int64_t step, int64_t chunk, double cov_scale,
                       int64_t stream) {
-  TORCH_CHECK(xs.dim() == 3 && m0.dim() == 2, "xs must be (nb, R, P) and m0 (nb, S)");
+  const bool f32 = stream_is_f32(xs);
+  TORCH_CHECK(m0.dim() == 2, "m0 must be (nb, S)");
   const int64_t nb = xs.size(0), rows = xs.size(1), p = xs.size(2), s = m0.size(1);
-  check_stream(xs, xs, nb, rows, p);
+  check_stream(xs, xs, nb, rows, p, xs.scalar_type());
   TORCH_CHECK(s >= 1 && s <= rows, "m0 has ", s, " bands for a stream of ", rows, " rows");
+  TORCH_CHECK(!(f32 && bf16_dots), "bf16 dots read a bf16 stream");
+  TORCH_CHECK(!center || (f32 && !valid), "only an unmasked f32 stream is centred in the kernel");
   TORCH_CHECK(step >= 1 && p % step == 0, "P = ", p, " is not H * step for step ", step);
   const int64_t h = p / step;
   int64_t w = nb * step;
@@ -225,18 +262,144 @@ void filter_round_bsp(int64_t mode, const at::Tensor& xs, const std::optional<at
   TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
   check(m0, xs, "m0", {nb, s});
   check(carry, xs, "carry", {nb, 4, s});
-  check(r, xs, "r", {nb, p});
-  check(mf_in, xs, "mf_in", {nb, p});
-  check(mf_out, xs, "mf_out", {nb, p});
+  check_rows(xs, nb, p, {{&r, "r"}, {&mf_in, "mf_in"}, {&mf_out, "mf_out"}});
   check(partial, xs, "partial", {nb, nchunks, s + 2});
   check_launch(starcop_filter_round_bsp(
-                   static_cast<int>(mode), xs.data_ptr(),
-                   valid ? valid->data_ptr<uint8_t>() : nullptr, bf16_dots, m0.data_ptr<float>(),
-                   carry.data_ptr<float>(), r.data_ptr<float>(), mf_in.data_ptr<float>(),
-                   mf_out.data_ptr<float>(), partial.data_ptr<float>(), h, w, s, rows, nb, step,
-                   chunk, nchunks, static_cast<float>(cov_scale),
+                   static_cast<int>(mode), xs.data_ptr(), f32,
+                   valid ? valid->data_ptr<uint8_t>() : nullptr, bf16_dots, center,
+                   m0.data_ptr<float>(), carry.data_ptr<float>(), r.data_ptr<float>(),
+                   mf_in.data_ptr<float>(), mf_out.data_ptr<float>(), partial.data_ptr<float>(),
+                   h, w, s, rows, nb, step, chunk, nchunks, static_cast<float>(cov_scale),
                    reinterpret_cast<void*>(stream)),
                "filter_round_bsp");
+}
+
+void init_stats_stream(const at::Tensor& xs, const at::Tensor& partial, const at::Tensor& m0,
+                       const at::Tensor& c0, int64_t chunk, int64_t stream) {
+  TORCH_CHECK(xs.dim() == 3 && m0.dim() == 2, "xs must be (nb, R, P) and m0 (nb, S)");
+  const int64_t nb = xs.size(0), rows = xs.size(1), p = xs.size(2), s = m0.size(1);
+  check_stream(xs, xs, nb, rows, p, at::kFloat);
+  TORCH_CHECK(s >= 1 && s <= rows, "m0 has ", s, " bands for a stream of ", rows, " rows");
+  const int64_t nchunks = partial.size(1);
+  TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
+  check(partial, xs, "partial", {nb, nchunks, 1 + s + s * s});
+  check(m0, xs, "m0", {nb, s});
+  check(c0, xs, "c0", {nb, s, s});
+  check_launch(starcop_init_stats_stream(xs.data_ptr<float>(), partial.data_ptr<float>(),
+                                         m0.data_ptr<float>(), c0.data_ptr<float>(), nb, s, rows,
+                                         p, chunk, nchunks, reinterpret_cast<void*>(stream)),
+               "init_stats_stream");
+}
+
+void blocked_transpose_shw(const at::Tensor& x, const at::Tensor& out, int64_t nb, int64_t step,
+                           int64_t stream) {
+  TORCH_CHECK(x.dim() == 3, "x must be an (S, H, W) cube");
+  const int64_t s = x.size(0), h = x.size(1), w = x.size(2);
+  check(x, x, "x", {s, h, w});
+  TORCH_CHECK(w == nb * step, "scene width ", w, " must equal nb*step = ", nb * step);
+  TORCH_CHECK(out.dim() == 3, "out must be (nb, R, H*step)");
+  const int64_t rows = out.size(1);
+  TORCH_CHECK(rows >= s, "out has ", rows, " band rows for ", s, " bands");
+  check_stream(out, x, nb, rows, h * step, at::kFloat);
+  check_launch(starcop_blocked_transpose_shw(x.data_ptr<float>(), out.data_ptr<float>(), s, rows,
+                                             h, w, nb, step, reinterpret_cast<void*>(stream)),
+               "blocked_transpose_shw");
+}
+
+// The shared checks of the two fused_iter ops; returns (nb, S, R, P, f32).
+std::tuple<int64_t, int64_t, int64_t, int64_t, bool> check_fused_iter(
+    const at::Tensor& xs, const std::optional<at::Tensor>& valid, bool center,
+    const at::Tensor& m0, const at::Tensor& carry, const at::Tensor& r, const at::Tensor& mf_in,
+    const at::Tensor& mf_out) {
+  const bool f32 = stream_is_f32(xs);
+  TORCH_CHECK(m0.dim() == 2, "m0 must be (nb, S)");
+  const int64_t nb = xs.size(0), rows = xs.size(1), p = xs.size(2), s = m0.size(1);
+  check_stream(xs, xs, nb, rows, p, xs.scalar_type());
+  TORCH_CHECK(s >= 1 && s <= rows, "m0 has ", s, " bands for a stream of ", rows, " rows");
+  TORCH_CHECK(!center || (f32 && !valid), "only an unmasked f32 stream is centred in the kernel");
+  if (valid) check(*valid, xs, "valid", {nb, p}, at::kByte);
+  check(m0, xs, "m0", {nb, s});
+  check(carry, xs, "carry", {nb, 4, s});
+  check_rows(xs, nb, p, {{&r, "r"}, {&mf_in, "mf_in"}, {&mf_out, "mf_out"}});
+  return {nb, s, rows, p, f32};
+}
+
+void fused_iter_woodbury(bool first, const at::Tensor& xs, const std::optional<at::Tensor>& valid,
+                         bool center, const at::Tensor& m0, const at::Tensor& carry,
+                         const at::Tensor& r, const at::Tensor& mf_in, const at::Tensor& mf_out,
+                         const at::Tensor& partial, int64_t chunk, double cov_scale,
+                         int64_t stream) {
+  const auto [nb, s, rows, p, f32] = check_fused_iter(xs, valid, center, m0, carry, r, mf_in,
+                                                      mf_out);
+  const int64_t nchunks = partial.size(1);
+  TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
+  check(partial, xs, "partial", {nb, nchunks, s + 2});
+  check_launch(starcop_fused_iter(1, first, xs.data_ptr(), f32,
+                                  valid ? valid->data_ptr<uint8_t>() : nullptr, center,
+                                  m0.data_ptr<float>(), carry.data_ptr<float>(),
+                                  r.data_ptr<float>(), mf_in.data_ptr<float>(),
+                                  mf_out.data_ptr<float>(), partial.data_ptr<float>(), nullptr,
+                                  nullptr, nb, s, rows, p, chunk, nchunks,
+                                  static_cast<float>(cov_scale), reinterpret_cast<void*>(stream)),
+               "fused_iter_woodbury");
+}
+
+void fused_iter_cholesky(bool first, const at::Tensor& xs, const std::optional<at::Tensor>& valid,
+                         bool center, const at::Tensor& m0, const at::Tensor& carry,
+                         const at::Tensor& r, const at::Tensor& mf_in, const at::Tensor& mf_out,
+                         const at::Tensor& partial, const at::Tensor& mean, const at::Tensor& cov,
+                         int64_t chunk, double cov_scale, int64_t stream) {
+  const auto [nb, s, rows, p, f32] = check_fused_iter(xs, valid, center, m0, carry, r, mf_in,
+                                                      mf_out);
+  const int64_t nchunks = partial.size(1);
+  TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
+  check(partial, xs, "partial", {nb, nchunks, 1 + s + s * s});
+  check(mean, xs, "mean", {nb, s});
+  check(cov, xs, "cov", {nb, s, s});
+  check_launch(starcop_fused_iter(0, first, xs.data_ptr(), f32,
+                                  valid ? valid->data_ptr<uint8_t>() : nullptr, center,
+                                  m0.data_ptr<float>(), carry.data_ptr<float>(),
+                                  r.data_ptr<float>(), mf_in.data_ptr<float>(),
+                                  mf_out.data_ptr<float>(), partial.data_ptr<float>(),
+                                  mean.data_ptr<float>(), cov.data_ptr<float>(), nb, s, rows, p,
+                                  chunk, nchunks, static_cast<float>(cov_scale),
+                                  reinterpret_cast<void*>(stream)),
+               "fused_iter_cholesky");
+}
+
+void filter_round_mono(int64_t mode, const at::Tensor& xs, bool center, const at::Tensor& m0,
+                       const at::Tensor& carry_in, const at::Tensor& r, const at::Tensor& mf_in,
+                       const at::Tensor& mf_out, const at::Tensor& partial,
+                       const at::Tensor& carry_out, const at::Tensor& counter,
+                       const at::Tensor& k0, const at::Tensor& tmpl, const at::Tensor& nin,
+                       int64_t chunk, double cov_scale, double alpha, int64_t stream) {
+  const bool f32 = stream_is_f32(xs);
+  TORCH_CHECK(m0.dim() == 2, "m0 must be (nb, S)");
+  const int64_t nb = xs.size(0), rows = xs.size(1), p = xs.size(2), s = m0.size(1);
+  check_stream(xs, xs, nb, rows, p, xs.scalar_type());
+  TORCH_CHECK(s >= 1 && s <= rows, "m0 has ", s, " bands for a stream of ", rows, " rows");
+  TORCH_CHECK(!center || f32, "only an f32 stream is centred in the kernel");
+  const int64_t nchunks = partial.size(1);
+  TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
+  check(m0, xs, "m0", {nb, s});
+  check(carry_in, xs, "carry_in", {nb, 4, s});
+  check(carry_out, xs, "carry_out", {nb, 4, s});
+  check_rows(xs, nb, p, {{&r, "r"}, {&mf_in, "mf_in"}, {&mf_out, "mf_out"}});
+  check(partial, xs, "partial", {nb, nchunks, s + 2});
+  check(counter, xs, "counter", {nb}, at::kInt);
+  check(k0, xs, "k0", {nb, s, s});
+  check(tmpl, xs, "tmpl", {s});
+  check(nin, xs, "nin", {nb});
+  check_launch(starcop_filter_round_mono(
+                   static_cast<int>(mode), xs.data_ptr(), f32, center, m0.data_ptr<float>(),
+                   carry_in.data_ptr<float>(), r.data_ptr<float>(), mf_in.data_ptr<float>(),
+                   mf_out.data_ptr<float>(), partial.data_ptr<float>(),
+                   carry_out.data_ptr<float>(),
+                   reinterpret_cast<unsigned int*>(counter.data_ptr<int32_t>()),
+                   k0.data_ptr<float>(), tmpl.data_ptr<float>(), nin.data_ptr<float>(), nb, s,
+                   rows, p, chunk, nchunks, static_cast<float>(cov_scale),
+                   static_cast<float>(alpha), reinterpret_cast<void*>(stream)),
+               "filter_round_mono");
 }
 
 }  // namespace
@@ -265,8 +428,26 @@ TORCH_LIBRARY(starcop_mag1c, m) {
   m.def("init_stats_bsp(Tensor xs, Tensor n, Tensor(a!) partial, Tensor(b!) c0, int chunk, "
         "int stream) -> ()",
         &init_stats_bsp);
-  m.def("filter_round_bsp(int mode, Tensor xs, Tensor? valid, bool bf16_dots, Tensor m0, "
-        "Tensor carry, Tensor(a!) r, Tensor mf_in, Tensor(b!) mf_out, Tensor(c!) partial, "
-        "int step, int chunk, float cov_scale, int stream) -> ()",
+  m.def("filter_round_bsp(int mode, Tensor xs, Tensor? valid, bool bf16_dots, bool center, "
+        "Tensor m0, Tensor carry, Tensor(a!) r, Tensor mf_in, Tensor(b!) mf_out, "
+        "Tensor(c!) partial, int step, int chunk, float cov_scale, int stream) -> ()",
         &filter_round_bsp);
+  m.def("init_stats_stream(Tensor xs, Tensor(a!) partial, Tensor(b!) m0, Tensor(c!) c0, "
+        "int chunk, int stream) -> ()",
+        &init_stats_stream);
+  m.def("blocked_transpose_shw(Tensor x, Tensor(a!) out, int nb, int step, int stream) -> ()",
+        &blocked_transpose_shw);
+  m.def("fused_iter_woodbury(bool first, Tensor xs, Tensor? valid, bool center, Tensor m0, "
+        "Tensor carry, Tensor r, Tensor mf_in, Tensor(a!) mf_out, Tensor(b!) partial, "
+        "int chunk, float cov_scale, int stream) -> ()",
+        &fused_iter_woodbury);
+  m.def("fused_iter_cholesky(bool first, Tensor xs, Tensor? valid, bool center, Tensor m0, "
+        "Tensor carry, Tensor r, Tensor mf_in, Tensor(a!) mf_out, Tensor(b!) partial, "
+        "Tensor(c!) mean, Tensor(d!) cov, int chunk, float cov_scale, int stream) -> ()",
+        &fused_iter_cholesky);
+  m.def("filter_round_mono(int mode, Tensor xs, bool center, Tensor m0, Tensor carry_in, "
+        "Tensor(a!) r, Tensor mf_in, Tensor(b!) mf_out, Tensor(c!) partial, "
+        "Tensor(d!) carry_out, Tensor(e!) counter, Tensor k0, Tensor tmpl, Tensor nin, "
+        "int chunk, float cov_scale, float alpha, int stream) -> ()",
+        &filter_round_mono);
 }

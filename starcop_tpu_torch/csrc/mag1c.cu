@@ -51,9 +51,10 @@
 // fixed order, so a rerun is bitwise identical. Cross-chunk reductions and
 // the glue's dot products accumulate in f64.
 //
-// The bf16 stream (stream_dtype=bf16) works on the blocked (nb, R, P)
-// layout: band row s of column block b is R*P contiguous values, R >= S a
-// multiple of 8 (rows S..R-1 zero), pixel p = h*step + j.
+// The blocked (nb, R, P) stream: band row s of column block b is P
+// contiguous values, R >= S rows (rows S..R-1 zero), pixel p = h*step + j;
+// bf16 (stream_dtype=bf16) or f32 (acrwl1mf_fused's (B, S, P) input and the
+// band-major cube's route, mag1c_fused.cu).
 //
 //   blocked_transpose <- _blocked_transpose_kernel (:92) and
 //                        _blocked_transpose_swh_kernel (:170) followed by
@@ -61,36 +62,28 @@
 //                        (H, W, S) cube to the blocked layout, centred by m0,
 //                        optionally masked, stored bf16.
 //   init_stats        <- _init_stats_kernel (:1164) as well: the unmasked
-//                        route takes m0 and C0 from the cube itself, so no
-//                        f32 blocked copy is made.
+//                        bf16 route takes m0 and C0 from the cube itself, so
+//                        no f32 blocked copy is made.
+//   init_stats_stream <- _init_stats_kernel (:1164) on the raw f32 stream.
 //   init_stats_bsp    <- the XLA second moment of the masked bf16 stream
 //                        (:1814-1824).
-//   filter_round_bsp  <- _resident_kernel (:1048) with bf16 storage and f32
-//                        math (unmasked), and _first_round_kernel (:594) /
-//                        _loop_round_kernel (:664) with bf16_dots (masked).
+//   filter_round_bsp  <- _resident_kernel (:1048), bf16 storage and f32
+//                        math or the raw f32 stream centred in registers;
+//                        _first_round_kernel (:594) / _loop_round_kernel
+//                        (:664), masked, with bf16_dots on a bf16 stream.
 //
-// One bf16 block is 7.7 MB and the whole stream ~178 MB at EMIT size, far
-// beyond an SM's 228 KB and the 50 MB L2, so the stream is read once per
-// pass as K1 reads the cube: every filter_round_bsp launch is bound by the
-// stream's HBM bytes, half of the f32 cube's.
+// One bf16 block is 7.7 MB and the whole stream ~178 MB at EMIT size (f32:
+// twice that), far beyond an SM's 228 KB and the 50 MB L2, so the stream is
+// read once per pass as K1 reads the cube: every filter_round_bsp launch is
+// bound by the stream's HBM bytes.
 //
 // Interface: plain C functions taking raw pointers and the caller's stream;
 // bindings.cpp registers them as torch ops. Each returns the cudaError_t of
 // its launches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "mag1c_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSub = 32;       // pixels per shared-memory tile in init_stats (one warp)
-constexpr int kMaxBands = 128;
-constexpr float kEpsilon = 1e-9f;
-constexpr float kScaling = 1e5f;
-
-enum RoundMode { kFirst = 0, kLoop = 1, kFinal = 2 };
 
 struct Pixel {
   long long off;  // float offset of band 0 in the cube
@@ -110,63 +103,12 @@ __device__ __forceinline__ Pixel locate(const unsigned char* __restrict__ valid,
   return {hw * S, ok};
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  // Butterfly: every lane ends with the same, bitwise identical sum.
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  return v;
-}
-
 // ---------------------------------------------------------------------------
-// init_stats / init_stats_masked, pass 1: per (chunk, block) partial moments.
-//
-// A CTA walks its chunk in tiles of kSub pixels staged in shared memory.
-// Each tile is centred on the mean of its valid pixels and folded into the
-// running mean and centred scatter by Chan et al.'s pairwise update,
-//   M += M_tile + (n_run n_tile / n) d d^T,  mean += d n_tile / n,
-// with d = mean_tile - mean and n_tile the tile's VALID count, so every sum
-// accumulates centred values. Masked, invalid rows of the tile hold 0 and a
-// tile with no valid pixel is skipped (no 0/0). Thread (ty, tx) of a
-// 16 x 16 grid owns scatter entries (ty + 16 i, tx + 16 k), i, k < TS, over
-// SP = 16 * TS >= S bands (padding bands stay zero).
-// Partial record per (b, c): [n | mean(S) | scatter(S*S)].
+// init_stats / init_stats_masked, pass 1: per (chunk, block) partial moments
+// (the tiles and Chan fold of mag1c_common.cuh). n_tile is the tile's VALID
+// count. Masked, invalid rows of the tile hold 0 and a tile with no valid
+// pixel is skipped (no 0/0).
 // ---------------------------------------------------------------------------
-
-// acc[i][k] += sum over the tile's first n_span rows of
-// tile[pl][ty + 16 i] * tile[pl][tx + 16 k].
-template <int TS>
-__device__ __forceinline__ void scatter_tile(const float (*tile)[16 * TS + 1], int n_span,
-                                             float (&acc)[TS][TS]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  for (int pl = 0; pl < n_span; ++pl) {
-    float av[TS], bv[TS];
-#pragma unroll
-    for (int i = 0; i < TS; ++i) av[i] = tile[pl][ty + 16 * i];
-#pragma unroll
-    for (int k = 0; k < TS; ++k) bv[k] = tile[pl][tx + 16 * k];
-#pragma unroll
-    for (int i = 0; i < TS; ++i)
-#pragma unroll
-      for (int k = 0; k < TS; ++k) acc[i][k] = fmaf(av[i], bv[k], acc[i][k]);
-  }
-}
-
-// The partial record [n | mean(S) | scatter(S*S)] of (b, c).
-template <int TS>
-__device__ __forceinline__ void write_stats_record(float* rec, int n, const float* mean,
-                                                   const float (&acc)[TS][TS], int S) {
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  if (tid == 0) rec[0] = (float)n;
-  if (tid < S) rec[1 + tid] = mean[tid];
-#pragma unroll
-  for (int i = 0; i < TS; ++i)
-#pragma unroll
-    for (int k = 0; k < TS; ++k) {
-      const int a = ty + 16 * i, bb = tx + 16 * k;
-      if (a < S && bb < S) rec[1 + S + a * S + bb] = acc[i][k];
-    }
-}
-
 template <int TS, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
 init_stats_partial_kernel(const float* __restrict__ x, const unsigned char* __restrict__ valid,
@@ -179,7 +121,6 @@ init_stats_partial_kernel(const float* __restrict__ x, const unsigned char* __re
   __shared__ int tile_n;
 
   const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
   const int p_beg = c * chunk;
   const int p_end = min(P, p_beg + chunk);
 
@@ -220,29 +161,7 @@ init_stats_partial_kernel(const float* __restrict__ x, const unsigned char* __re
         tile[pl][s] = x[off + s];
     }
     __syncthreads();
-    const float n_new = (float)(n_run + n_tile);
-    if (tid < S) {
-      float m = 0.f;
-      for (int pl = 0; pl < n_span; ++pl) m += tile[pl][tid];
-      m /= (float)n_tile;
-      for (int pl = 0; pl < n_span; ++pl) {
-        if constexpr (MASKED)
-          tile[pl][tid] = tile_ok[pl] ? tile[pl][tid] - m : 0.f;
-        else
-          tile[pl][tid] -= m;
-      }
-      delta[tid] = m - mean[tid];
-      mean[tid] += delta[tid] * ((float)n_tile / n_new);
-    }
-    __syncthreads();
-    const float coef = (float)n_run * ((float)n_tile / n_new);
-#pragma unroll
-    for (int i = 0; i < TS; ++i)
-#pragma unroll
-      for (int k = 0; k < TS; ++k)
-        acc[i][k] = fmaf(coef * delta[ty + 16 * i], delta[tx + 16 * k], acc[i][k]);
-    scatter_tile<TS>(tile, n_span, acc);
-    n_run += n_tile;
+    fold_tile<TS>(tile, MASKED ? tile_ok : nullptr, n_span, n_tile, n_run, mean, delta, acc, S);
     __syncthreads();
   }
   write_stats_record<TS>(partial + ((long long)b * nchunks + c) * (1 + S + S * S), n_run, mean,
@@ -250,25 +169,32 @@ init_stats_partial_kernel(const float* __restrict__ x, const unsigned char* __re
 }
 
 // ---------------------------------------------------------------------------
-// init_stats_bsp, pass 1: the raw second moment sum xs xs^T of the centred
-// bf16 stream (nb, R, P), which is zero wherever a pixel does not count, in
-// init_stats_partial_kernel's tiles (f32 products and sums, no re-centring,
-// as :1814-1824). Row s of a tile is 32 contiguous pixels of band row s, so
-// a warp's load is one coalesced span. The records carry zero means, so the
-// shared reduce adds their scatters alone. One read of the stream.
+// init_stats_bsp / init_stats_stream, pass 1: the statistics of the blocked
+// stream (nb, R, P) over its first S rows, in init_stats_partial_kernel's
+// tiles. Row s of a tile is 32 contiguous pixels of band row s, so a warp's
+// load is one coalesced span. One read of the stream.
+//   bf16 (init_stats_bsp): the raw second moment sum xs xs^T of the centred
+//     stream, which is zero wherever a pixel does not count (f32 products and
+//     sums, no re-centring, as :1814-1824). The records carry zero means, so
+//     the reduce adds their scatters alone.
+//   float (init_stats_stream, _init_stats_kernel :1164): the mean and the
+//     centred covariance of the raw f32 stream, every pixel valid, by the
+//     Chan fold (a plain f32 covariance of a 69,120-pixel block drifts the
+//     30-iteration filter away from its f64 twin; see PERF.md).
 // ---------------------------------------------------------------------------
-template <int TS>
+template <int TS, typename T>
 __global__ void __launch_bounds__(kThreads)
-init_stats_bsp_partial_kernel(const __nv_bfloat16* __restrict__ xs, float* __restrict__ partial,
+init_stats_bsp_partial_kernel(const T* __restrict__ xs, float* __restrict__ partial, int S,
                               int R, int P, int chunk, int nchunks) {
+  constexpr bool MEAN = sizeof(T) == 4;
   constexpr int SP = 16 * TS;
   __shared__ float tile[kSub][SP + 1];
-  __shared__ float mean[SP];  // zero
+  __shared__ float mean[SP], delta[SP];  // mean stays zero without MEAN
 
   const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int p_beg = c * chunk;
   const int p_end = min(P, p_beg + chunk);
-  const __nv_bfloat16* xb = xs + (long long)b * R * P;
+  const T* xb = xs + (long long)b * R * P;
 
   float acc[TS][TS];
 #pragma unroll
@@ -277,65 +203,25 @@ init_stats_bsp_partial_kernel(const __nv_bfloat16* __restrict__ xs, float* __res
     for (int k = 0; k < TS; ++k) acc[i][k] = 0.f;
 
   for (int e = tid; e < kSub * (SP + 1); e += kThreads) (&tile[0][0])[e] = 0.f;
-  if (tid < SP) mean[tid] = 0.f;
+  if (tid < SP) mean[tid] = delta[tid] = 0.f;
   __syncthreads();
 
+  int n_run = 0;
   for (int p0 = p_beg; p0 < p_end; p0 += kSub) {
     const int n_span = min(kSub, p_end - p0);
-    for (int e = tid; e < kSub * R; e += kThreads) {
+    for (int e = tid; e < kSub * S; e += kThreads) {
       const int s = e / kSub, pl = e - s * kSub;
-      if (pl < n_span) tile[pl][s] = __bfloat162float(xb[(long long)s * P + p0 + pl]);
+      if (pl < n_span) tile[pl][s] = to_f32(xb[(long long)s * P + p0 + pl]);
     }
     __syncthreads();
-    scatter_tile<TS>(tile, n_span, acc);
+    if constexpr (MEAN)
+      fold_tile<TS>(tile, nullptr, n_span, n_span, n_run, mean, delta, acc, S);
+    else
+      scatter_tile<TS>(tile, n_span, acc);
     __syncthreads();
   }
-  write_stats_record<TS>(partial + ((long long)b * nchunks + c) * (1 + R + R * R),
-                         p_end - p_beg, mean, acc, R);
-}
-
-// ---------------------------------------------------------------------------
-// init_stats, pass 2: one CTA per block combines the chunk records in chunk
-// order in f64 by the same pairwise rule:
-//   m = sum_c n_c mean_c / n,
-//   C = sum_c [M_c + n_c (mean_c - m)(mean_c - m)^T] / n,
-// with n clamped to >= 1 (a block with no valid pixel gets m0 = 0, C0 = 0,
-// as JAX's max(sum w, 1)). With n_given (init_stats_bsp, whose records carry
-// zero means) n is the block's given valid count instead and m0 is not
-// written.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-init_stats_reduce_kernel(const float* __restrict__ partial, const float* __restrict__ n_given,
-                         float* __restrict__ m0, float* __restrict__ c0, int S, int nchunks) {
-  extern __shared__ double mean_all[];  // S
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int rec_len = 1 + S + S * S;
-  const float* base = partial + (long long)b * nchunks * rec_len;
-
-  double n = 0.0;
-  for (int c = 0; c < nchunks; ++c) n += (double)base[(long long)c * rec_len];
-  n = n_given != nullptr ? (double)n_given[b] : fmax(n, 1.0);
-  for (int s = tid; s < S; s += kThreads) {
-    double acc = 0.0;
-    for (int c = 0; c < nchunks; ++c) {
-      const float* rec = base + (long long)c * rec_len;
-      acc += (double)rec[0] * (double)rec[1 + s];
-    }
-    mean_all[s] = acc / n;
-    if (m0 != nullptr) m0[(long long)b * S + s] = (float)(acc / n);
-  }
-  __syncthreads();
-  for (int e = tid; e < S * S; e += kThreads) {
-    const int a = e / S, bb = e - a * S;
-    double acc = 0.0;
-    for (int c = 0; c < nchunks; ++c) {
-      const float* rec = base + (long long)c * rec_len;
-      const double da = (double)rec[1 + a] - mean_all[a];
-      const double db = (double)rec[1 + bb] - mean_all[bb];
-      acc += (double)rec[1 + S + e] + (double)rec[0] * da * db;
-    }
-    c0[(long long)b * S * S + e] = (float)(acc / n);
-  }
+  write_stats_record<TS>(partial + ((long long)b * nchunks + c) * (1 + S + S * S),
+                         p_end - p_beg, mean, acc, S);
 }
 
 // ---------------------------------------------------------------------------
@@ -509,263 +395,42 @@ blocked_transpose_kernel(const float* __restrict__ x, const float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// filter_round_bsp: one streaming pass of the filter over the centred bf16
-// stream (nb, R, P), the counterpart of filter_round for the blocked layout.
+// filter_round_bsp: one streaming pass of the filter over the blocked stream
+// (nb, R, P), the counterpart of filter_round for the blocked layout; the
+// body is round_bsp_chunk (mag1c_common.cuh), the record goes to filter_glue.
 //
-// A CTA of TP threads owns a chunk of one block and walks it in tiles of TP
-// pixels, thread t on pixel p0 + t. Per tile: each thread reads its pixel's S
-// band values (one coalesced 2*TP-byte row per band), stages them in shared
-// memory and forms proj = cit.xs - cit.mu (and q = m0.xs in FIRST); then mf,
-// R and g = cov_scale R mf as filter_round does; then thread t < S adds its
-// band's u[t] += sum over the tile of xs[t, p] g[p]. The per-chunk record is
-// [u(S) | sum g | sum g^2] for filter_glue. Sums run in a fixed order, so a
-// rerun is bitwise identical.
-//
-// BF16_DOTS (the masked route, _first_round_kernel / _loop_round_kernel with
-// bf16_dots=True): cit, m0 and g are rounded to bf16 before their products
-// with the stream (:633-636, :693-701, _lane_dot :555-574), as JAX's bf16 MXU
-// dots take them; the products are then exact in f32 and accumulate in f32.
-// cit.mu, m0.m0, sum g, sum g^2 and the glue stay f32. Without it (the
-// unmasked resident route, _resident_kernel :1088-1095) bf16 is storage only
-// and every product is f32.
-//
-// MASKED reads the (H, W) uint8 mask and the width W as filter_round_masked
-// does: a pixel that does not count loads nothing and gets mf = 0, R = 1.
+//   bf16 storage: _resident_kernel (:1088-1095, f32 products) unmasked, and
+//     _first_round_kernel / _loop_round_kernel with bf16_dots masked.
+//   f32 storage (row 9 at f32, and rows 5-6 on an f32 stream): the raw
+//     stream centred in registers (CENTER, JAX's centered=False), or a
+//     centred one (acrwl1mf_fused's (B, P, S) layout), masked by a (B, P) row.
 // ---------------------------------------------------------------------------
-constexpr int kRoundBspThreads = 128;
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <int MODE, bool MASKED, bool BF16_DOTS>
+template <typename T, int MODE, bool MASKED, bool BF16_DOTS, bool CENTER>
 __global__ void __launch_bounds__(kRoundBspThreads)
-filter_round_bsp_kernel(const __nv_bfloat16* __restrict__ xs,
-                        const unsigned char* __restrict__ valid, const float* __restrict__ m0,
-                        const float* __restrict__ carry, float* __restrict__ r,
-                        const float* __restrict__ mf_in, float* __restrict__ mf_out,
-                        float* __restrict__ partial, int W, int S, int R, int step, int P,
-                        int chunk, int nchunks, float cov_scale) {
-  constexpr int TP = kRoundBspThreads;
-  constexpr int LD = TP + 2;  // staged row pitch: an odd number of words, no bank conflicts
-  extern __shared__ __nv_bfloat16 xt[];  // [S][LD]
-  __shared__ float cit_d[kMaxBands], m0_d[kMaxBands], g_d[TP];
-  __shared__ float red[2][TP / 32];
-  __shared__ float consts[2];  // cit . mu, m0 . m0
-
-  const int c = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
-  const float* cb = carry + (long long)b * 4 * S;
-  const float* mb = m0 + (long long)b * S;
-  for (int s = t; s < S; s += TP) {
-    cit_d[s] = BF16_DOTS ? bf16_round(cb[2 * S + s]) : cb[2 * S + s];
-    m0_d[s] = BF16_DOTS ? bf16_round(mb[s]) : mb[s];
-  }
-  if (t == 0) {
-    float shift = 0.f, m0n = 0.f;
-    for (int s = 0; s < S; ++s) {
-      shift = fmaf(cb[2 * S + s], cb[s], shift);
-      m0n = fmaf(mb[s], mb[s], m0n);
-    }
-    consts[0] = shift;
-    consts[1] = m0n;
-  }
-  __syncthreads();
-  const float shift = consts[0], m0n = consts[1], norm = cb[3 * S];
-
-  float uacc = 0.f, gsum = 0.f, gsq = 0.f;
-  const int p_beg = c * chunk;
-  const int p_end = min(P, p_beg + chunk);
-  const __nv_bfloat16* xb = xs + (long long)b * R * P;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  for (int p0 = p_beg; p0 < p_end; p0 += TP) {
-    const int p = p0 + t;
-    const bool in = p < p_end;
-    bool ok = in;
-    if (MASKED && in) {
-      const int h = p / step;
-      const int col = b * step + (p - h * step);
-      ok = col < W && valid[(long long)h * W + col] != 0;
-    }
-    float proj = 0.f, q = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const __nv_bfloat16 v = ok ? xb[(long long)s * P + p] : zero;
-      if (MODE != kFinal) xt[s * LD + t] = v;
-      const float xv = __bfloat162float(v);
-      proj = fmaf(cit_d[s], xv, proj);
-      if (MODE == kFirst) q = fmaf(m0_d[s], xv, q);
-    }
-    float ru = 1.f, mf = 0.f;
-    if (ok) {
-      const long long i = (long long)b * P + p;
-      if (MODE == kFirst) {
-        ru = q / m0n + 1.f;
-        mf = fmaxf((proj - shift) / (ru * norm), 0.f);
-      } else {
-        ru = r[i];
-        const float reg = 1.f / (ru * (mf_in[i] + kEpsilon));
-        mf = fmaxf((proj - shift - reg) / (ru * norm), 0.f);
-      }
-    }
-    if (in) {
-      const long long i = (long long)b * P + p;
-      if (MODE == kFirst) r[i] = ru;
-      mf_out[i] = MODE == kFinal ? mf * kScaling : mf;
-    }
-    if (MODE == kFinal) continue;
-    const float g = cov_scale * (ru * mf);  // 0 where the pixel does not count
-    gsum += g;
-    gsq = fmaf(g, g, gsq);
-    g_d[t] = BF16_DOTS ? bf16_round(g) : g;
-    __syncthreads();
-    if (t < S) {
-      const __nv_bfloat16* row = xt + t * LD;
-      for (int k = 0; k < TP; ++k) uacc = fmaf(__bfloat162float(row[k]), g_d[k], uacc);
-    }
-    __syncthreads();
-  }
-  if (MODE == kFinal) return;
-
-  gsum = warp_sum(gsum);
-  gsq = warp_sum(gsq);
-  if (t % 32 == 0) {
-    red[0][t / 32] = gsum;
-    red[1][t / 32] = gsq;
-  }
-  __syncthreads();
-  float* rec = partial + ((long long)b * nchunks + c) * (S + 2);
-  if (t < S) rec[t] = uacc;
-  if (t == 0) {
-    float sum_g = 0.f, sum_g2 = 0.f;
-    for (int w = 0; w < TP / 32; ++w) {
-      sum_g += red[0][w];
-      sum_g2 += red[1][w];
-    }
-    rec[S] = sum_g;
-    rec[S + 1] = sum_g2;
-  }
+filter_round_bsp_kernel(const T* __restrict__ xs, const unsigned char* __restrict__ valid,
+                        const float* __restrict__ m0, const float* __restrict__ carry,
+                        float* __restrict__ r, const float* __restrict__ mf_in,
+                        float* __restrict__ mf_out, float* __restrict__ partial, int W, int S,
+                        int R, int step, int P, int chunk, int nchunks, float cov_scale) {
+  round_bsp_chunk<T, MODE, MASKED, BF16_DOTS, CENTER>(xs, valid, m0, carry, r, mf_in, mf_out,
+                                                      partial, W, S, R, step, P, chunk, nchunks,
+                                                      cov_scale);
 }
 
 // ---------------------------------------------------------------------------
-// filter_glue: _glue_math for one block per CTA, with 1/n of that block
-// (nin[b]: the valid count clamped to >= 1, or H*step unmasked). Values are
-// f32 as in the TPU kernel; the partials are summed over chunks, and every
-// dot product is accumulated, in f64 (the Woodbury solve amplifies rounding
-// by the covariance's condition number, ~5e5 on EMIT-like scenes). Threads
-// own band rows for the K0 matvecs; thread 0 forms the scalar dots serially
-// in band order.
+// filter_glue: glue_block (mag1c_common.cuh) for one block per CTA, with 1/n
+// of that block (nin[b]: the valid count clamped to >= 1, or H*step unmasked).
 // ---------------------------------------------------------------------------
-constexpr int kGlueThreads = 128;  // >= S
-
-__device__ void k0_matvec(const float* __restrict__ k0, const float* v, float* out, int S) {
-  const int t = threadIdx.x;
-  if (t < S) {
-    double acc = 0.0;
-    for (int j = 0; j < S; ++j) acc = fma((double)k0[t * S + j], (double)v[j], acc);
-    out[t] = (float)acc;
-  }
-}
-
-__device__ float dot_serial(const float* a, const float* b, int S) {
-  double acc = 0.0;
-  for (int j = 0; j < S; ++j) acc = fma((double)a[j], (double)b[j], acc);
-  return (float)acc;
-}
-
-struct GlueScalars {
-  float gbar, beta, i00, i01, i10, i11, det, x0, x1, norm;
-};
-
-// out = A0^{-1} v by Woodbury against K0 = C0s^{-1} (the a0inv of _glue_math).
-__device__ void a0inv(const float* __restrict__ k0, const float* v, float* out,
-                      const float* wt, const float* wu, float* kv, GlueScalars& sc, int S) {
-  k0_matvec(k0, v, kv, S);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const float y0 = dot_serial(wt, v, S);
-    const float y1 = dot_serial(wu, v, S);
-    sc.x0 = (sc.i11 * y0 - sc.i01 * y1) / sc.det;
-    sc.x1 = (-sc.i10 * y0 + sc.i00 * y1) / sc.det;
-  }
-  __syncthreads();
-  const int t = threadIdx.x;
-  if (t < S) out[t] = kv[t] - wt[t] * sc.x0 - wu[t] * sc.x1;
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(kGlueThreads)
 filter_glue_kernel(const float* __restrict__ partial, const float* __restrict__ carry_in,
                    float* __restrict__ carry_out, const float* __restrict__ m0,
                    const float* __restrict__ tmpl, const float* __restrict__ k0_all,
                    const float* __restrict__ nin_all, int S, int nchunks, float alpha) {
-  __shared__ float u[kGlueThreads], tgt[kGlueThreads], tnew[kGlueThreads];
-  __shared__ float wt[kGlueThreads], wu[kGlueThreads], kv[kGlueThreads];
-  __shared__ float z[kGlueThreads], v2[kGlueThreads], z2[kGlueThreads];
-  __shared__ GlueScalars sc;
-
-  const int b = blockIdx.x, t = threadIdx.x;
-  const float nin = nin_all[b];
-  const float* k0 = k0_all + (long long)b * S * S;
-  const float* cin = carry_in + (long long)b * 4 * S;
-  float* cnext = carry_out + (long long)b * 4 * S;
-  const float* base = partial + (long long)b * nchunks * (S + 2);
-
-  for (int s = t; s < S + 2; s += kGlueThreads) {
-    double acc = 0.0;
-    for (int c = 0; c < nchunks; ++c) acc += (double)base[(long long)c * (S + 2) + s];
-    if (s < S) {
-      u[s] = (float)acc * nin;  // u = s1 * nin
-    } else if (s == S) {
-      sc.gbar = (float)acc * nin;
-    } else {
-      sc.beta = (float)acc * nin;  // mom1 * nin; gbar^2 subtracted below
-    }
-  }
-  if (t < S) tgt[t] = cin[S + t];
-  __syncthreads();
-  if (t == 0) sc.beta = sc.beta - sc.gbar * sc.gbar;
-  __syncthreads();
-
-  float mu_new = 0.f;
-  if (t < S) {
-    mu_new = -tgt[t] * sc.gbar;
-    tnew[t] = tmpl[t] * (m0[(long long)b * S + t] + mu_new);
-  }
-  k0_matvec(k0, tgt, wt, S);
-  k0_matvec(k0, u, wu, S);
-  __syncthreads();
-  if (t == 0) {
-    const float g00 = dot_serial(tgt, wt, S);
-    const float g01 = dot_serial(tgt, wu, S);
-    const float g10 = dot_serial(u, wt, S);
-    const float g11 = dot_serial(u, wu, S);
-    const float sa = 1.f - alpha;
-    sc.i00 = g00;
-    sc.i01 = g01 - 1.f / sa;
-    sc.i10 = g10 - 1.f / sa;
-    sc.i11 = g11 - sc.beta / sa;
-    sc.det = sc.i00 * sc.i11 - sc.i01 * sc.i10;
-  }
-  __syncthreads();
-
-  a0inv(k0, tnew, z, wt, wu, kv, sc, S);
-  if (alpha != 0.f) {
-    if (t < S) {
-      const float d = sc.beta * tgt[t] * tgt[t] - 2.f * tgt[t] * u[t];
-      v2[t] = alpha * d * z[t];
-    }
-    __syncthreads();
-    a0inv(k0, v2, z2, wt, wu, kv, sc, S);
-    if (t < S) z[t] = z[t] - z2[t];
-    __syncthreads();
-  }
-  if (t == 0) sc.norm = fmaxf(dot_serial(tnew, z, S), 1.f);
-  __syncthreads();
-  if (t < S) {
-    cnext[t] = mu_new;
-    cnext[S + t] = tnew[t];
-    cnext[2 * S + t] = z[t];
-    cnext[3 * S + t] = sc.norm;
-  }
+  __shared__ GlueSmem g;
+  const int b = blockIdx.x;
+  glue_block(partial + (long long)b * nchunks * (S + 2), nchunks, carry_in + (long long)b * 4 * S,
+             carry_out + (long long)b * 4 * S, m0 + (long long)b * S, tmpl,
+             k0_all + (long long)b * S * S, nin_all[b], S, alpha, g);
 }
 
 template <int TS>
@@ -813,40 +478,48 @@ cudaError_t launch_round(int mode, const float* x, const unsigned char* valid, c
   return cudaGetLastError();
 }
 
-template <int TS>
-cudaError_t launch_init_bsp(const void* xs, float* partial, int R, int P, int chunk, int nchunks,
-                            int nb, cudaStream_t st) {
-  init_stats_bsp_partial_kernel<TS><<<dim3(nchunks, nb), kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(xs), partial, R, P, chunk, nchunks);
+template <int TS, typename T>
+cudaError_t launch_init_bsp(const void* xs, float* partial, int S, int R, int P, int chunk,
+                            int nchunks, int nb, cudaStream_t st) {
+  init_stats_bsp_partial_kernel<TS, T><<<dim3(nchunks, nb), kThreads, 0, st>>>(
+      static_cast<const T*>(xs), partial, S, R, P, chunk, nchunks);
   return cudaGetLastError();
 }
 
-template <bool MASKED, bool BF16_DOTS>
-cudaError_t launch_round_bsp(int mode, const __nv_bfloat16* xs, const unsigned char* valid,
+template <typename T>
+cudaError_t launch_init_bsp_ts(const void* xs, float* partial, int S, int R, int P, int chunk,
+                               int nchunks, int nb, cudaStream_t st) {
+  switch ((S + 15) / 16) {
+    case 1: return launch_init_bsp<1, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
+    case 2: return launch_init_bsp<2, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
+    case 3: return launch_init_bsp<3, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
+    case 4: return launch_init_bsp<4, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
+    case 5: return launch_init_bsp<5, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
+    case 6: return launch_init_bsp<6, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
+    case 7: return launch_init_bsp<7, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
+    case 8: return launch_init_bsp<8, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, bool MASKED, bool BF16_DOTS, bool CENTER>
+cudaError_t launch_round_bsp(int mode, const void* xs_raw, const unsigned char* valid,
                              const float* m0, const float* carry, float* r, const float* mf_in,
                              float* mf_out, float* partial, int W, int S, int R, int step, int P,
                              int chunk, int nchunks, int nb, float cov_scale, cudaStream_t st) {
+  const T* xs = static_cast<const T*>(xs_raw);
   const dim3 grid(nchunks, nb);
-  const size_t smem = (size_t)S * (kRoundBspThreads + 2) * sizeof(__nv_bfloat16);
-  if (mode == kFirst)
-    filter_round_bsp_kernel<kFirst, MASKED, BF16_DOTS><<<grid, kRoundBspThreads, smem, st>>>(
-        xs, valid, m0, carry, r, mf_in, mf_out, partial, W, S, R, step, P, chunk, nchunks,
-        cov_scale);
-  else if (mode == kLoop)
-    filter_round_bsp_kernel<kLoop, MASKED, BF16_DOTS><<<grid, kRoundBspThreads, smem, st>>>(
-        xs, valid, m0, carry, r, mf_in, mf_out, partial, W, S, R, step, P, chunk, nchunks,
-        cov_scale);
-  else
-    filter_round_bsp_kernel<kFinal, MASKED, BF16_DOTS><<<grid, kRoundBspThreads, smem, st>>>(
-        xs, valid, m0, carry, r, mf_in, mf_out, partial, W, S, R, step, P, chunk, nchunks,
-        cov_scale);
-  return cudaGetLastError();
-}
-
-template <bool MASKED, typename... Args>
-cudaError_t launch_round_bsp_dots(bool bf16_dots, Args... args) {
-  return bf16_dots ? launch_round_bsp<MASKED, true>(args...)
-                   : launch_round_bsp<MASKED, false>(args...);
+  const size_t smem = round_bsp_smem<T>(S);
+  auto run = [&](auto kernel) {
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kRoundBspThreads, smem, st>>>(xs, valid, m0, carry, r, mf_in, mf_out, partial,
+                                                 W, S, R, step, P, chunk, nchunks, cov_scale);
+    return cudaGetLastError();
+  };
+  if (mode == kFirst) return run(filter_round_bsp_kernel<T, kFirst, MASKED, BF16_DOTS, CENTER>);
+  if (mode == kLoop) return run(filter_round_bsp_kernel<T, kLoop, MASKED, BF16_DOTS, CENTER>);
+  return run(filter_round_bsp_kernel<T, kFinal, MASKED, BF16_DOTS, CENTER>);
 }
 
 }  // namespace
@@ -905,44 +578,58 @@ int starcop_blocked_transpose(const float* x, const float* m0, const unsigned ch
 int starcop_init_stats_bsp(const void* xs, const float* n_given, float* partial, float* c0,
                            int nb, int R, int P, int chunk, int nchunks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch ((R + 15) / 16) {
-    case 1: err = launch_init_bsp<1>(xs, partial, R, P, chunk, nchunks, nb, st); break;
-    case 2: err = launch_init_bsp<2>(xs, partial, R, P, chunk, nchunks, nb, st); break;
-    case 3: err = launch_init_bsp<3>(xs, partial, R, P, chunk, nchunks, nb, st); break;
-    case 4: err = launch_init_bsp<4>(xs, partial, R, P, chunk, nchunks, nb, st); break;
-    case 5: err = launch_init_bsp<5>(xs, partial, R, P, chunk, nchunks, nb, st); break;
-    case 6: err = launch_init_bsp<6>(xs, partial, R, P, chunk, nchunks, nb, st); break;
-    case 7: err = launch_init_bsp<7>(xs, partial, R, P, chunk, nchunks, nb, st); break;
-    case 8: err = launch_init_bsp<8>(xs, partial, R, P, chunk, nchunks, nb, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const cudaError_t err = launch_init_bsp_ts<__nv_bfloat16>(xs, partial, R, R, P, chunk, nchunks,
+                                                            nb, st);
   if (err != cudaSuccess) return (int)err;
   init_stats_reduce_kernel<<<nb, kThreads, R * sizeof(double), st>>>(partial, n_given, nullptr,
                                                                      c0, R, nchunks);
   return (int)cudaGetLastError();
 }
 
-// One pass over the bf16 stream (nb, R, P) with S <= R live bands; valid ==
-// nullptr: every pixel counts (the unmasked resident route), else the (H, W)
-// mask and the width W select. bf16_dots rounds cit, m0 and g to bf16.
-int starcop_filter_round_bsp(int mode, const void* xs, const unsigned char* valid,
-                             int bf16_dots, const float* m0, const float* carry, float* r,
-                             const float* mf_in, float* mf_out, float* partial, int H, int W,
-                             int S, int R, int nb, int step, int chunk, int nchunks,
+// m0 (nb, S), C0 (nb, S, S) of the raw f32 stream (nb, R, P) over its first S
+// rows, every pixel valid.
+int starcop_init_stats_stream(const float* xs, float* partial, float* m0, float* c0, int nb,
+                              int S, int R, int P, int chunk, int nchunks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S < 1 || S > R) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = launch_init_bsp_ts<float>(xs, partial, S, R, P, chunk, nchunks, nb, st);
+  if (err != cudaSuccess) return (int)err;
+  init_stats_reduce_kernel<<<nb, kThreads, S * sizeof(double), st>>>(partial, nullptr, m0, c0, S,
+                                                                     nchunks);
+  return (int)cudaGetLastError();
+}
+
+// One pass over the blocked stream (nb, R, P) with S <= R live bands, stored
+// f32 (f32 != 0) or bf16. valid == nullptr: every pixel counts, else the
+// (H, W) mask and the width W select. bf16_dots (bf16 only) rounds cit, m0
+// and g to bf16; center (f32 only) subtracts m0 from the raw stream.
+int starcop_filter_round_bsp(int mode, const void* xs, int f32, const unsigned char* valid,
+                             int bf16_dots, int center, const float* m0, const float* carry,
+                             float* r, const float* mf_in, float* mf_out, float* partial, int H,
+                             int W, int S, int R, int nb, int step, int chunk, int nchunks,
                              float cov_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode < kFirst || mode > kFinal || S < 1 || S > kMaxBands || R < S)
     return (int)cudaErrorInvalidValue;
-  const auto* x = static_cast<const __nv_bfloat16*>(xs);
+  if ((f32 && bf16_dots) || (!f32 && center) || (valid != nullptr && center))
+    return (int)cudaErrorInvalidValue;
   const int P = H * step;
-  if (valid != nullptr)
-    return (int)launch_round_bsp_dots<true>(bf16_dots != 0, mode, x, valid, m0, carry, r, mf_in,
-                                            mf_out, partial, W, S, R, step, P, chunk, nchunks,
-                                            nb, cov_scale, st);
-  return (int)launch_round_bsp_dots<false>(bf16_dots != 0, mode, x, valid, m0, carry, r, mf_in,
-                                           mf_out, partial, W, S, R, step, P, chunk, nchunks, nb,
-                                           cov_scale, st);
+#define STARCOP_ROUND_BSP(T, MASKED, DOTS, CENTER)                                              \
+  return (int)launch_round_bsp<T, MASKED, DOTS, CENTER>(mode, xs, valid, m0, carry, r, mf_in,  \
+                                                        mf_out, partial, W, S, R, step, P,      \
+                                                        chunk, nchunks, nb, cov_scale, st)
+  if (f32) {
+    if (valid != nullptr) STARCOP_ROUND_BSP(float, true, false, false);
+    if (center) STARCOP_ROUND_BSP(float, false, false, true);
+    STARCOP_ROUND_BSP(float, false, false, false);
+  }
+  if (valid != nullptr) {
+    if (bf16_dots) STARCOP_ROUND_BSP(__nv_bfloat16, true, true, false);
+    STARCOP_ROUND_BSP(__nv_bfloat16, true, false, false);
+  }
+  if (bf16_dots) STARCOP_ROUND_BSP(__nv_bfloat16, false, true, false);
+  STARCOP_ROUND_BSP(__nv_bfloat16, false, false, false);
+#undef STARCOP_ROUND_BSP
 }
 
 // valid == nullptr: filter_round; else filter_round_masked.

@@ -1,0 +1,424 @@
+// Hand-written Hopper (sm_90a) kernels of the matched filter's remaining
+// routes: the band-major cube and acrwl1mf_fused's mono, woodbury and
+// cholesky glues (starcop_tpu/ops/mag1c_pallas.py).
+//
+//   blocked_transpose_shw <- _blocked_transpose_shw_kernel (:295, row 3): the
+//                            (S, H, nb*step) band-major cube to the f32
+//                            blocked stream (nb, R, H*step).
+//   fused_iter            <- _fused_iter_kernel (:386, row 4): one streaming
+//                            pass per iteration, the glue between passes
+//                            (filter_glue or torch). WOODBURY: mf and the records
+//                            [u | sum g | sum g^2]; CHOLESKY: mf and the mean
+//                            and centred covariance of modx.
+//   filter_round_mono     <- _mono_first_kernel (:880, row 7) in FIRST,
+//                            _mono_loop_kernel (:927, row 8) in LOOP / FINAL:
+//                            one launch per iteration does the round AND the
+//                            Woodbury glue.
+//
+// All three read the blocked stream (nb, R, P): band row s of block b is P
+// contiguous values, R >= S rows, pixel p = h*step + j. The stream is f32 or
+// bf16 and far larger than an SM or the 50 MB L2 (a 1280 x 54 x 50 f32 block
+// is 13.8 MB), so each pass reads it once from HBM: every kernel here is
+// bound by HBM bytes, fused_iter CHOLESKY's S x S scatter aside.
+//
+// Numerics: f32 values and FMAs, no TF32 and no tensor cores; cross-chunk
+// reductions in f64 in chunk order, so a rerun is bitwise identical.
+//
+// Interface: plain C functions taking raw pointers and the caller's stream;
+// bindings.cpp registers them as torch ops. Each returns the cudaError_t of
+// its launches.
+
+#include "mag1c_common.cuh"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// blocked_transpose_shw: out[b, s, h*step + j] = x[s, h, b*step + j], rows
+// S..R-1 zero; a bitwise copy. Each output band row of a block is H runs of
+// step contiguous floats of one input band row. Thread q of a row writes
+// element q (coalesced) and reads x[s, q / step, b*step + q % step]: a warp
+// covers one or a few runs, each a contiguous span, so its loads coalesce
+// into a few segments. kShwPerThread elements per thread, one row stride
+// apart, keep several loads in flight. Bound by HBM bytes (one read, one
+// write).
+// ---------------------------------------------------------------------------
+constexpr int kShwPerThread = 4;
+
+__global__ void __launch_bounds__(kThreads)
+blocked_transpose_shw_kernel(const float* __restrict__ x, float* __restrict__ out, int S, int R,
+                             int H, int W, int step, int P) {
+  const int s = blockIdx.y, b = blockIdx.z;
+  float* orow = out + ((long long)b * R + s) * P;
+  const int q0 = blockIdx.x * (kThreads * kShwPerThread) + threadIdx.x;
+  if (s >= S) {
+#pragma unroll
+    for (int u = 0; u < kShwPerThread; ++u) {
+      const int q = q0 + u * kThreads;
+      if (q < P) orow[q] = 0.f;
+    }
+    return;
+  }
+  const float* xrow = x + (long long)s * H * W + (long long)b * step;
+  float v[kShwPerThread];
+#pragma unroll
+  for (int u = 0; u < kShwPerThread; ++u) {
+    const int q = q0 + u * kThreads;
+    if (q < P) {
+      const int h = q / step;
+      v[u] = __ldg(xrow + (long long)h * W + (q - h * step));
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kShwPerThread; ++u) {
+    const int q = q0 + u * kThreads;
+    if (q < P) orow[q] = v[u];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fused_iter, WOODBURY: round_bsp_chunk in PASS (first) or LOOP mode, with
+// the optional (B, P) valid row as the mask (H = 1, W = B*P, step = P). bf16
+// is storage only (x_ref.astype(f32), :412): no bf16 dots.
+// ---------------------------------------------------------------------------
+template <typename T, int MODE, bool MASKED, bool CENTER>
+__global__ void __launch_bounds__(kRoundBspThreads)
+fused_iter_woodbury_kernel(const T* __restrict__ xs, const unsigned char* __restrict__ valid,
+                           const float* __restrict__ m0, const float* __restrict__ carry,
+                           const float* __restrict__ r, const float* __restrict__ mf_in,
+                           float* __restrict__ mf_out, float* __restrict__ partial, int S, int R,
+                           int P, int chunk, int nchunks, float cov_scale) {
+  // r is only read in PASS and LOOP.
+  round_bsp_chunk<T, MODE, MASKED, false, CENTER>(xs, valid, m0, carry, const_cast<float*>(r),
+                                                  mf_in, mf_out, partial, gridDim.y * P, S, R, P,
+                                                  P, chunk, nchunks, cov_scale);
+}
+
+// ---------------------------------------------------------------------------
+// fused_iter, CHOLESKY, pass 1: per (chunk, block) the mf update and the
+// tile statistics of modx = x - cov_scale target R mf_new (:458-474) over
+// the valid pixels, in init_stats's tiles: a tile of kSub pixels x S bands is
+// staged (centred by m0 if the stream is raw), warp w forms proj = cit.(x -
+// mu) of pixels w, w + 8, ... and mf_new (or mf_prev on the first call),
+// the tile becomes modx in place, and the Chan fold adds it to the chunk's
+// mean and centred scatter. Pass 2 is init_stats_reduce_kernel: the block's
+// mean of modx and its centred covariance, combined in f64, i.e. JAX's s1 / n
+// and s2 / n - mu mu^T (:1966-1967) without the f32 cancellation. A pixel
+// whose valid byte is 0 loads nothing, gets mf = 0 and does not count.
+// The stream T is f32 or bf16 (storage only, as WOODBURY); m0c (nullable)
+// centres a raw f32 stream.
+// ---------------------------------------------------------------------------
+template <typename T, int TS>
+__global__ void __launch_bounds__(kThreads)
+fused_iter_cholesky_partial_kernel(int first, const T* __restrict__ xs,
+                                   const unsigned char* __restrict__ valid,
+                                   const float* __restrict__ m0c, const float* __restrict__ carry,
+                                   const float* __restrict__ r, const float* __restrict__ mf_in,
+                                   float* __restrict__ mf_out, float* __restrict__ partial, int S,
+                                   int R, int P, int chunk, int nchunks, float cov_scale) {
+  constexpr int SP = 16 * TS;
+  __shared__ float tile[kSub][SP + 1];
+  __shared__ float mean[SP], delta[SP];
+  __shared__ float cit_s[SP], mu_s[SP], tgt_s[SP], m0_s[SP];
+  __shared__ float gmul[kSub];
+  __shared__ unsigned char tile_ok[kSub];
+  __shared__ int tile_n;
+
+  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int p_beg = c * chunk;
+  const int p_end = min(P, p_beg + chunk);
+  const long long row = (long long)b * P;
+  const float* cb = carry + (long long)b * 4 * S;
+  const T* xb = xs + (long long)b * R * P;
+
+  float acc[TS][TS];
+#pragma unroll
+  for (int i = 0; i < TS; ++i)
+#pragma unroll
+    for (int k = 0; k < TS; ++k) acc[i][k] = 0.f;
+
+  for (int e = tid; e < kSub * (SP + 1); e += kThreads) (&tile[0][0])[e] = 0.f;
+  if (tid < SP) {
+    const bool on = tid < S;
+    mean[tid] = delta[tid] = 0.f;
+    mu_s[tid] = on ? cb[tid] : 0.f;
+    tgt_s[tid] = on ? cb[S + tid] : 0.f;
+    cit_s[tid] = on ? cb[2 * S + tid] : 0.f;
+    m0_s[tid] = on && m0c != nullptr ? m0c[(long long)b * S + tid] : 0.f;
+  }
+  __syncthreads();
+  const float norm = cb[3 * S];
+
+  int n_run = 0;
+  for (int p0 = p_beg; p0 < p_end; p0 += kSub) {
+    const int n_span = min(kSub, p_end - p0);
+    if (tid < kSub) {  // warp 0 marks the tile's valid pixels
+      const bool ok = tid < n_span && (valid == nullptr || valid[row + p0 + tid] != 0);
+      const unsigned vote = __ballot_sync(0xffffffffu, ok);
+      tile_ok[tid] = ok;
+      if (tid == 0) tile_n = __popc(vote);
+    }
+    __syncthreads();
+    const int n_tile = tile_n;
+    for (int e = tid; e < kSub * S; e += kThreads) {
+      const int s = e / kSub, pl = e - s * kSub;
+      if (pl < n_span) {
+        float v = 0.f;
+        if (tile_ok[pl]) {
+          const long long i = (long long)s * P + p0 + pl;
+          v = to_f32(xb[i]) - m0_s[s];
+        }
+        tile[pl][s] = v;
+      }
+    }
+    __syncthreads();
+    for (int pl = warp; pl < n_span; pl += kWarps) {
+      float part = 0.f;
+      for (int s = lane; s < S; s += 32) part = fmaf(cit_s[s], tile[pl][s] - mu_s[s], part);
+      const float proj = warp_sum(part);
+      if (lane == 0) {
+        const long long i = row + p0 + pl;
+        float mf = 0.f, g = 0.f;
+        if (tile_ok[pl]) {
+          const float ru = r[i];
+          if (first) {
+            mf = mf_in[i];
+          } else {
+            const float reg = 1.f / (ru * (mf_in[i] + kEpsilon));
+            mf = fmaxf((proj - reg) / (ru * norm), 0.f);
+          }
+          g = cov_scale * (ru * mf);
+        }
+        mf_out[i] = mf;
+        gmul[pl] = g;
+      }
+    }
+    __syncthreads();
+    if (n_tile > 0) {  // uniform across the CTA
+      for (int e = tid; e < n_span * S; e += kThreads) {
+        const int pl = e / S, s = e - pl * S;
+        if (tile_ok[pl]) tile[pl][s] -= tgt_s[s] * gmul[pl];
+      }
+      __syncthreads();
+      fold_tile<TS>(tile, tile_ok, n_span, n_tile, n_run, mean, delta, acc, S);
+    }
+    __syncthreads();
+  }
+  write_stats_record<TS>(partial + ((long long)b * nchunks + c) * (1 + S + S * S), n_run, mean,
+                         acc, S);
+}
+
+// ---------------------------------------------------------------------------
+// filter_round_mono: round_bsp_chunk (FIRST, LOOP or FINAL) and then, unless
+// FINAL, the Woodbury glue of its block in the same launch. The TPU kernel
+// holds one block per grid step and streams it through a two-slot DMA ring;
+// a 13.8 MB f32 block fits no SM, so here many CTAs share a block and the
+// last one to finish runs the glue: each CTA writes its chunk record, fences
+// (__threadfence) and adds one to its block's counter; the CTA that sees
+// nchunks - 1 fences again, sums the block's records in chunk order (so a
+// rerun is bitwise identical) and runs glue_block, the math of filter_glue,
+// into carry_out, then puts the counter back to 0, so the next launch finds
+// it so. The caller zeroes the counters once per filter, in stream order,
+// before its first launch. Unmasked: a pixel the
+// caller's (B, P) weights exclude is 0 in the stream, so it gets R = 1 and
+// mf = 0 (the regulariser pins it, as the TPU kernels do without a weight).
+// ---------------------------------------------------------------------------
+template <typename T, int MODE, bool BF16_DOTS, bool CENTER>
+__global__ void __launch_bounds__(kRoundBspThreads)
+filter_round_mono_kernel(const T* __restrict__ xs, const float* __restrict__ m0,
+                         const float* __restrict__ carry_in, float* __restrict__ r,
+                         const float* __restrict__ mf_in, float* __restrict__ mf_out,
+                         float* __restrict__ partial, float* __restrict__ carry_out,
+                         unsigned int* __restrict__ counter, const float* __restrict__ k0_all,
+                         const float* __restrict__ tmpl, const float* __restrict__ nin_all, int S,
+                         int R, int P, int chunk, int nchunks, float cov_scale, float alpha) {
+  static_assert(kRoundBspThreads == kGlueThreads, "the last CTA runs the glue");
+  round_bsp_chunk<T, MODE, false, BF16_DOTS, CENTER>(xs, nullptr, m0, carry_in, r, mf_in, mf_out,
+                                                     partial, 0, S, R, P, P, chunk, nchunks,
+                                                     cov_scale);
+  if constexpr (MODE != kFinal) {
+    __shared__ GlueSmem g;
+    __shared__ bool last;
+    const int b = blockIdx.y;
+    __threadfence();  // this CTA's record before its count
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(counter + b, 1u) == (unsigned int)(nchunks - 1);
+    __syncthreads();
+    if (!last) return;
+    __threadfence();  // every count seen: the records are visible
+    glue_block(partial + (long long)b * nchunks * (S + 2), nchunks,
+               carry_in + (long long)b * 4 * S, carry_out + (long long)b * 4 * S,
+               m0 + (long long)b * S, tmpl, k0_all + (long long)b * S * S, nin_all[b], S, alpha,
+               g);
+    if (threadIdx.x == 0) counter[b] = 0u;
+  }
+}
+
+template <typename T, int MODE, bool MASKED, bool CENTER>
+cudaError_t launch_woodbury(const void* xs, const unsigned char* valid, const float* m0,
+                            const float* carry, const float* r, const float* mf_in, float* mf_out,
+                            float* partial, int S, int R, int P, int chunk, int nchunks, int nb,
+                            float cov_scale, cudaStream_t st) {
+  auto kernel = fused_iter_woodbury_kernel<T, MODE, MASKED, CENTER>;
+  const size_t smem = round_bsp_smem<T>(S);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(nchunks, nb), kRoundBspThreads, smem, st>>>(
+      static_cast<const T*>(xs), valid, m0, carry, r, mf_in, mf_out, partial, S, R, P, chunk,
+      nchunks, cov_scale);
+  return cudaGetLastError();
+}
+
+template <typename T, bool MASKED, bool CENTER>
+cudaError_t launch_woodbury_mode(int first, const void* xs, const unsigned char* valid,
+                                 const float* m0, const float* carry, const float* r,
+                                 const float* mf_in, float* mf_out, float* partial, int S, int R,
+                                 int P, int chunk, int nchunks, int nb, float cov_scale,
+                                 cudaStream_t st) {
+  if (first)
+    return launch_woodbury<T, kPass, MASKED, CENTER>(xs, valid, m0, carry, r, mf_in, mf_out,
+                                                     partial, S, R, P, chunk, nchunks, nb,
+                                                     cov_scale, st);
+  return launch_woodbury<T, kLoop, MASKED, CENTER>(xs, valid, m0, carry, r, mf_in, mf_out,
+                                                   partial, S, R, P, chunk, nchunks, nb,
+                                                   cov_scale, st);
+}
+
+template <int TS>
+cudaError_t launch_cholesky(int first, const void* xs, int f32, const unsigned char* valid,
+                            const float* m0c, const float* carry, const float* r,
+                            const float* mf_in, float* mf_out, float* partial, int S, int R,
+                            int P, int chunk, int nchunks, int nb, float cov_scale,
+                            cudaStream_t st) {
+  const dim3 grid(nchunks, nb);
+  if (f32)
+    fused_iter_cholesky_partial_kernel<float, TS><<<grid, kThreads, 0, st>>>(
+        first, static_cast<const float*>(xs), valid, m0c, carry, r, mf_in, mf_out, partial, S, R,
+        P, chunk, nchunks, cov_scale);
+  else
+    fused_iter_cholesky_partial_kernel<__nv_bfloat16, TS><<<grid, kThreads, 0, st>>>(
+        first, static_cast<const __nv_bfloat16*>(xs), valid, m0c, carry, r, mf_in, mf_out,
+        partial, S, R, P, chunk, nchunks, cov_scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int MODE, bool BF16_DOTS, bool CENTER>
+cudaError_t launch_mono(const void* xs, const float* m0, const float* carry_in, float* r,
+                        const float* mf_in, float* mf_out, float* partial, float* carry_out,
+                        unsigned int* counter, const float* k0, const float* tmpl,
+                        const float* nin, int S, int R, int P, int chunk, int nchunks, int nb,
+                        float cov_scale, float alpha, cudaStream_t st) {
+  auto kernel = filter_round_mono_kernel<T, MODE, BF16_DOTS, CENTER>;
+  const size_t smem = round_bsp_smem<T>(S);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(nchunks, nb), kRoundBspThreads, smem, st>>>(
+      static_cast<const T*>(xs), m0, carry_in, r, mf_in, mf_out, partial, carry_out, counter, k0,
+      tmpl, nin, S, R, P, chunk, nchunks, cov_scale, alpha);
+  return cudaGetLastError();
+}
+
+template <typename T, bool BF16_DOTS, bool CENTER, typename... Args>
+cudaError_t launch_mono_mode(int mode, Args... args) {
+  if (mode == kFirst) return launch_mono<T, kFirst, BF16_DOTS, CENTER>(args...);
+  if (mode == kLoop) return launch_mono<T, kLoop, BF16_DOTS, CENTER>(args...);
+  return launch_mono<T, kFinal, BF16_DOTS, CENTER>(args...);
+}
+
+}  // namespace
+
+extern "C" {
+
+// The (S, H, nb*step) f32 cube -> the f32 blocked stream (nb, R, H*step).
+int starcop_blocked_transpose_shw(const float* x, float* out, int S, int R, int H, int W, int nb,
+                                  int step, void* stream) {
+  if (S < 1 || R < S || R > 65535 || nb > 65535 || W != nb * step)
+    return (int)cudaErrorInvalidValue;
+  const int P = H * step;
+  const dim3 grid((P + kThreads * kShwPerThread - 1) / (kThreads * kShwPerThread), R, nb);
+  blocked_transpose_shw_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, out, S, R, H, W, step, P);
+  return (int)cudaGetLastError();
+}
+
+// One fused_iter pass over the stream (nb, R, P) with S <= R live bands,
+// stored f32 (f32 != 0) or bf16; valid (nb, P) uint8 or nullptr; center
+// (f32 only, unmasked) subtracts m0 from the raw stream. woodbury: partial is
+// (nb, nchunks, S + 2), one launch; else partial is (nb, nchunks,
+// 1 + S + S*S) and mean (nb, S), cov (nb, S, S) come from a second launch.
+int starcop_fused_iter(int woodbury, int first, const void* xs, int f32,
+                       const unsigned char* valid, int center, const float* m0,
+                       const float* carry, const float* r, const float* mf_in, float* mf_out,
+                       float* partial, float* mean, float* cov, int nb, int S, int R, int P,
+                       int chunk, int nchunks, float cov_scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S < 1 || S > kMaxBands || R < S || (!f32 && center) || (valid != nullptr && center))
+    return (int)cudaErrorInvalidValue;
+  if (woodbury) {
+#define STARCOP_WOODBURY(T, MASKED, CENTER)                                                   \
+  return (int)launch_woodbury_mode<T, MASKED, CENTER>(first, xs, valid, m0, carry, r, mf_in,  \
+                                                      mf_out, partial, S, R, P, chunk,        \
+                                                      nchunks, nb, cov_scale, st)
+    if (f32) {
+      if (valid != nullptr) STARCOP_WOODBURY(float, true, false);
+      if (center) STARCOP_WOODBURY(float, false, true);
+      STARCOP_WOODBURY(float, false, false);
+    }
+    if (valid != nullptr) STARCOP_WOODBURY(__nv_bfloat16, true, false);
+    STARCOP_WOODBURY(__nv_bfloat16, false, false);
+#undef STARCOP_WOODBURY
+  }
+  const float* m0c = center ? m0 : nullptr;
+  cudaError_t err;
+  switch ((S + 15) / 16) {
+#define STARCOP_CHOLESKY(TS)                                                                   \
+  case TS:                                                                                     \
+    err = launch_cholesky<TS>(first, xs, f32, valid, m0c, carry, r, mf_in, mf_out, partial,    \
+                              S, R, P, chunk, nchunks, nb, cov_scale, st);                     \
+    break
+    STARCOP_CHOLESKY(1);
+    STARCOP_CHOLESKY(2);
+    STARCOP_CHOLESKY(3);
+    STARCOP_CHOLESKY(4);
+    STARCOP_CHOLESKY(5);
+    STARCOP_CHOLESKY(6);
+    STARCOP_CHOLESKY(7);
+    STARCOP_CHOLESKY(8);
+#undef STARCOP_CHOLESKY
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  init_stats_reduce_kernel<<<nb, kThreads, S * sizeof(double), st>>>(partial, nullptr, mean, cov,
+                                                                     S, nchunks);
+  return (int)cudaGetLastError();
+}
+
+// One mono round over the stream (nb, R, P): FIRST / LOOP write carry_out,
+// FINAL writes mf * 1e5 only. f32: center subtracts m0 from a raw stream;
+// bf16: the centred stream with bf16 dots. counter (nb,) must be 0.
+int starcop_filter_round_mono(int mode, const void* xs, int f32, int center, const float* m0,
+                              const float* carry_in, float* r, const float* mf_in, float* mf_out,
+                              float* partial, float* carry_out, unsigned int* counter,
+                              const float* k0, const float* tmpl, const float* nin, int nb,
+                              int S, int R, int P, int chunk, int nchunks, float cov_scale,
+                              float alpha, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode < kFirst || mode > kFinal || S < 1 || S > kGlueThreads || R < S || (!f32 && center))
+    return (int)cudaErrorInvalidValue;
+  if (f32 && center)
+    return (int)launch_mono_mode<float, false, true>(mode, xs, m0, carry_in, r, mf_in, mf_out,
+                                                     partial, carry_out, counter, k0, tmpl, nin,
+                                                     S, R, P, chunk, nchunks, nb, cov_scale,
+                                                     alpha, st);
+  if (f32)
+    return (int)launch_mono_mode<float, false, false>(mode, xs, m0, carry_in, r, mf_in, mf_out,
+                                                      partial, carry_out, counter, k0, tmpl, nin,
+                                                      S, R, P, chunk, nchunks, nb, cov_scale,
+                                                      alpha, st);
+  return (int)launch_mono_mode<__nv_bfloat16, true, false>(mode, xs, m0, carry_in, r, mf_in,
+                                                           mf_out, partial, carry_out, counter,
+                                                           k0, tmpl, nin, S, R, P, chunk,
+                                                           nchunks, nb, cov_scale, alpha, st);
+}
+
+}  // extern "C"

@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/``) at first use.
 
-``nvcc`` compiles ``csrc/mag1c.cu`` (plain C interface, no PyTorch headers)
+``nvcc`` compiles each ``.cu`` source (plain C interface, no PyTorch headers)
 for ``sm_90a`` and ``csrc/bindings.cpp`` (the ``TORCH_LIBRARY`` op
-registrations) in parallel, links both into one shared library under
+registrations), all in parallel, links them into one shared library under
 ``starcop_tpu_torch/_build/<hash>/`` and loads it with
 ``torch.ops.load_library``. The hash covers the sources, the flags and the
 torch version, so an edited source builds anew. A failed build raises with
@@ -23,7 +23,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
-SOURCES = ("mag1c.cu", "bindings.cpp")
+CUDA_SOURCES = ("mag1c.cu", "mag1c_fused.cu")
+SOURCES = (*CUDA_SOURCES, "mag1c_common.cuh", "bindings.cpp")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 LIB_NAME = "libstarcop_mag1c.so"
 _LOAD_LOCK = threading.Lock()  # serving workers may reach their first kernel together
@@ -41,7 +42,8 @@ def _nvcc() -> str:
 
 
 def build_commands(nvcc: str, out_dir: str) -> list[list[str]]:
-    """The two compile commands (run in parallel) and the link command."""
+    """One compile command per source (run in parallel), then the link
+    command."""
     from torch.utils import cpp_extension
 
     inc = cpp_extension.include_paths(device_type="cuda")
@@ -50,12 +52,14 @@ def build_commands(nvcc: str, out_dir: str) -> list[list[str]]:
     includes = [f"-I{p}" for p in inc]
     common = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", abi]
     obj = lambda name: os.path.join(out_dir, name + ".o")  # noqa: E731
+    cuda = [os.path.splitext(name)[0] for name in CUDA_SOURCES]
     return [
-        [nvcc, *common, ARCH, "-Xptxas", "-v", "-c", os.path.join(CSRC, "mag1c.cu"),
-         "-o", obj("mag1c")],
+        *([nvcc, *common, ARCH, "-Xptxas", "-v", "-c", os.path.join(CSRC, name + ".cu"),
+           "-o", obj(name)] for name in cuda),
         [nvcc, *common, *includes, "-c", os.path.join(CSRC, "bindings.cpp"),
          "-o", obj("bindings")],
-        [nvcc, "-shared", obj("mag1c"), obj("bindings"), "-o", os.path.join(out_dir, LIB_NAME),
+        [nvcc, "-shared", *(obj(name) for name in cuda), obj("bindings"),
+         "-o", os.path.join(out_dir, LIB_NAME),
          *[f"-L{p}" for p in libdirs], "-lc10", "-ltorch_cpu", "-ltorch",
          *[f"-Xlinker=-rpath={p}" for p in libdirs]],
     ]
@@ -97,9 +101,9 @@ def load():
         if not os.path.exists(lib):
             tmp = f"{out_dir}.tmp{os.getpid()}"
             os.makedirs(tmp, exist_ok=True)
-            compile_a, compile_b, link = build_commands(nvcc, tmp)
+            *compiles, link = build_commands(nvcc, tmp)
             log = os.path.join(tmp, "build.log")
-            _run([compile_a, compile_b], log)
+            _run(compiles, log)
             _run([link], log)
             shutil.rmtree(out_dir, ignore_errors=True)
             os.replace(tmp, out_dir)

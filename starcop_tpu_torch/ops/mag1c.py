@@ -248,6 +248,7 @@ def mag1c_column_blocks(
     alpha: float = 1e-4,
     fill_value: float = NODATA,
     stream_dtype=None,
+    scene_layout: str = "hws",
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Matched filter over an (H, W, S) scene in ``column_step``-wide blocks.
@@ -268,23 +269,48 @@ def mag1c_column_blocks(
       * bf16, a mask or a ragged last block: ``acrwl1mf_masked_bf16``
         (JAX's bf16 dots).
 
+    ``scene_layout="shw"`` takes the band-major (S, H, W) cube. With no mask
+    and ``W % column_step == 0`` it goes through ``blocked_transpose_shw``
+    into the f32 blocked stream and ``acrwl1mf_fused(x_layout="bsp",
+    glue="resident")`` (row 10's statistics of the stream, then the rounds on
+    the raw f32 stream or its centred bf16 copy); otherwise it is restated
+    as (H, W, S) and takes the masked route above, as JAX's generic path
+    does. Any other layout raises ``ValueError``.
+
     Returns (mf, albedo) as (H, W) float32 tensors on the device, with
     ``fill_value`` at invalid pixels.
     """
     from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.ops.mag1c_fused import acrwl1mf_fused
 
+    if scene_layout not in ("hws", "shw"):
+        raise ValueError(f"scene_layout must be 'hws' or 'shw', got {scene_layout!r}")
+    band_major = scene_layout == "shw"
     bf16 = is_bf16_stream(stream_dtype)
     dev = resolve_device(device)
-    h, w_dim, s = scene.shape
+    if band_major:
+        s, h, w_dim = scene.shape
+    else:
+        h, w_dim, s = scene.shape
     step = int(column_step) if column_step else w_dim
     nb = -(-w_dim // step)
     x = torch.as_tensor(scene, dtype=torch.float32, device=dev)
     tpl = torch.as_tensor(template, dtype=torch.float32, device=dev)
 
     if valid_mask is None and nb * step == w_dim:
-        resident = mk.acrwl1mf_resident_bsp if bf16 else mk.acrwl1mf_resident
-        mf, albedo = resident(x, tpl, nb, step, num_iter=num_iter, alpha=alpha, device=dev)
+        if band_major:
+            xs = mk.blocked_transpose_shw(x.contiguous(), nb, step, mk.stream_rows(s))
+            mf, albedo = acrwl1mf_fused(xs, tpl, num_iter=num_iter, alpha=alpha,
+                                        stream_dtype=stream_dtype, x_layout="bsp",
+                                        glue="resident", device=dev)
+            mf, albedo = mf[..., 0], albedo[..., 0]
+        else:
+            resident = mk.acrwl1mf_resident_bsp if bf16 else mk.acrwl1mf_resident
+            mf, albedo = resident(x, tpl, nb, step, num_iter=num_iter, alpha=alpha, device=dev)
         return unblock_columns(mf, h, step), unblock_columns(albedo, h, step)
+
+    if band_major:
+        x = x.permute(1, 2, 0)
 
     valid = (torch.ones((h, w_dim), dtype=torch.bool, device=dev) if valid_mask is None
              else torch.as_tensor(valid_mask, dtype=torch.bool, device=dev))

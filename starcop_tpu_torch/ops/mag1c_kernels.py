@@ -49,6 +49,23 @@ layout, R = the band count rounded up to a multiple of 8 (zero rows):
 ``acrwl1mf_resident_bsp`` (every pixel valid) and ``acrwl1mf_masked_bf16``
 (a valid mask) are the two bf16 filters; the glue is ``filter_glue``.
 
+The remaining routes of ``acrwl1mf_fused`` (``ops/mag1c_fused.py``, which
+builds on this module) and the band-major cube, on the blocked stream
+stored f32 or bf16 (kernels in ``csrc/mag1c_fused.cu`` unless noted):
+
+  ``blocked_transpose_shw``  <- ``_blocked_transpose_shw_kernel`` (:295):
+                                the (S, H, W) cube to the f32 stream.
+  ``init_stats_stream``      <- ``_init_stats_kernel`` (:1164) on the raw
+                                f32 stream (``csrc/mag1c.cu``).
+  ``filter_round_bsp``       <- ``_resident_kernel`` at f32 as well: the raw
+                                stream centred in the kernel (``center``).
+  ``fused_iter``             <- ``_fused_iter_kernel`` (:386), WOODBURY
+                                (then ``filter_glue``) or CHOLESKY (then
+                                the Cholesky glue in torch).
+  ``filter_round_mono``      <- ``_mono_first_kernel`` (:880) and
+                                ``_mono_loop_kernel`` (:927): the round and
+                                the Woodbury glue in one launch.
+
 The TPU kernels hold a column block in VMEM; an SM has 228 KB of shared
 memory, so here each iteration streams the cube once (see csrc/mag1c.cu for
 the design). One filter is 1 ``init_stats[_masked]``, ``num_iter + 1``
@@ -91,12 +108,16 @@ INIT_CHUNK = 2048   # pixels of one block per init_stats[_bsp] CTA
 ROUND_CHUNK = 1024  # pixels of one block per filter_round[_bsp] CTA
 
 # The masked rounds count their FIRST launches (row 5 of the TPU kernel
-# table) apart from their LOOP and FINAL ones (row 6).
+# table) apart from their LOOP and FINAL ones (row 6), the mono rounds their
+# FIRST (row 7) apart from their LOOP and FINAL ones (row 8).
 LAUNCH_COUNTS: Dict[str, int] = {
     "init_stats": 0, "filter_round": 0, "filter_glue": 0,
     "init_stats_masked": 0, "filter_round_masked_first": 0, "filter_round_masked_loop": 0,
     "blocked_transpose": 0, "init_stats_bsp": 0, "filter_round_bsp": 0,
     "filter_round_bsp_masked_first": 0, "filter_round_bsp_masked_loop": 0,
+    "blocked_transpose_shw": 0, "init_stats_stream": 0, "filter_round_bsp_f32": 0,
+    "fused_iter_woodbury": 0, "fused_iter_cholesky": 0,
+    "filter_round_mono_first": 0, "filter_round_mono_loop": 0,
 }
 _COUNT_LOCK = threading.Lock()
 
@@ -301,19 +322,101 @@ def init_stats_bsp_plain(xs: torch.Tensor, n):
 
 
 def filter_round_bsp_plain(xs, valid, step, m0, carry, r, mf_prev, *, mode, cov_scale=1.0,
-                           bf16_dots=False):
-    """One pass over the centred stream xs (nb, R, P), in the dtype of m0:
+                           bf16_dots=False, center=False):
+    """One pass over the stream xs (nb, R, P), in the dtype of m0:
     ``filter_round_plain``'s math on its first S = m0.shape[1] rows, with
     the bf16 rounding of ``bf16_dots`` and, given the (H, W) ``valid`` mask,
-    ``filter_round_masked_plain``'s selects."""
+    ``filter_round_masked_plain``'s selects. The stream is centred, or raw
+    and centred by m0 here (``center``)."""
     s = m0.shape[1]
     xc = xs[:, :s].transpose(1, 2).to(m0.dtype)
+    if center:
+        xc = xc - m0[:, None, :]
     keep = None
     if valid is not None:
         keep = _keep_rows(valid, xs.shape[0], step)
         xc = torch.where(keep[..., None], xc, 0.0)
     return _round_math(xc, m0, carry, r, mf_prev, mode=mode, cov_scale=cov_scale, keep=keep,
                        bf16_dots=bf16_dots)
+
+
+def blocked_transpose_shw_plain(x, nb, step, rows):
+    """The (S, H, nb * step) band-major cube -> the f32 blocked stream
+    (nb, rows, P): out[b, s, h * step + j] = x[s, h, b * step + j], rows
+    S..rows-1 zero (``blocked_transpose_shw`` :309 with ``pad_s=rows``)."""
+    s, h, w = x.shape
+    if w != nb * step:
+        raise ValueError("scene width must equal nb*step")
+    out = x.reshape(s, h, nb, step).permute(2, 0, 1, 3).reshape(nb, s, h * step)
+    return F.pad(out, (0, 0, 0, rows - s))
+
+
+def init_stats_stream_plain(xs, s: int):
+    """m0 (nb, s) and the centred covariance C0 (nb, s, s) of the first s rows
+    of the raw stream xs (nb, R, P), every pixel valid (``_init_stats_kernel``
+    :1164)."""
+    x = xs[:, :s]
+    m0 = x.mean(2)
+    xc = x - m0[..., None]
+    return m0, torch.einsum("bsp,btp->bst", xc, xc) / x.shape[2]
+
+
+def fused_iter_plain(xs, valid, m0, carry, r, mf_prev, *, first, woodbury, cov_scale=1.0,
+                     center=False):
+    """One pass of ``_fused_iter_kernel`` (:386) over the stream xs (nb, R, P)
+    in the dtype of m0 (the stream centred, or raw and centred by m0 here):
+    mf_new = relu((cit.(x - mu) - 1/(R (mf_prev + eps))) / (R norm)), or
+    mf_prev on the ``first`` call, 0 where the (nb, P) bool rows ``valid``
+    are False (such pixels do not count). Returns (mf_new, stats):
+    WOODBURY stats (nb, 1, S + 2) = [u = sum x g | sum g | sum g^2] with g =
+    cov_scale R mf_new; CHOLESKY stats (mean (nb, S), cov (nb, S, S)): the
+    mean and the centred covariance of modx = x - cov_scale target R mf_new
+    over the pixels that count (n clamped to >= 1), i.e. JAX's s1 / n and
+    s2 / n - mu mu^T (:1966-1967)."""
+    s = m0.shape[1]
+    xc = xs[:, :s].transpose(1, 2).to(m0.dtype)
+    if center:
+        xc = xc - m0[:, None, :]
+    if valid is not None:
+        xc = torch.where(valid[..., None], xc, 0.0)
+    mu, target, cit, norm = carry[:, 0], carry[:, 1], carry[:, 2], carry[:, 3, :1]
+    if first:
+        mf = mf_prev
+    else:
+        proj = torch.einsum("bps,bs->bp", xc, cit) - (cit * mu).sum(1, keepdim=True)
+        mf = torch.clamp((proj - 1.0 / (r * (mf_prev + EPSILON))) / (r * norm), min=0.0)
+    if valid is not None:
+        mf = torch.where(valid, mf, 0.0)
+    g = cov_scale * (r * mf)
+    if woodbury:
+        u = torch.einsum("bps,bp->bs", xc, g)
+        return mf, torch.cat([u, g.sum(1, keepdim=True), (g * g).sum(1, keepdim=True)],
+                             dim=1)[:, None, :]
+    modx = xc - target[:, None, :] * g[..., None]
+    if valid is None:
+        n = torch.full_like(mf[:, :1], xc.shape[1])
+    else:
+        n = valid.sum(1, keepdim=True).clamp(min=1).to(xc.dtype)
+        modx = torch.where(valid[..., None], modx, 0.0)
+    mean = modx.sum(1) / n
+    d = modx - mean[:, None, :]
+    if valid is not None:
+        d = torch.where(valid[..., None], d, 0.0)
+    return mf, (mean, torch.einsum("bps,bpt->bst", d, d) / n[..., None])
+
+
+def filter_round_mono_plain(xs, m0, carry, r, mf_prev, template, k0, n, *, mode, alpha,
+                            cov_scale=1.0, center=False):
+    """One mono round (``_mono_first_kernel`` :880 in FIRST,
+    ``_mono_loop_kernel`` :927 in LOOP / FINAL): ``filter_round_bsp_plain``
+    on the stream xs (nb, R, P), with bf16 dots on a bf16 stream, then unless
+    FINAL ``filter_glue_plain``. Returns (mf, R, the next carry or None)."""
+    mf, r, stats = filter_round_bsp_plain(xs, None, 1, m0, carry, r, mf_prev, mode=mode,
+                                          cov_scale=cov_scale,
+                                          bf16_dots=xs.dtype == torch.bfloat16, center=center)
+    if mode == FINAL:
+        return mf, r, None
+    return mf, r, filter_glue_plain(stats, carry, m0, template, k0, n=n, alpha=alpha)
 
 
 MEAN_ROWS = 64  # rows of the cube per select in masked_block_means
@@ -450,16 +553,22 @@ def filter_round_masked(x, valid, nb, step, m0, carry, r, mf_prev, *, mode, cov_
     return out
 
 
+def _inverse_counts(n, m0):
+    """1/n per block, (nb,) f32 on m0's device, from a number or an (nb,)
+    tensor: made on the device (a host scalar copied in would sync the
+    stream)."""
+    if torch.is_tensor(n):
+        return (1.0 / n.float()).contiguous()
+    return torch.full((m0.shape[0],), 1.0 / n, dtype=torch.float32, device=m0.device)
+
+
 def filter_glue(stats, carry, m0, template, k0, *, n, alpha):
     """The next carry from a round's statistics; see ``filter_glue_plain``."""
     if stats.device.type == "cpu":
         return filter_glue_plain(stats, carry, m0, template, k0, n=n, alpha=alpha)
-    # 1/n made on the device (a host scalar copied in would sync the stream).
-    nin = (1.0 / n.float() if torch.is_tensor(n)
-           else torch.full((m0.shape[0],), 1.0 / n, dtype=torch.float32, device=stats.device))
     out = torch.empty_like(carry)
-    _kernels().filter_glue(stats, carry, out, m0, template, k0, nin.contiguous(), float(alpha),
-                           _stream(stats))
+    _kernels().filter_glue(stats, carry, out, m0, template, k0, _inverse_counts(n, m0),
+                           float(alpha), _stream(stats))
     _count("filter_glue")
     return out
 
@@ -492,12 +601,13 @@ def init_stats_bsp(xs: torch.Tensor, n: torch.Tensor):
 
 
 def filter_round_bsp(xs, valid, step, m0, carry, r, mf_prev, *, mode, cov_scale=1.0,
-                     bf16_dots=False):
-    """One streaming pass over the bf16 stream; see ``filter_round_bsp_plain``.
-    On CUDA the stats come back per pixel chunk, (nb, nchunks, S + 2)."""
+                     bf16_dots=False, center=False):
+    """One streaming pass over the blocked stream, bf16 or f32; see
+    ``filter_round_bsp_plain``. On CUDA the stats come back per pixel chunk,
+    (nb, nchunks, S + 2)."""
     if xs.device.type == "cpu":
         return filter_round_bsp_plain(xs, valid, step, m0, carry, r, mf_prev, mode=mode,
-                                      cov_scale=cov_scale, bf16_dots=bf16_dots)
+                                      cov_scale=cov_scale, bf16_dots=bf16_dots, center=center)
     nb, _, p = xs.shape
     mf = torch.empty((nb, p), dtype=torch.float32, device=xs.device)
     if mode == FIRST:
@@ -506,13 +616,101 @@ def filter_round_bsp(xs, valid, step, m0, carry, r, mf_prev, *, mode, cov_scale=
     stats = torch.empty((nb, -(-p // ROUND_CHUNK), m0.shape[1] + 2), dtype=torch.float32,
                         device=xs.device)
     _kernels().filter_round_bsp(mode, xs, None if valid is None else _mask_u8(valid), bf16_dots,
-                                m0, carry, r, mf_prev, mf, stats, step, ROUND_CHUNK,
+                                center, m0, carry, r, mf_prev, mf, stats, step, ROUND_CHUNK,
                                 float(cov_scale), _stream(xs))
     if valid is None:
-        _count("filter_round_bsp")
+        _count("filter_round_bsp_f32" if xs.dtype == torch.float32 else "filter_round_bsp")
     else:
         _count("filter_round_bsp_masked_first" if mode == FIRST else "filter_round_bsp_masked_loop")
     return mf, r, (None if mode == FINAL else stats)
+
+
+def blocked_transpose_shw(x, nb, step, rows):
+    """The (S, H, nb * step) f32 cube -> the f32 blocked stream (nb, rows,
+    H * step); see ``blocked_transpose_shw_plain``."""
+    if x.device.type == "cpu":
+        return blocked_transpose_shw_plain(x, nb, step, rows)
+    out = torch.empty((nb, rows, x.shape[1] * step), dtype=torch.float32, device=x.device)
+    _kernels().blocked_transpose_shw(x, out, nb, step, _stream(x))
+    _count("blocked_transpose_shw")
+    return out
+
+
+def init_stats_stream(xs: torch.Tensor, s: int):
+    """m0 (nb, s), C0 (nb, s, s) of the raw f32 stream xs (nb, R, P); see
+    ``init_stats_stream_plain``. One call is two launches, as ``init_stats``."""
+    if xs.device.type == "cpu":
+        return init_stats_stream_plain(xs, s)
+    nb, _, p = xs.shape
+    partial = torch.empty((nb, -(-p // INIT_CHUNK), 1 + s + s * s), dtype=torch.float32,
+                          device=xs.device)
+    m0 = torch.empty((nb, s), dtype=torch.float32, device=xs.device)
+    c0 = torch.empty((nb, s, s), dtype=torch.float32, device=xs.device)
+    _kernels().init_stats_stream(xs, partial, m0, c0, INIT_CHUNK, _stream(xs))
+    _count("init_stats_stream")
+    return m0, c0
+
+
+def fused_iter(xs, valid, m0, carry, r, mf_prev, *, first, woodbury, cov_scale=1.0,
+               center=False):
+    """One ``_fused_iter_kernel`` pass over the stream xs (nb, R, P), f32 or
+    bf16; see ``fused_iter_plain``. On CUDA the WOODBURY stats come back per
+    pixel chunk, (nb, nchunks, S + 2); a CHOLESKY call is two launches (the
+    chunk records, then their f64 combine), as ``init_stats``."""
+    if xs.device.type == "cpu":
+        return fused_iter_plain(xs, valid, m0, carry, r, mf_prev, first=first, woodbury=woodbury,
+                                cov_scale=cov_scale, center=center)
+    nb, _, p = xs.shape
+    s = m0.shape[1]
+    dev = xs.device
+    mf = torch.empty((nb, p), dtype=torch.float32, device=dev)
+    args = (bool(first), xs, None if valid is None else _mask_u8(valid), center, m0, carry, r,
+            mf_prev, mf)
+    if woodbury:
+        stats = torch.empty((nb, -(-p // ROUND_CHUNK), s + 2), dtype=torch.float32, device=dev)
+        _kernels().fused_iter_woodbury(*args, stats, ROUND_CHUNK, float(cov_scale), _stream(xs))
+        _count("fused_iter_woodbury")
+        return mf, stats
+    partial = torch.empty((nb, -(-p // INIT_CHUNK), 1 + s + s * s), dtype=torch.float32,
+                          device=dev)
+    mean = torch.empty((nb, s), dtype=torch.float32, device=dev)
+    cov = torch.empty((nb, s, s), dtype=torch.float32, device=dev)
+    _kernels().fused_iter_cholesky(*args, partial, mean, cov, INIT_CHUNK, float(cov_scale),
+                                   _stream(xs))
+    _count("fused_iter_cholesky")
+    return mf, (mean, cov)
+
+
+def mono_counters(xs: torch.Tensor) -> torch.Tensor:
+    """The (nb,) per-block counters of ``filter_round_mono``'s last-CTA glue,
+    zeroed in stream order. Make them once per filter: each launch leaves
+    them at 0 again."""
+    return torch.zeros((xs.shape[0],), dtype=torch.int32, device=xs.device)
+
+
+def filter_round_mono(xs, m0, carry, r, mf_prev, template, k0, n, *, mode, alpha,
+                      counter, cov_scale=1.0, center=False):
+    """One mono round and, unless FINAL, the glue of every block in the same
+    launch; see ``filter_round_mono_plain``. Returns (mf, R, the next carry
+    or None). ``counter`` is ``mono_counters(xs)``, shared by the rounds of
+    one filter (the twin does not read it)."""
+    if xs.device.type == "cpu":
+        return filter_round_mono_plain(xs, m0, carry, r, mf_prev, template, k0, n, mode=mode,
+                                       alpha=alpha, cov_scale=cov_scale, center=center)
+    nb, _, p = xs.shape
+    dev = xs.device
+    mf = torch.empty((nb, p), dtype=torch.float32, device=dev)
+    if mode == FIRST:
+        r = torch.empty_like(mf)
+        mf_prev = mf  # not read in the first round
+    partial = torch.empty((nb, -(-p // ROUND_CHUNK), m0.shape[1] + 2), dtype=torch.float32,
+                          device=dev)
+    carry_out = torch.empty_like(carry)
+    _kernels().filter_round_mono(mode, xs, center, m0, carry, r, mf_prev, mf, partial, carry_out,
+                                 counter, k0, template, _inverse_counts(n, m0), ROUND_CHUNK,
+                                 float(cov_scale), float(alpha), _stream(xs))
+    _count("filter_round_mono_first" if mode == FIRST else "filter_round_mono_loop")
+    return mf, r, (None if mode == FINAL else carry_out)
 
 
 # ---------------------------------------------------------------------------
