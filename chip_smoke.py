@@ -18,7 +18,13 @@ every hand-written kernel against its plain torch twin on the card:
      vs resident_filter_plain: finite, mf correlation > 0.9999 with the f32
      twin run from the kernel route's own Woodbury base, threshold-500 agreement >= 0.999 with the f64 twin (detections
      > 0), albedo within rtol 1e-4 of the f64 twin, and bitwise equal on a
-     rerun;
+     rerun; the resident filter at 12 and 74 bands on small odd scenes; the
+     round kernels' narrow-copy paths on shapes where no tile row starts on
+     16 bytes (filter_round at 99 x 45 x 37, step 15; filter_round_masked
+     at 99 x 47 x 37 with a ragged last block; filter_round_bsp f32 / bf16,
+     unmasked / masked, filter_round_mono and fused_iter WOODBURY on the
+     stream of the 99 x 45 x 37 cube), each FIRST / LOOP / FINAL within 4x
+     the f32 twin's error against the f64 twin + 1e-6;
   5. emit_granule_to_mask on a seeded U-Net whose output spreads over
      (0, 1) and follows the filter (Kaiming-normal convolutions, randomised
      batch-norm statistics, the first layer's mag1c weights x MF_GAIN),
@@ -109,8 +115,10 @@ every hand-written kernel against its plain torch twin on the card:
      the Woodbury base of the stream's statistics, and the mono and resident
      filters traced.
 
-Prints the card line, "timings" and "profile" JSON lines and a "kernels" JSON
-line, and ends with {"ok": true, "device": {...}}. Any failed check exits non-zero
+Prints the card line, every kernel's registers, spills and static shared
+memory from the build ("ptxas:" lines), each timed kernel's share of
+its bound ("time ..."), "timings" and "profile" JSON lines and a "kernels"
+JSON line, and ends with {"ok": true, "device": {...}}. Any failed check exits non-zero
 without the ok line. Peak rates for the bounds are NVIDIA's H100 SXM data
 sheet figures (3.35 TB/s HBM, 67 TFLOP/s float32 outside the tensor cores,
 989 TFLOP/s dense bf16 on the tensor cores for products of bf16 inputs).
@@ -171,6 +179,22 @@ def cuda_ms(fn, *, reps: int = 12, inner: int = 1, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, n: int = 200) -> float:
+    """Host time of one call of ``fn`` in microseconds: ``n`` back-to-back
+    calls on the host's clock after one warm-up call, the device waited for
+    before and after but not in between (what the call costs the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
 def bound_ms(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -219,6 +243,11 @@ def corr(a, b) -> float:
     return float(np.corrcoef(flat(a), flat(b))[0, 1])
 
 
+def print_share(name, ms, bms):
+    print(f"time {name}: {ms:.4f} ms, bound {bms:.4f} ms, share of bound {bms / ms:.1%}",
+          flush=True)
+
+
 def kernel_rows(plans, fields, path):
     """One kernels-line row per plan (without launches): the kernel's, its
     plain twin's and the library call's times at this run's inputs, its
@@ -229,12 +258,14 @@ def kernel_rows(plans, fields, path):
         plain_ms = cuda_ms(plan["plain"], reps=5, inner=1, warmup=1)
         lib_ms = None if plan["library"] is None else cuda_ms(plan["library"], reps=5, warmup=1)
         bms, bby = plan["bound"]
+        print_share(name, ms, bms)
         out.append(dict(
             name=name, route="cuda", source=plan.get("source", "starcop_tpu_torch/csrc/mag1c.cu"),
             replaces=f"{REPLACES}:{plan['replaces']}", tpu_kernel=plan["tpu_kernel"], path=path,
             max_abs_err=fields[name]["max_abs_err"], rel_err_vs_f64=fields[name]["rel_err"],
             check=fields[name]["check"], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-            library_ms=lib_ms, **({"note": plan["note"]} if "note" in plan else {})))
+            share_of_bound=bms / ms, library_ms=lib_ms,
+            **({"note": plan["note"]} if "note" in plan else {})))
     return out
 
 
@@ -380,7 +411,7 @@ def masked_phase(dev, template, granule):
           flush=True)
 
     # timings of the masked kernels at this granule's shapes -----------------------
-    n_round = -(-p // mk.ROUND_CHUNK)
+    n_round = mk.cube_geometry(x, nb, MSTEP).nchunks  # chunk records per block
     cube_bytes = 4.0 * n_valid * s + H * W  # the valid pixels' bands and the mask
     keepf = keepb.float()
 
@@ -692,7 +723,7 @@ def bf16_phase(dev, x, tpl, mf_f32):
     mf_again, _ = mk.acrwl1mf_resident_bsp(x, tpl, nb, STEP, device=dev, **kw)
     check(bool(torch.equal(mf_again, mf_k)), "bf16 filter rerun bitwise identical")
 
-    n_round = -(-p // mk.ROUND_CHUNK)
+    n_round = mk.stream_geometry(xs, s).nchunks  # chunk records per block
     stream_bytes = 2.0 * npix * s  # the live band rows of the bf16 stream
     plans = {
         "blocked_transpose": dict(
@@ -824,7 +855,7 @@ def masked_bf16_phase(dev, template, granule):
     mf_again, _ = mag1c_column_blocks(x, tpl, valid, stream_dtype=torch.bfloat16, **kw)
     check(bool(torch.equal(mf_again, mf_k)), "masked bf16 filter rerun bitwise identical")
 
-    n_round = -(-p // mk.ROUND_CHUNK)
+    n_round = mk.stream_geometry(xs, s).nchunks  # chunk records per block
     live_bytes = 2.0 * nb * s * p  # the live band rows of the whole stream
     stream_bytes = 2.0 * n_valid * s + H * W  # the valid pixels' live bands and the mask
     xs32 = xs.float()
@@ -1046,7 +1077,7 @@ def stream_kernels_phase(dev, x, tpl):
                                              check=rule)
     fields["filter_round_mono_loop"] = dict(rel_err=e_loop[0], max_abs_err=e_loop[1], check=rule)
 
-    n_round, stream_bytes = -(-p // mk.ROUND_CHUNK), 4.0 * npix * s
+    n_round, stream_bytes = mk.stream_geometry(xs, s).nchunks, 4.0 * npix * s
     xs_live = xs[:, :s]
     rows_bytes = lambda k: 4.0 * (k * npix + nb * 5 * s + nb * n_round * (s + 2))  # noqa: E731
     glue_ops = nb * (10.0 * s * s + 40 * s)  # filter_glue's
@@ -1209,6 +1240,165 @@ def fused_routes_phase(dev, x_shw, xs, m0, c0, tpl, mf_32, mf_64, r_64):
     return launches, timings
 
 
+def held_rounds(what, run, twin, carry, glue, records=True):
+    """FIRST, LOOP (after one glue) and FINAL of a round kernel ``run`` against
+    its twin ``twin`` in f32 and f64 from the first carry ``carry``, each
+    within 4x the f32 twin's error against the f64 twin + 1e-6.
+    ``run(mode, carry, r, mf)`` and ``twin(mode, carry, r, mf, dtype)``
+    return (mf, R, chunk records, or the next carry when not ``records``);
+    ``glue(out, carry)`` gives the next carry. Returns the worst (rel err vs
+    f64, max |kernel - f32 twin|)."""
+    import torch
+
+    d64 = lambda t: None if t is None else t.double()  # noqa: E731
+    r, mf, worst = None, None, (0.0, 0.0)
+    for mode in (0, 1, 2):  # FIRST, LOOP, FINAL
+        outs = (run(mode, carry, r, mf), twin(mode, carry, r, mf, torch.float32),
+                twin(mode, d64(carry), d64(r), d64(mf), torch.float64))
+        flat = [[o[0], o[1]] + ([] if o[2] is None else [o[2].sum(1) if records else o[2]])
+                for o in outs]
+        name = {0: "first", 1: "loop", 2: "final"}[mode]
+        err = held_against_twins(f"{what} ({name})", *flat)
+        worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+        if mode != 2:
+            mf, r_out, nxt = outs[0]
+            r = r_out if r is None else r
+            carry = glue(nxt, carry)
+    return worst
+
+
+def odd_geometry_phase(dev):
+    """The narrow-copy paths of the redesigned round bodies on shapes where no
+    tile row starts on 16 bytes (odd W, odd S, odd P = H * step), each held
+    against its twins FIRST / LOOP / FINAL: filter_round at 99 x 45 x 37,
+    step 15 (3 blocks, P = 1,485); filter_round_masked at 99 x 47 x 37, step
+    15 (a ragged last block 2 columns wide); filter_round_bsp on the stream
+    of the 99 x 45 x 37 cube at f32 (raw, centred in the kernel; and centred
+    and masked) and bf16 (unmasked; masked with bf16 dots); filter_round_mono
+    and fused_iter WOODBURY on the raw f32 stream. Checks that each took the
+    narrow path. Returns {kernel: (rel err vs f64, max abs err)}."""
+    import torch
+
+    from starcop_tpu_torch.data.synthetic import synthetic_scene
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.ops.mag1c import block_columns
+
+    s, step, gh = 37, 15, 99
+    tpl_np = -np.abs(np.sin(np.linspace(0.3, 9.4, s)))
+    g = synthetic_scene(np.random.default_rng(2), gh, 47, n_plumes=1, template=tpl_np,
+                        max_concentration=8000.0)
+    x47 = torch.as_tensor(g["radiance"], device=dev).contiguous()
+    x45 = x47[:, :45].contiguous()
+    tpl = torch.as_tensor(g["template"], dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(3)
+    valid47 = torch.as_tensor(rng.random((gh, 47)) > 0.05, device=dev)
+    valid47[10:20, 5:25] = False
+    valid45 = valid47[:, :45].contiguous()
+    out = {}
+
+    def base(m0, c0):
+        k0, tgt0, cit0, norm0 = mk._woodbury_base(c0, m0, tpl, ALPHA)
+        return k0.contiguous(), mk.pack_carry(tgt0, cit0, norm0)
+
+    def glue_fn(m0, k0, n):
+        return lambda stats, carry: mk.filter_glue(stats, carry, m0=m0, template=tpl, k0=k0, n=n,
+                                                   alpha=ALPHA)
+
+    # The cube rounds: unmasked 99 x 45, masked ragged 99 x 47.
+    for name, x, valid, nb in (("filter_round", x45, None, 3),
+                               ("filter_round_masked", x47, valid47, 4)):
+        check(not mk.cube_geometry(x, nb, step).aligned, f"odd geometry: {name} takes the "
+                                                         f"4-byte copies")
+        if valid is None:
+            m0, c0 = mk.init_stats(x, nb, step)
+            n = float(gh * step)
+        else:
+            m0, c0 = mk.init_stats_masked(x, valid, nb, step)
+            n = mk.block_valid_counts(valid, nb, step).clamp(min=1).float()
+        k0, carry0 = base(m0, c0)
+
+        def run(mode, carry, r, mf, x=x, valid=valid, nb=nb, m0=m0):
+            if valid is None:
+                return mk.filter_round(x, nb, step, m0, carry, r, mf, mode=mode)
+            return mk.filter_round_masked(x, valid, nb, step, m0, carry, r, mf, mode=mode)
+
+        def twin(mode, carry, r, mf, dt, x=x, valid=valid, nb=nb, m0=m0):
+            if valid is None:
+                return mk.filter_round_plain(x.to(dt), nb, step, m0.to(dt), carry.to(dt), r, mf,
+                                             mode=mode)
+            return mk.filter_round_masked_plain(x.to(dt), valid, nb, step, m0.to(dt),
+                                                carry.to(dt), r, mf, mode=mode)
+
+        out[f"{name}_odd"] = held_rounds(f"odd geometry {name}", run, twin, carry0,
+                                         glue_fn(m0, k0, n))
+
+    # The stream of the 99 x 45 x 37 cube (P = 1,485 pixels, 40 rows).
+    nb, p, rows = 3, gh * step, mk.stream_rows(s)
+    x_shw = x45.permute(2, 0, 1).contiguous()
+    raw = mk.blocked_transpose_shw(x_shw, nb, step, rows)
+    m0, c0 = mk.init_stats_stream(raw, s)
+    k0, carry0 = base(m0, c0)
+    n_m = mk.block_valid_counts(valid45, nb, step).clamp(min=1).float()
+    m0_m = mk.masked_block_means(x45, valid45, nb, step, n_m)
+    keep = mk._keep_rows(valid45, nb, step)
+    xc = torch.where(keep[..., None], block_columns(x45, nb, step) - m0_m[:, None, :], 0.0)
+    centred_masked = torch.nn.functional.pad(xc.transpose(1, 2), (0, 0, 0, rows - s)).contiguous()
+    k0_m, carry0_m = base(m0_m, mk.init_stats_bsp_plain(centred_masked, n_m)[:, :s, :s])
+    bf16 = mk.blocked_transpose(x45, nb, step, rows, m0)
+    bf16_m = mk.blocked_transpose(x45, nb, step, rows, m0_m, valid=valid45)
+    streams = (  # name, stream, mask, m0, k0, carry0, n, bf16 dots, centre
+        ("filter_round_bsp_f32_odd", raw, None, m0, k0, carry0, float(p), False, True),
+        ("filter_round_bsp_f32_masked_odd", centred_masked, valid45, m0_m, k0_m, carry0_m, n_m,
+         False, False),
+        ("filter_round_bsp_odd", bf16, None, m0, k0, carry0, float(p), False, False),
+        ("filter_round_bsp_masked_odd", bf16_m, valid45, m0_m, k0_m, carry0_m, n_m, True, False))
+    for name, xs, valid, m0_, k0_, c0_, n_, dots, center in streams:
+        check(not mk.stream_geometry(xs, s).aligned, f"odd geometry: {name} takes the narrow "
+                                                     f"copies ({xs.dtype})")
+        kw = dict(bf16_dots=dots, center=center)
+
+        def run(mode, carry, r, mf, xs=xs, valid=valid, m0_=m0_, kw=kw):
+            return mk.filter_round_bsp(xs, valid, step, m0_, carry, r, mf, mode=mode, **kw)
+
+        def twin(mode, carry, r, mf, dt, xs=xs, valid=valid, m0_=m0_, kw=kw):
+            return mk.filter_round_bsp_plain(xs, valid, step, m0_.to(dt), carry.to(dt), r, mf,
+                                             mode=mode, **kw)
+
+        out[name] = held_rounds(f"odd geometry {name}", run, twin, c0_, glue_fn(m0_, k0_, n_))
+
+    # filter_round_mono (the glue in the round) and fused_iter WOODBURY on the raw stream.
+    n = torch.full((nb,), float(p), dtype=torch.float32, device=dev)
+    counter = mk.mono_counters(raw)
+
+    def mono(mode, carry, r, mf):
+        return mk.filter_round_mono(raw, m0, carry, r, mf, tpl, k0, n, mode=mode, alpha=ALPHA,
+                                    counter=counter, center=True)
+
+    def mono_twin(mode, carry, r, mf, dt):
+        return mk.filter_round_mono_plain(raw, m0.to(dt), carry.to(dt), r, mf, tpl.to(dt),
+                                          k0.to(dt), n.to(dt), mode=mode, alpha=ALPHA,
+                                          center=True)
+
+    out["filter_round_mono_odd"] = held_rounds(
+        "odd geometry filter_round_mono (mf, R, carry)", mono, mono_twin, carry0,
+        lambda nxt, _: nxt, records=False)
+    mf1, r1, _ = mk.filter_round_bsp(raw, None, step, m0, carry0, None, None, mode=mk.FIRST,
+                                     center=True)
+    got = []
+    for first in (True, False):
+        kw = dict(first=first, woodbury=True, center=True)
+        outs = [mk.fused_iter(raw, None, m0, carry0, r1, mf1, **kw)]
+        for dt in (torch.float32, torch.float64):
+            outs.append(mk.fused_iter_plain(raw, None, m0.to(dt), carry0.to(dt), r1.to(dt),
+                                            mf1.to(dt), **kw))
+        got.append(held_against_twins(f"odd geometry fused_iter WOODBURY "
+                                      f"({'first' if first else 'not first'})",
+                                      *([o[0], o[1].sum(1)] for o in outs)))
+    out["fused_iter_woodbury_odd"] = (max(e for e, _ in got), max(a for _, a in got))
+    print("odd geometry: " + json.dumps(out), flush=True)
+    return out
+
+
 def seeded_model(dev, seed: int = 0, bf16: bool = False):
     """A full-width SegmentationModel whose output spreads over (0, 1) and
     follows the filter: Kaiming-normal (fan-out) convolutions, zero conv
@@ -1276,7 +1466,7 @@ def main() -> int:
     print(f"build+load {time.perf_counter() - t0:.1f} s (torch {torch.__version__}, "
           f"CUDA {torch.version.cuda})", flush=True)
     for line in _build.build_log().splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas:", line.strip())
 
     centers = np.arange(2122.0, 2488.0, 7.4)
@@ -1372,8 +1562,8 @@ def main() -> int:
     mf_again, _ = mk.acrwl1mf_resident(x, tpl, nb, STEP, num_iter=NUM_ITER, alpha=ALPHA)
     check(bool(torch.equal(mf_again, mf_k)), "filter rerun bitwise identical")
 
-    # 4c. other template instantiations: 12 bands (one slot per lane) and the
-    # 74-band AVIRIS-like default (three), odd heights and widths.
+    # 4c. other band counts: 12 and the 74-band AVIRIS-like default (not a
+    # multiple of 4: the projection's tail), odd heights and widths.
     for gh, gw, gstep, gtpl in ((100, 45, 15, -np.abs(np.sin(np.linspace(0.3, 9.4, 12)))),
                                 (64, 64, 32, None)):
         g = synthetic_scene(np.random.default_rng(1), gh, gw, n_plumes=1, template=gtpl,
@@ -1391,6 +1581,13 @@ def main() -> int:
         check(e_init <= 1e-5 and corr(gmf, gmf32) > 0.9999,
               f"{gh}x{gw}x{len(g['template'])} step {gstep}: init rel err {e_init:.2e}, "
               f"5-iteration mf correlation with f32 twin {corr(gmf, gmf32):.7f}")
+
+    # 4d. the redesigned rounds' narrow-copy paths on odd shapes -----------------
+    odd_geometry_phase(dev)
+    for what, geom in (("filter_round (bench cube)", mk.cube_geometry(x, nb, STEP)),
+                       ("filter_round_masked (served cube)",
+                        mk.cube_geometry(x, -(-W // MSTEP), MSTEP))):
+        print(f"geometry {what}: {geom._asdict()}", flush=True)
 
     # 5. the slice: granule -> mask --------------------------------------------
     model = seeded_model(dev)
@@ -1431,7 +1628,8 @@ def main() -> int:
           "slice mf equals the filter run")
 
     # 6. timings -----------------------------------------------------------------
-    n_round = -(-p // mk.ROUND_CHUNK)
+    geom = mk.cube_geometry(x, nb, STEP)  # as acrwl1mf_resident works it out once
+    n_round = geom.nchunks  # chunk records per block
     cube_bytes = 4.0 * npix * s
     xb = block_columns(x, nb, STEP)
 
@@ -1447,7 +1645,8 @@ def main() -> int:
             library=library_stats,
             bound=bound_ms(cube_bytes + 4.0 * nb * (s + s * s), npix * (s * (s + 1) + 2.0 * s))),
         "filter_round": dict(
-            kernel=lambda: mk.filter_round(x, nb, STEP, m0, carry_k, r1, mf1, mode=mk.LOOP),
+            kernel=lambda: mk.filter_round(x, nb, STEP, m0, carry_k, r1, mf1, mode=mk.LOOP,
+                                           geom=geom),
             plain=lambda: mk.filter_round_plain(x, nb, STEP, m0, carry_k, r1, mf1, mode=mk.LOOP),
             library=None,
             bound=bound_ms(cube_bytes + 4.0 * (3 * npix + nb * 5 * s + nb * n_round * (s + 2)),
@@ -1471,13 +1670,15 @@ def main() -> int:
         plain_ms = cuda_ms(plan["plain"], inner=3)
         lib_ms = None if plan["library"] is None else cuda_ms(plan["library"], inner=3)
         bms, bby = plan["bound"]
+        print_share(name, ms, bms)
         kernels.append(dict(
             name=name, route="cuda", source="starcop_tpu_torch/csrc/mag1c.cu",
             replaces=f"{REPLACES}:{lines[name]}", tpu_kernel=sources[name],
             launches=launches[name],
             max_abs_err=results[name]["max_abs_err"], rel_err_vs_f64=results[name]["rel_err"],
             check=results[name]["check"], ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=bby, library_ms=lib_ms, **({"note": notes[name]} if name in notes else {})))
+            bound_by=bby, share_of_bound=bms / ms, library_ms=lib_ms,
+            **({"note": notes[name]} if name in notes else {})))
 
     pad_r, pad_c = find_padding(H, 32), find_padding(W, 32)
     unet_in = torch.rand((1, 4, H + sum(pad_r), W + sum(pad_c)), device=dev) * 60
@@ -1497,6 +1698,13 @@ def main() -> int:
                 num_iter=NUM_ITER, alpha=ALPHA), reps=10, warmup=1),
             "woodbury_base_ms": cuda_ms(lambda: mk._woodbury_base(c0, m0, tpl, ALPHA)),
         }
+    # Host cost of one round launch: with the filter's geometry (the main
+    # path), with the geometry worked out in the call, and the geometry alone.
+    loop_round = lambda **kw: mk.filter_round(x, nb, STEP, m0, carry_k, r1, mf1,  # noqa: E731
+                                              mode=mk.LOOP, **kw)
+    timings["round_host_us"] = host_us(lambda: loop_round(geom=geom))
+    timings["round_host_geometry_us"] = host_us(loop_round)
+    timings["cube_geometry_us"] = host_us(lambda: mk.cube_geometry(x, nb, STEP), n=2000)
     # launches are the main path's counts, i.e. those of one filter.
     timings["filter_bound_ms"] = sum(k["bound_ms"] * k["launches"] for k in kernels)
     timings["filter_kernels_ms"] = sum(k["ms"] * k["launches"] for k in kernels)

@@ -21,7 +21,7 @@ int starcop_init_stats(const float* x, const unsigned char* valid, float* partia
                        void* stream);
 int starcop_filter_round(int mode, const float* x, const unsigned char* valid, const float* m0,
                          const float* carry, float* r, const float* mf_in, float* mf_out,
-                         float* partial, int H, int W, int S, int nb, int step, int chunk,
+                         float* partial, int H, int W, int S, int nb, int step, const int* geom,
                          int nchunks, float cov_scale, void* stream);
 int starcop_filter_glue(const float* partial, const float* carry_in, float* carry_out,
                         const float* m0, const float* tmpl, const float* k0, const float* nin,
@@ -36,20 +36,25 @@ int starcop_init_stats_stream(const float* xs, float* partial, float* m0, float*
 int starcop_filter_round_bsp(int mode, const void* xs, int f32, const unsigned char* valid,
                              int bf16_dots, int center, const float* m0, const float* carry,
                              float* r, const float* mf_in, float* mf_out, float* partial, int H,
-                             int W, int S, int R, int nb, int step, int chunk, int nchunks,
+                             int W, int S, int R, int nb, int step, const int* geom, int nchunks,
                              float cov_scale, void* stream);
 int starcop_blocked_transpose_shw(const float* x, float* out, int S, int R, int H, int W, int nb,
                                   int step, void* stream);
-int starcop_fused_iter(int woodbury, int first, const void* xs, int f32,
-                       const unsigned char* valid, int center, const float* m0,
-                       const float* carry, const float* r, const float* mf_in, float* mf_out,
-                       float* partial, float* mean, float* cov, int nb, int S, int R, int P,
-                       int chunk, int nchunks, float cov_scale, void* stream);
+int starcop_fused_iter_woodbury(int first, const void* xs, int f32, const unsigned char* valid,
+                                int center, const float* m0, const float* carry, const float* r,
+                                const float* mf_in, float* mf_out, float* partial, int nb, int S,
+                                int R, int P, const int* geom, int nchunks, float cov_scale,
+                                void* stream);
+int starcop_fused_iter_cholesky(int first, const void* xs, int f32, const unsigned char* valid,
+                                int center, const float* m0, const float* carry, const float* r,
+                                const float* mf_in, float* mf_out, float* partial, float* mean,
+                                float* cov, int nb, int S, int R, int P, int chunk, int nchunks,
+                                float cov_scale, void* stream);
 int starcop_filter_round_mono(int mode, const void* xs, int f32, int center, const float* m0,
                               const float* carry_in, float* r, const float* mf_in, float* mf_out,
                               float* partial, float* carry_out, unsigned int* counter,
                               const float* k0, const float* tmpl, const float* nin, int nb,
-                              int S, int R, int P, int chunk, int nchunks, float cov_scale,
+                              int S, int R, int P, const int* geom, int nchunks, float cov_scale,
                               float alpha, void* stream);
 }
 
@@ -90,6 +95,23 @@ Cube check_cube(const at::Tensor& x, int64_t nb, int64_t step, const at::Tensor*
   return c;
 }
 
+// The round launch geometry (ops/mag1c_kernels.py:RoundGeometry.op_args):
+// tile rows, tile columns, tiles per chunk, stages, 16-byte copies, shared
+// memory bytes. The kernels check it against the shapes.
+struct Geom {
+  int v[6];
+};
+
+Geom round_geom(c10::IntArrayRef geom) {
+  TORCH_CHECK(geom.size() == 6, "geom must hold 6 ints, got ", geom.size());
+  Geom g;
+  for (int i = 0; i < 6; ++i) {
+    TORCH_CHECK(geom[i] >= 0 && geom[i] <= (1 << 30), "geom[", i, "] out of range");
+    g.v[i] = static_cast<int>(geom[i]);
+  }
+  return g;
+}
+
 const unsigned char* mask_ptr(const at::Tensor* valid) {
   return valid == nullptr ? nullptr : valid->data_ptr<uint8_t>();
 }
@@ -123,12 +145,12 @@ void init_stats_masked(const at::Tensor& x, const at::Tensor& valid, const at::T
 void run_filter_round(int64_t mode, const at::Tensor& x, const at::Tensor* valid,
                       const at::Tensor& m0, const at::Tensor& carry, const at::Tensor& r,
                       const at::Tensor& mf_in, const at::Tensor& mf_out,
-                      const at::Tensor& partial, int64_t nb, int64_t step, int64_t chunk,
-                      double cov_scale, int64_t stream, const char* op) {
+                      const at::Tensor& partial, int64_t nb, int64_t step,
+                      c10::IntArrayRef geom, double cov_scale, int64_t stream, const char* op) {
   const Cube c = check_cube(x, nb, step, valid);
   const int64_t p = c.h * step;
   const int64_t nchunks = partial.size(1);
-  TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
+  const Geom g = round_geom(geom);
   check(m0, x, "m0", {nb, c.s});
   check(carry, x, "carry", {nb, 4, c.s});
   check(r, x, "r", {nb, p});
@@ -139,7 +161,7 @@ void run_filter_round(int64_t mode, const at::Tensor& x, const at::Tensor* valid
       starcop_filter_round(static_cast<int>(mode), x.data_ptr<float>(), mask_ptr(valid),
                            m0.data_ptr<float>(), carry.data_ptr<float>(), r.data_ptr<float>(),
                            mf_in.data_ptr<float>(), mf_out.data_ptr<float>(),
-                           partial.data_ptr<float>(), c.h, c.w, c.s, nb, step, chunk, nchunks,
+                           partial.data_ptr<float>(), c.h, c.w, c.s, nb, step, g.v, nchunks,
                            static_cast<float>(cov_scale), reinterpret_cast<void*>(stream)),
       op);
 }
@@ -147,17 +169,17 @@ void run_filter_round(int64_t mode, const at::Tensor& x, const at::Tensor* valid
 void filter_round(int64_t mode, const at::Tensor& x, const at::Tensor& m0,
                   const at::Tensor& carry, const at::Tensor& r, const at::Tensor& mf_in,
                   const at::Tensor& mf_out, const at::Tensor& partial, int64_t nb,
-                  int64_t step, int64_t chunk, double cov_scale, int64_t stream) {
-  run_filter_round(mode, x, nullptr, m0, carry, r, mf_in, mf_out, partial, nb, step, chunk,
+                  int64_t step, c10::IntArrayRef geom, double cov_scale, int64_t stream) {
+  run_filter_round(mode, x, nullptr, m0, carry, r, mf_in, mf_out, partial, nb, step, geom,
                    cov_scale, stream, "filter_round");
 }
 
 void filter_round_masked(int64_t mode, const at::Tensor& x, const at::Tensor& valid,
                          const at::Tensor& m0, const at::Tensor& carry, const at::Tensor& r,
                          const at::Tensor& mf_in, const at::Tensor& mf_out,
-                         const at::Tensor& partial, int64_t nb, int64_t step, int64_t chunk,
-                         double cov_scale, int64_t stream) {
-  run_filter_round(mode, x, &valid, m0, carry, r, mf_in, mf_out, partial, nb, step, chunk,
+                         const at::Tensor& partial, int64_t nb, int64_t step,
+                         c10::IntArrayRef geom, double cov_scale, int64_t stream) {
+  run_filter_round(mode, x, &valid, m0, carry, r, mf_in, mf_out, partial, nb, step, geom,
                    cov_scale, stream, "filter_round_masked");
 }
 
@@ -239,9 +261,10 @@ void init_stats_bsp(const at::Tensor& xs, const at::Tensor& n, const at::Tensor&
 void filter_round_bsp(int64_t mode, const at::Tensor& xs, const std::optional<at::Tensor>& valid,
                       bool bf16_dots, bool center, const at::Tensor& m0, const at::Tensor& carry,
                       const at::Tensor& r, const at::Tensor& mf_in, const at::Tensor& mf_out,
-                      const at::Tensor& partial, int64_t step, int64_t chunk, double cov_scale,
-                      int64_t stream) {
+                      const at::Tensor& partial, int64_t step, c10::IntArrayRef geom,
+                      double cov_scale, int64_t stream) {
   const bool f32 = stream_is_f32(xs);
+  const Geom g = round_geom(geom);
   TORCH_CHECK(m0.dim() == 2, "m0 must be (nb, S)");
   const int64_t nb = xs.size(0), rows = xs.size(1), p = xs.size(2), s = m0.size(1);
   check_stream(xs, xs, nb, rows, p, xs.scalar_type());
@@ -259,7 +282,6 @@ void filter_round_bsp(int64_t mode, const at::Tensor& xs, const std::optional<at
     check(*valid, xs, "valid", {h, w}, at::kByte);
   }
   const int64_t nchunks = partial.size(1);
-  TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
   check(m0, xs, "m0", {nb, s});
   check(carry, xs, "carry", {nb, 4, s});
   check_rows(xs, nb, p, {{&r, "r"}, {&mf_in, "mf_in"}, {&mf_out, "mf_out"}});
@@ -269,7 +291,7 @@ void filter_round_bsp(int64_t mode, const at::Tensor& xs, const std::optional<at
                    valid ? valid->data_ptr<uint8_t>() : nullptr, bf16_dots, center,
                    m0.data_ptr<float>(), carry.data_ptr<float>(), r.data_ptr<float>(),
                    mf_in.data_ptr<float>(), mf_out.data_ptr<float>(), partial.data_ptr<float>(),
-                   h, w, s, rows, nb, step, chunk, nchunks, static_cast<float>(cov_scale),
+                   h, w, s, rows, nb, step, g.v, nchunks, static_cast<float>(cov_scale),
                    reinterpret_cast<void*>(stream)),
                "filter_round_bsp");
 }
@@ -327,20 +349,21 @@ std::tuple<int64_t, int64_t, int64_t, int64_t, bool> check_fused_iter(
 void fused_iter_woodbury(bool first, const at::Tensor& xs, const std::optional<at::Tensor>& valid,
                          bool center, const at::Tensor& m0, const at::Tensor& carry,
                          const at::Tensor& r, const at::Tensor& mf_in, const at::Tensor& mf_out,
-                         const at::Tensor& partial, int64_t chunk, double cov_scale,
+                         const at::Tensor& partial, c10::IntArrayRef geom, double cov_scale,
                          int64_t stream) {
   const auto [nb, s, rows, p, f32] = check_fused_iter(xs, valid, center, m0, carry, r, mf_in,
                                                       mf_out);
+  const Geom g = round_geom(geom);
   const int64_t nchunks = partial.size(1);
-  TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
   check(partial, xs, "partial", {nb, nchunks, s + 2});
-  check_launch(starcop_fused_iter(1, first, xs.data_ptr(), f32,
-                                  valid ? valid->data_ptr<uint8_t>() : nullptr, center,
-                                  m0.data_ptr<float>(), carry.data_ptr<float>(),
-                                  r.data_ptr<float>(), mf_in.data_ptr<float>(),
-                                  mf_out.data_ptr<float>(), partial.data_ptr<float>(), nullptr,
-                                  nullptr, nb, s, rows, p, chunk, nchunks,
-                                  static_cast<float>(cov_scale), reinterpret_cast<void*>(stream)),
+  check_launch(starcop_fused_iter_woodbury(first, xs.data_ptr(), f32,
+                                           valid ? valid->data_ptr<uint8_t>() : nullptr, center,
+                                           m0.data_ptr<float>(), carry.data_ptr<float>(),
+                                           r.data_ptr<float>(), mf_in.data_ptr<float>(),
+                                           mf_out.data_ptr<float>(), partial.data_ptr<float>(),
+                                           nb, s, rows, p, g.v, nchunks,
+                                           static_cast<float>(cov_scale),
+                                           reinterpret_cast<void*>(stream)),
                "fused_iter_woodbury");
 }
 
@@ -356,14 +379,15 @@ void fused_iter_cholesky(bool first, const at::Tensor& xs, const std::optional<a
   check(partial, xs, "partial", {nb, nchunks, 1 + s + s * s});
   check(mean, xs, "mean", {nb, s});
   check(cov, xs, "cov", {nb, s, s});
-  check_launch(starcop_fused_iter(0, first, xs.data_ptr(), f32,
-                                  valid ? valid->data_ptr<uint8_t>() : nullptr, center,
-                                  m0.data_ptr<float>(), carry.data_ptr<float>(),
-                                  r.data_ptr<float>(), mf_in.data_ptr<float>(),
-                                  mf_out.data_ptr<float>(), partial.data_ptr<float>(),
-                                  mean.data_ptr<float>(), cov.data_ptr<float>(), nb, s, rows, p,
-                                  chunk, nchunks, static_cast<float>(cov_scale),
-                                  reinterpret_cast<void*>(stream)),
+  check_launch(starcop_fused_iter_cholesky(first, xs.data_ptr(), f32,
+                                           valid ? valid->data_ptr<uint8_t>() : nullptr, center,
+                                           m0.data_ptr<float>(), carry.data_ptr<float>(),
+                                           r.data_ptr<float>(), mf_in.data_ptr<float>(),
+                                           mf_out.data_ptr<float>(), partial.data_ptr<float>(),
+                                           mean.data_ptr<float>(), cov.data_ptr<float>(), nb, s,
+                                           rows, p, chunk, nchunks,
+                                           static_cast<float>(cov_scale),
+                                           reinterpret_cast<void*>(stream)),
                "fused_iter_cholesky");
 }
 
@@ -372,15 +396,15 @@ void filter_round_mono(int64_t mode, const at::Tensor& xs, bool center, const at
                        const at::Tensor& mf_out, const at::Tensor& partial,
                        const at::Tensor& carry_out, const at::Tensor& counter,
                        const at::Tensor& k0, const at::Tensor& tmpl, const at::Tensor& nin,
-                       int64_t chunk, double cov_scale, double alpha, int64_t stream) {
+                       c10::IntArrayRef geom, double cov_scale, double alpha, int64_t stream) {
   const bool f32 = stream_is_f32(xs);
+  const Geom g = round_geom(geom);
   TORCH_CHECK(m0.dim() == 2, "m0 must be (nb, S)");
   const int64_t nb = xs.size(0), rows = xs.size(1), p = xs.size(2), s = m0.size(1);
   check_stream(xs, xs, nb, rows, p, xs.scalar_type());
   TORCH_CHECK(s >= 1 && s <= rows, "m0 has ", s, " bands for a stream of ", rows, " rows");
   TORCH_CHECK(!center || f32, "only an f32 stream is centred in the kernel");
   const int64_t nchunks = partial.size(1);
-  TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
   check(m0, xs, "m0", {nb, s});
   check(carry_in, xs, "carry_in", {nb, 4, s});
   check(carry_out, xs, "carry_out", {nb, 4, s});
@@ -397,7 +421,7 @@ void filter_round_mono(int64_t mode, const at::Tensor& xs, bool center, const at
                    carry_out.data_ptr<float>(),
                    reinterpret_cast<unsigned int*>(counter.data_ptr<int32_t>()),
                    k0.data_ptr<float>(), tmpl.data_ptr<float>(), nin.data_ptr<float>(), nb, s,
-                   rows, p, chunk, nchunks, static_cast<float>(cov_scale),
+                   rows, p, g.v, nchunks, static_cast<float>(cov_scale),
                    static_cast<float>(alpha), reinterpret_cast<void*>(stream)),
                "filter_round_mono");
 }
@@ -412,12 +436,12 @@ TORCH_LIBRARY(starcop_mag1c, m) {
         "Tensor(c!) c0, int nb, int step, int chunk, int stream) -> ()",
         &init_stats_masked);
   m.def("filter_round(int mode, Tensor x, Tensor m0, Tensor carry, Tensor(a!) r, "
-        "Tensor mf_in, Tensor(b!) mf_out, Tensor(c!) partial, int nb, int step, int chunk, "
+        "Tensor mf_in, Tensor(b!) mf_out, Tensor(c!) partial, int nb, int step, int[] geom, "
         "float cov_scale, int stream) -> ()",
         &filter_round);
   m.def("filter_round_masked(int mode, Tensor x, Tensor valid, Tensor m0, Tensor carry, "
         "Tensor(a!) r, Tensor mf_in, Tensor(b!) mf_out, Tensor(c!) partial, int nb, int step, "
-        "int chunk, float cov_scale, int stream) -> ()",
+        "int[] geom, float cov_scale, int stream) -> ()",
         &filter_round_masked);
   m.def("filter_glue(Tensor partial, Tensor carry_in, Tensor(a!) carry_out, Tensor m0, "
         "Tensor tmpl, Tensor k0, Tensor nin, float alpha, int stream) -> ()",
@@ -430,7 +454,7 @@ TORCH_LIBRARY(starcop_mag1c, m) {
         &init_stats_bsp);
   m.def("filter_round_bsp(int mode, Tensor xs, Tensor? valid, bool bf16_dots, bool center, "
         "Tensor m0, Tensor carry, Tensor(a!) r, Tensor mf_in, Tensor(b!) mf_out, "
-        "Tensor(c!) partial, int step, int chunk, float cov_scale, int stream) -> ()",
+        "Tensor(c!) partial, int step, int[] geom, float cov_scale, int stream) -> ()",
         &filter_round_bsp);
   m.def("init_stats_stream(Tensor xs, Tensor(a!) partial, Tensor(b!) m0, Tensor(c!) c0, "
         "int chunk, int stream) -> ()",
@@ -439,7 +463,7 @@ TORCH_LIBRARY(starcop_mag1c, m) {
         &blocked_transpose_shw);
   m.def("fused_iter_woodbury(bool first, Tensor xs, Tensor? valid, bool center, Tensor m0, "
         "Tensor carry, Tensor r, Tensor mf_in, Tensor(a!) mf_out, Tensor(b!) partial, "
-        "int chunk, float cov_scale, int stream) -> ()",
+        "int[] geom, float cov_scale, int stream) -> ()",
         &fused_iter_woodbury);
   m.def("fused_iter_cholesky(bool first, Tensor xs, Tensor? valid, bool center, Tensor m0, "
         "Tensor carry, Tensor r, Tensor mf_in, Tensor(a!) mf_out, Tensor(b!) partial, "
@@ -448,6 +472,6 @@ TORCH_LIBRARY(starcop_mag1c, m) {
   m.def("filter_round_mono(int mode, Tensor xs, bool center, Tensor m0, Tensor carry_in, "
         "Tensor(a!) r, Tensor mf_in, Tensor(b!) mf_out, Tensor(c!) partial, "
         "Tensor(d!) carry_out, Tensor(e!) counter, Tensor k0, Tensor tmpl, Tensor nin, "
-        "int chunk, float cov_scale, float alpha, int stream) -> ()",
+        "int[] geom, float cov_scale, float alpha, int stream) -> ()",
         &filter_round_mono);
 }

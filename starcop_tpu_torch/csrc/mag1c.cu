@@ -39,7 +39,12 @@
 // block) that reduces the partials in a fixed order and runs the rank-2
 // Woodbury update. Every pass reads the cube once, so every launch is bound
 // by HBM bytes (4*H*W*S per pass, plus the 1-byte mask when masked); the
-// arithmetic is a few FMAs per byte.
+// arithmetic is a few FMAs per byte. To stream near that bound a round CTA
+// keeps a ring of 2-4 tiles (whole rows of its block) in flight by cp.async,
+// projects one pixel per thread and splits the u sum's bands over its warps;
+// the chunk per CTA is chosen so that the grid's last wave is (nearly) full
+// ("The streaming rounds" in mag1c_common.cuh, round_geometry in
+// ops/mag1c_kernels.py).
 //
 // Layout: the cube is the (H, W, S) float32 scene as it is uploaded. Pixel
 // p = h*step + j of column block b lies at ((h*W + b*step + j)*S); the
@@ -226,134 +231,134 @@ init_stats_bsp_partial_kernel(const T* __restrict__ xs, float* __restrict__ part
 
 // ---------------------------------------------------------------------------
 // filter_round / filter_round_masked: one streaming pass of the reweighted
-// filter.
+// filter over the (H, W, S) cube (the shared design and per-pixel math are
+// above round_bsp_chunk's machinery in mag1c_common.cuh).
 //
-// A warp handles one pixel at a time (U at once for memory-level
-// parallelism): lane l holds bands l + 32 k, k < NV, so the pixel's S
-// contiguous floats load coalesced and the projections are warp reductions.
-// Per pixel, with xc = x - m0 and proj = cit.xc - cit.mu:
-//   first:  R = (m0.xc) / (m0.m0) + 1, mf = relu(proj / (R norm0))
-//   loop:   mf = relu((proj - 1/(R (mf_prev + eps))) / (R norm))
-//   final:  as loop, written scaled by 1e5, no statistics
-// then g = cov_scale R mf, and the lanes accumulate u += xc g and the
-// moments sum g, sum g^2 in registers. Masked, a pixel that does not count
-// loads nothing, reads neither R nor mf_prev, and writes mf = 0 (and R = 1
-// in the first pass): JAX's "mf times the weight" and where(w > 0, R, 1).
+// A tile is tile_rows image rows x tile_cols columns of block b: whole rows
+// of the block, or a segment of one row where a row is wider than
+// kRoundThreads pixels. Each tile row is tile_cols * S contiguous floats of
+// the cube, staged pixel-major at pitch cube_row_pitch, so a tile row is one
+// contiguous copy and no pixel needs p / step: thread t owns pixel (t /
+// tile_cols, t % tile_cols) of every tile. VEC16: W * S and step * S are
+// multiples of 4 and the cube starts on 16 bytes, so every tile row starts
+// and ends on 16 bytes; else 4-byte copies. A pixel-major tile with an even
+// S is read with 2-way bank conflicts at S = 50 (more where S is a multiple
+// of 8): the reads stay far below the shared-memory rate the HBM stream
+// needs. Masked, the columns of the ragged last block past W are neither
+// copied nor read, and a pixel whose mask byte is 0 is selected out.
 // Carry row layout (nb, 4, S): [mu | target | cit | norm (row 3, every
 // entry)]. Partial record per (b, c): [u(S) | sum g | sum g^2].
 // ---------------------------------------------------------------------------
-template <int NV, int MODE, bool MASKED>
-__global__ void __launch_bounds__(kThreads)
+template <int MODE, bool MASKED, bool VEC16>
+__global__ void __launch_bounds__(kRoundThreads, 4)
 filter_round_kernel(const float* __restrict__ x, const unsigned char* __restrict__ valid,
                     const float* __restrict__ m0, const float* __restrict__ carry,
                     float* __restrict__ r, const float* __restrict__ mf_in,
-                    float* __restrict__ mf_out, float* __restrict__ partial, int W, int S,
-                    int step, int P, int chunk, int nchunks, float cov_scale) {
-  constexpr int U = 4;
-  __shared__ float red_u[kWarps][32 * NV];
-  __shared__ float red_g[kWarps][2];
-
-  const int c = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+                    float* __restrict__ mf_out, float* __restrict__ partial, int H, int W, int S,
+                    int step, RoundGeom geom, int nchunks, float cov_scale) {
+  extern __shared__ __align__(16) unsigned char round_smem[];
+  const int TR = geom.tile_rows, CW = geom.tile_cols, RP = cube_row_pitch(CW, S);
+  const int tile_floats = TR * RP;
+  const RoundSmem sm = carve_round_smem(round_smem, geom.stages, 4 * tile_floats);
+  const int c = blockIdx.x, b = blockIdx.y, t = threadIdx.x, lane = t % 32;
   const float* cb = carry + (long long)b * 4 * S;
-
-  float m0v[NV], citv[NV], uacc[NV];
-  float shift_part = 0.f, m0n_part = 0.f;
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    const int s = lane + 32 * k;
-    const bool on = s < S;
-    m0v[k] = on ? m0[(long long)b * S + s] : 0.f;
-    citv[k] = on ? cb[2 * S + s] : 0.f;
-    uacc[k] = 0.f;
-    shift_part += on ? citv[k] * cb[s] : 0.f;
-    m0n_part += m0v[k] * m0v[k];
-  }
-  const float shift = warp_sum(shift_part);  // cit . mu
-  const float m0n = warp_sum(m0n_part);      // m0 . m0
+  load_round_consts<false>(sm, cb, m0 + (long long)b * S, S);
   const float norm = cb[3 * S];
-  float gsum = 0.f, gsq = 0.f;
 
-  const int p_beg = c * chunk;
-  const int p_end = min(P, p_beg + chunk);
-  const int per_warp = (p_end - p_beg + kWarps - 1) / kWarps;
-  const int w_beg = min(p_end, p_beg + warp * per_warp);
-  const int w_end = min(p_end, w_beg + per_warp);
-  const long long row = (long long)b * P;
+  const long long P = (long long)H * step;
+  const int nseg = (step + CW - 1) / CW;
+  const int tiles_block = (H + TR - 1) / TR * nseg;
+  const int t_beg = c * geom.tiles_per_chunk;
+  const int ntile = min(tiles_block, t_beg + geom.tiles_per_chunk) - t_beg;
+  const int ncols_b = MASKED ? min(step, W - b * step) : step;  // columns below W
+  const int tr = t / CW, tc = t - tr * CW;  // this thread's pixel in every tile
+  const bool has_px = t < TR * CW;
+  int uoff[kRoundThreads / 32];  // the u phase's pixels lane + 32 j in a tile
+#pragma unroll
+  for (int j = 0; j < kRoundThreads / 32; ++j) {
+    const int pl = lane + 32 * j;
+    uoff[j] = (pl / CW) * RP + (pl % CW) * S;
+  }
 
-  for (int p = w_beg; p < w_end; p += U) {
-    float xv[U][NV];
-    float pr[U], q[U];
-    bool ok[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      ok[u] = false;
-      long long off = 0;
-      if (p + u < w_end) {
-        const Pixel px = locate<MASKED>(valid, p + u, b, step, W, S);
-        ok[u] = px.ok;
-        off = px.off;
-      }
-      pr[u] = 0.f;
-      q[u] = 0.f;
-#pragma unroll
-      for (int k = 0; k < NV; ++k) {
-        const int s = lane + 32 * k;
-        xv[u][k] = (ok[u] && s < S) ? x[off + s] - m0v[k] : 0.f;
-        pr[u] = fmaf(citv[k], xv[u][k], pr[u]);
-        if (MODE == kFirst) q[u] = fmaf(m0v[k], xv[u][k], q[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      pr[u] = warp_sum(pr[u]);
-      if (MODE == kFirst) q[u] = warp_sum(q[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (p + u >= w_end) break;
-      const long long i = row + p + u;
-      float ru = 1.f, mf = 0.f;
-      if (ok[u]) {
-        const float proj = pr[u] - shift;
-        if (MODE == kFirst) {
-          ru = q[u] / m0n + 1.f;
-          mf = fmaxf(proj / (ru * norm), 0.f);
+  struct Tile {
+    int h0, nrows, col0, ncols, nload;  // rows, columns in the block, columns read
+  };
+  auto tile_at = [&](int i) {
+    const int tile = t_beg + i, grp = tile / nseg, seg = tile - grp * nseg;
+    Tile tl;
+    tl.h0 = grp * TR;
+    tl.nrows = min(TR, H - tl.h0);
+    tl.col0 = seg * CW;
+    tl.ncols = min(CW, step - tl.col0);
+    tl.nload = max(0, min(tl.ncols, ncols_b - tl.col0));
+    return tl;
+  };
+
+  auto issue = [&](int i) {
+    if (i < ntile) {
+      const Tile tl = tile_at(i);
+      const int slot = i % geom.stages, n = tl.nload * S;
+      float* dst = reinterpret_cast<float*>(sm.tiles) + slot * tile_floats;
+      for (int rr = 0; rr < tl.nrows; ++rr) {
+        const float* src = x + ((long long)(tl.h0 + rr) * W + b * step + tl.col0) * S;
+        float* d = dst + rr * RP;
+        if constexpr (VEC16) {
+          for (int e = t; 4 * e < n; e += kRoundThreads) cp_async16(d + 4 * e, src + 4 * e);
         } else {
-          ru = r[i];
-          const float reg = 1.f / (ru * (mf_in[i] + kEpsilon));
-          mf = fmaxf((proj - reg) / (ru * norm), 0.f);
+          for (int e = t; e < n; e += kRoundThreads) cp_async4(d + e, src + e);
         }
       }
-      if (MODE == kFirst && lane == 0) r[i] = ru;
-      if (MODE == kFinal) {
-        if (lane == 0) mf_out[i] = mf * kScaling;
-      } else {
-        if (lane == 0) mf_out[i] = mf;
-        const float g = cov_scale * (ru * mf);  // 0 where the pixel does not count
-        gsum += g;
-        gsq = fmaf(g, g, gsq);
-#pragma unroll
-        for (int k = 0; k < NV; ++k) uacc[k] = fmaf(xv[u][k], g, uacc[k]);
+      if (has_px && tr < tl.nrows && tc < tl.ncols) {
+        const int h = tl.h0 + tr;
+        const unsigned char* mask = nullptr;
+        if (MASKED && tc < tl.nload) mask = valid + (long long)h * W + b * step + tl.col0 + tc;
+        issue_pixel<MODE, MASKED>(sm, slot, b * P + (long long)h * step + tl.col0 + tc, r,
+                                  mf_in, mask);
       }
     }
-  }
-  if (MODE == kFinal) return;
+    cp_async_commit();
+  };
 
+  float u[kBandSlots];
 #pragma unroll
-  for (int k = 0; k < NV; ++k) red_u[warp][lane + 32 * k] = uacc[k];
-  if (lane == 0) {
-    red_g[warp][0] = gsum;
-    red_g[warp][1] = gsq;
+  for (int k = 0; k < kBandSlots; ++k) u[k] = 0.f;
+  float gsum = 0.f, gsq = 0.f;
+
+  for (int i = 0; i < geom.stages - 1; ++i) issue(i);
+  for (int i = 0; i < ntile; ++i) {
+    cp_async_wait_pending(geom.stages - 2);
+    __syncthreads();  // tile i staged by every thread; tile i - 1's stage free
+    issue(i + geom.stages - 1);
+    const Tile tl = tile_at(i);
+    const int slot = i % geom.stages;
+    const float* tile = reinterpret_cast<const float*>(sm.tiles) + slot * tile_floats;
+    const bool in = has_px && tr < tl.nrows && tc < tl.ncols;
+    bool ok = in && tc < tl.nload;
+    if constexpr (MASKED) ok = ok && mask_set(sm, slot);
+    float proj = 0.f, q = 0.f;
+    if (ok) {
+      const float* px = tile + tr * RP + tc * S;
+      project<MODE == kFirst, true>(sm, S, [&](int s) { return px[s]; }, proj, q);
+    }
+    float ru, mf;
+    pixel_update<MODE>(sm, slot * kRoundThreads + t, ok, proj, q, norm, ru, mf);
+    if (in) {
+      const long long i_px = b * P + (long long)(tl.h0 + tr) * step + tl.col0 + tc;
+      if (MODE == kFirst) r[i_px] = ru;
+      mf_out[i_px] = MODE == kFinal ? mf * kScaling : mf;
+    }
+    if (MODE == kFinal) continue;
+    const float g = cov_scale * (ru * mf);  // 0 where the pixel does not count
+    gsum += g;
+    gsq = fmaf(g, g, gsq);
+    sm.g[t] = g;
+    sm.ok[t] = ok;
+    __syncthreads();
+    accumulate_u<true>(sm, S, [&](int s, int j) { return tile[uoff[j] + s]; }, u);
   }
-  __syncthreads();
-  float* rec = partial + ((long long)b * nchunks + c) * (S + 2);
-  for (int s = threadIdx.x; s < S + 2; s += kThreads) {
-    float acc = 0.f;
-    for (int w = 0; w < kWarps; ++w)
-      acc += s < S ? red_u[w][s] : red_g[w][s - S];
-    rec[s] = acc;
-  }
+  cp_async_wait_pending(0);
+  if (MODE == kFinal) return;
+  write_round_record(sm, partial + ((long long)b * nchunks + c) * (S + 2), u, gsum, gsq, S);
 }
 
 // ---------------------------------------------------------------------------
@@ -405,16 +410,16 @@ blocked_transpose_kernel(const float* __restrict__ x, const float* __restrict__ 
 //     stream centred in registers (CENTER, JAX's centered=False), or a
 //     centred one (acrwl1mf_fused's (B, P, S) layout), masked by a (B, P) row.
 // ---------------------------------------------------------------------------
-template <typename T, int MODE, bool MASKED, bool BF16_DOTS, bool CENTER>
-__global__ void __launch_bounds__(kRoundBspThreads)
+template <typename T, int MODE, bool MASKED, bool BF16_DOTS, bool CENTER, bool VEC16>
+__global__ void __launch_bounds__(kRoundThreads, 4)
 filter_round_bsp_kernel(const T* __restrict__ xs, const unsigned char* __restrict__ valid,
                         const float* __restrict__ m0, const float* __restrict__ carry,
                         float* __restrict__ r, const float* __restrict__ mf_in,
                         float* __restrict__ mf_out, float* __restrict__ partial, int W, int S,
-                        int R, int step, int P, int chunk, int nchunks, float cov_scale) {
-  round_bsp_chunk<T, MODE, MASKED, BF16_DOTS, CENTER>(xs, valid, m0, carry, r, mf_in, mf_out,
-                                                      partial, W, S, R, step, P, chunk, nchunks,
-                                                      cov_scale);
+                        int R, int step, int P, RoundGeom geom, int nchunks, float cov_scale) {
+  round_bsp_chunk<T, MODE, MASKED, BF16_DOTS, CENTER, VEC16>(
+      xs, valid, m0, carry, r, mf_in, mf_out, partial, W, S, R, step, P, geom, nchunks,
+      cov_scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -447,35 +452,20 @@ cudaError_t launch_init_partial(const float* x, const unsigned char* valid, floa
   return cudaGetLastError();
 }
 
-template <int NV, bool MASKED>
-void launch_round_mode(int mode, dim3 grid, cudaStream_t st, const float* x,
-                       const unsigned char* valid, const float* m0, const float* carry, float* r,
-                       const float* mf_in, float* mf_out, float* partial, int W, int S, int step,
-                       int P, int chunk, int nchunks, float cov_scale) {
-  if (mode == kFirst)
-    filter_round_kernel<NV, kFirst, MASKED><<<grid, kThreads, 0, st>>>(
-        x, valid, m0, carry, r, mf_in, mf_out, partial, W, S, step, P, chunk, nchunks, cov_scale);
-  else if (mode == kLoop)
-    filter_round_kernel<NV, kLoop, MASKED><<<grid, kThreads, 0, st>>>(
-        x, valid, m0, carry, r, mf_in, mf_out, partial, W, S, step, P, chunk, nchunks, cov_scale);
-  else
-    filter_round_kernel<NV, kFinal, MASKED><<<grid, kThreads, 0, st>>>(
-        x, valid, m0, carry, r, mf_in, mf_out, partial, W, S, step, P, chunk, nchunks, cov_scale);
-}
-
-template <int NV>
-cudaError_t launch_round(int mode, const float* x, const unsigned char* valid, const float* m0,
-                         const float* carry, float* r, const float* mf_in, float* mf_out,
-                         float* partial, int W, int S, int step, int P, int chunk, int nchunks,
-                         int nb, float cov_scale, cudaStream_t st) {
-  const dim3 grid(nchunks, nb);
-  if (valid != nullptr)
-    launch_round_mode<NV, true>(mode, grid, st, x, valid, m0, carry, r, mf_in, mf_out, partial,
-                                W, S, step, P, chunk, nchunks, cov_scale);
-  else
-    launch_round_mode<NV, false>(mode, grid, st, x, valid, m0, carry, r, mf_in, mf_out, partial,
-                                 W, S, step, P, chunk, nchunks, cov_scale);
-  return cudaGetLastError();
+template <bool MASKED, bool VEC16>
+cudaError_t launch_round_mode(int mode, dim3 grid, const RoundGeom& g, cudaStream_t st,
+                              const float* x, const unsigned char* valid, const float* m0,
+                              const float* carry, float* r, const float* mf_in, float* mf_out,
+                              float* partial, int H, int W, int S, int step, int nchunks,
+                              float cov_scale) {
+#define STARCOP_ROUND(MODE)                                                                     \
+  return launch_round_kernel(filter_round_kernel<MODE, MASKED, VEC16>, grid, g, st, x, valid, m0, \
+                             carry, r, mf_in, mf_out, partial, H, W, S, step, g, nchunks,       \
+                             cov_scale)
+  if (mode == kFirst) STARCOP_ROUND(kFirst);
+  if (mode == kLoop) STARCOP_ROUND(kLoop);
+  STARCOP_ROUND(kFinal);
+#undef STARCOP_ROUND
 }
 
 template <int TS, typename T>
@@ -502,31 +492,45 @@ cudaError_t launch_init_bsp_ts(const void* xs, float* partial, int S, int R, int
   }
 }
 
+template <typename T, bool MASKED, bool BF16_DOTS, bool CENTER, bool VEC16>
+cudaError_t launch_round_bsp_vec(int mode, const T* xs, const unsigned char* valid,
+                                 const float* m0, const float* carry, float* r,
+                                 const float* mf_in, float* mf_out, float* partial, int W, int S,
+                                 int R, int step, int P, const RoundGeom& g, int nchunks, int nb,
+                                 float cov_scale, cudaStream_t st) {
+  const dim3 grid(nchunks, nb);
+#define STARCOP_ROUND_BSP(MODE)                                                                   \
+  return launch_round_kernel(filter_round_bsp_kernel<T, MODE, MASKED, BF16_DOTS, CENTER, VEC16>, \
+                             grid, g, st, xs, valid, m0, carry, r, mf_in, mf_out, partial, W, S,  \
+                             R, step, P, g, nchunks, cov_scale)
+  if (mode == kFirst) STARCOP_ROUND_BSP(kFirst);
+  if (mode == kLoop) STARCOP_ROUND_BSP(kLoop);
+  STARCOP_ROUND_BSP(kFinal);
+#undef STARCOP_ROUND_BSP
+}
+
 template <typename T, bool MASKED, bool BF16_DOTS, bool CENTER>
 cudaError_t launch_round_bsp(int mode, const void* xs_raw, const unsigned char* valid,
                              const float* m0, const float* carry, float* r, const float* mf_in,
                              float* mf_out, float* partial, int W, int S, int R, int step, int P,
-                             int chunk, int nchunks, int nb, float cov_scale, cudaStream_t st) {
+                             const RoundGeom& g, int nchunks, int nb, float cov_scale,
+                             cudaStream_t st) {
   const T* xs = static_cast<const T*>(xs_raw);
-  const dim3 grid(nchunks, nb);
-  const size_t smem = round_bsp_smem<T>(S);
-  auto run = [&](auto kernel) {
-    const cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kRoundBspThreads, smem, st>>>(xs, valid, m0, carry, r, mf_in, mf_out, partial,
-                                                 W, S, R, step, P, chunk, nchunks, cov_scale);
-    return cudaGetLastError();
-  };
-  if (mode == kFirst) return run(filter_round_bsp_kernel<T, kFirst, MASKED, BF16_DOTS, CENTER>);
-  if (mode == kLoop) return run(filter_round_bsp_kernel<T, kLoop, MASKED, BF16_DOTS, CENTER>);
-  return run(filter_round_bsp_kernel<T, kFinal, MASKED, BF16_DOTS, CENTER>);
+  if (!stream_geom_ok<T>(g, xs, S, P, nchunks)) return cudaErrorInvalidValue;
+  if (g.aligned)
+    return launch_round_bsp_vec<T, MASKED, BF16_DOTS, CENTER, true>(
+        mode, xs, valid, m0, carry, r, mf_in, mf_out, partial, W, S, R, step, P, g, nchunks, nb,
+        cov_scale, st);
+  return launch_round_bsp_vec<T, MASKED, BF16_DOTS, CENTER, false>(
+      mode, xs, valid, m0, carry, r, mf_in, mf_out, partial, W, S, R, step, P, g, nchunks, nb,
+      cov_scale, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest band count the kernels take (four band slots per lane).
+// Largest band count the kernels take (kMaxBands).
 int starcop_max_bands() { return 128; }
 
 const char* starcop_error_string(int err) {
@@ -602,11 +606,12 @@ int starcop_init_stats_stream(const float* xs, float* partial, float* m0, float*
 // One pass over the blocked stream (nb, R, P) with S <= R live bands, stored
 // f32 (f32 != 0) or bf16. valid == nullptr: every pixel counts, else the
 // (H, W) mask and the width W select. bf16_dots (bf16 only) rounds cit, m0
-// and g to bf16; center (f32 only) subtracts m0 from the raw stream.
+// and g to bf16; center (f32 only) subtracts m0 from the raw stream. geom:
+// the six RoundGeom fields; partial has nchunks records per block.
 int starcop_filter_round_bsp(int mode, const void* xs, int f32, const unsigned char* valid,
                              int bf16_dots, int center, const float* m0, const float* carry,
                              float* r, const float* mf_in, float* mf_out, float* partial, int H,
-                             int W, int S, int R, int nb, int step, int chunk, int nchunks,
+                             int W, int S, int R, int nb, int step, const int* geom, int nchunks,
                              float cov_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode < kFirst || mode > kFinal || S < 1 || S > kMaxBands || R < S)
@@ -614,10 +619,11 @@ int starcop_filter_round_bsp(int mode, const void* xs, int f32, const unsigned c
   if ((f32 && bf16_dots) || (!f32 && center) || (valid != nullptr && center))
     return (int)cudaErrorInvalidValue;
   const int P = H * step;
+  const RoundGeom g = round_geom_from(geom);
 #define STARCOP_ROUND_BSP(T, MASKED, DOTS, CENTER)                                              \
   return (int)launch_round_bsp<T, MASKED, DOTS, CENTER>(mode, xs, valid, m0, carry, r, mf_in,  \
-                                                        mf_out, partial, W, S, R, step, P,      \
-                                                        chunk, nchunks, nb, cov_scale, st)
+                                                        mf_out, partial, W, S, R, step, P, g,   \
+                                                        nchunks, nb, cov_scale, st)
   if (f32) {
     if (valid != nullptr) STARCOP_ROUND_BSP(float, true, false, false);
     if (center) STARCOP_ROUND_BSP(float, false, false, true);
@@ -632,21 +638,32 @@ int starcop_filter_round_bsp(int mode, const void* xs, int f32, const unsigned c
 #undef STARCOP_ROUND_BSP
 }
 
-// valid == nullptr: filter_round; else filter_round_masked.
+// valid == nullptr: filter_round; else filter_round_masked. geom: the six
+// RoundGeom fields; partial has nchunks records per block.
 int starcop_filter_round(int mode, const float* x, const unsigned char* valid, const float* m0,
                          const float* carry, float* r, const float* mf_in, float* mf_out,
-                         float* partial, int H, int W, int S, int nb, int step, int chunk,
+                         float* partial, int H, int W, int S, int nb, int step, const int* geom,
                          int nchunks, float cov_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int P = H * step;
-  if (mode < kFirst || mode > kFinal) return (int)cudaErrorInvalidValue;
-  switch ((S + 31) / 32) {
-    case 1: return (int)launch_round<1>(mode, x, valid, m0, carry, r, mf_in, mf_out, partial, W, S, step, P, chunk, nchunks, nb, cov_scale, st);
-    case 2: return (int)launch_round<2>(mode, x, valid, m0, carry, r, mf_in, mf_out, partial, W, S, step, P, chunk, nchunks, nb, cov_scale, st);
-    case 3: return (int)launch_round<3>(mode, x, valid, m0, carry, r, mf_in, mf_out, partial, W, S, step, P, chunk, nchunks, nb, cov_scale, st);
-    case 4: return (int)launch_round<4>(mode, x, valid, m0, carry, r, mf_in, mf_out, partial, W, S, step, P, chunk, nchunks, nb, cov_scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const RoundGeom g = round_geom_from(geom);
+  if (mode < kFirst || mode > kFinal || S < 1 || S > kMaxBands) return (int)cudaErrorInvalidValue;
+  // Tiles of whole block rows, or one segment of a row wider than a tile.
+  const bool shape_ok = g.tile_cols <= step && (g.tile_rows == 1 || g.tile_cols == step);
+  const int tiles_block = (H + g.tile_rows - 1) / g.tile_rows * ((step + g.tile_cols - 1) / g.tile_cols);
+  if (!shape_ok || !round_geom_ok(g, tiles_block, nchunks, 4 * g.tile_rows * cube_row_pitch(g.tile_cols, S)))
+    return (int)cudaErrorInvalidValue;
+  if (g.aligned && ((long long)W * S % 4 != 0 || (long long)step * S % 4 != 0 ||
+                    reinterpret_cast<size_t>(x) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(nchunks, nb);
+  cudaError_t err;
+  if (valid != nullptr)
+    err = g.aligned ? launch_round_mode<true, true>(mode, grid, g, st, x, valid, m0, carry, r, mf_in, mf_out, partial, H, W, S, step, nchunks, cov_scale)
+                    : launch_round_mode<true, false>(mode, grid, g, st, x, valid, m0, carry, r, mf_in, mf_out, partial, H, W, S, step, nchunks, cov_scale);
+  else
+    err = g.aligned ? launch_round_mode<false, true>(mode, grid, g, st, x, valid, m0, carry, r, mf_in, mf_out, partial, H, W, S, step, nchunks, cov_scale)
+                    : launch_round_mode<false, false>(mode, grid, g, st, x, valid, m0, carry, r, mf_in, mf_out, partial, H, W, S, step, nchunks, cov_scale);
+  return (int)err;
 }
 
 int starcop_filter_glue(const float* partial, const float* carry_in, float* carry_out,

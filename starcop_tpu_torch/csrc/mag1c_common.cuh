@@ -162,22 +162,333 @@ init_stats_reduce_kernel(const float* __restrict__ partial, const float* __restr
 }
 
 // ---------------------------------------------------------------------------
-// One streaming pass of the filter over the blocked stream (nb, R, P): the
-// chunk of block b = blockIdx.y that CTA blockIdx.x owns (filter_round_bsp,
-// filter_round_mono and fused_iter's WOODBURY mode).
+// The streaming rounds: shared machinery of filter_round (the (H, W, S) cube,
+// mag1c.cu) and round_bsp_chunk (the blocked stream, below).
 //
-// A CTA of TP threads walks its chunk in tiles of TP pixels, thread t on
-// pixel p0 + t. Per tile: each thread reads its pixel's S band values (one
-// coalesced row of TP values per band), stages them in shared memory and
-// forms proj = cit.xs - cit.mu (and q = m0.xs in FIRST); then
-//   FIRST: R = q / (m0.m0) + 1, mf = relu(proj / (R norm0))   (rmf init)
-//   LOOP:  mf = relu((proj - 1/(R (mf_prev + eps))) / (R norm))
+// What bounds them: each pass reads the cube or stream once from HBM (4 or 2
+// bytes per pixel and band) and does ~2 FMAs per value, so a round is bound by
+// HBM bytes. The design keeps the bytes in flight and every thread busy:
+//
+//  * Tiles and chunks. A CTA of kRoundThreads threads owns one chunk of a
+//    column block: a whole number of tiles of at most kRoundThreads pixels,
+//    one pixel per thread. The launch geometry (tile shape, tiles per chunk,
+//    stages, the copy width, shared-memory bytes) comes from the Python
+//    wrapper (ops/mag1c_kernels.py:round_geometry), which picks the chunk so
+//    that the grid's last wave is (nearly) full; the kernel checks it.
+//  * A ring of `stages` tiles in shared memory, filled by cp.async while the
+//    CTA works on an earlier tile: the tile's values (16-byte copies where
+//    every row starts and ends on 16 bytes, else 4-byte ones), its pixels' R
+//    and mf_prev, and the 4-byte word that holds each pixel's mask byte
+//    travel in one commit group, so no load waits on another.
+//  * Two phases per tile, every thread busy in both: (1) thread t projects
+//    its own pixel from the tile (proj = cit.xc - cit.mu, q = m0.xc in
+//    FIRST), no shuffles; (2) warp w owns bands w, w + 4, ... and its lanes
+//    own pixels lane + 32 j: u[s] += xc[p, s] g[p] in registers across the
+//    whole chunk, reduced once per chunk by a fixed butterfly. A pixel that
+//    does not count is selected out before any of its values is read from
+//    the tile (they may hold the fill value or stale bytes), so it is never
+//    multiplied in.
+//
+// Per pixel, with xc = x - m0 (or the centred stream):
+//   FIRST: R = (m0.xc) / (m0.m0) + 1, mf = relu((cit.xc - cit.mu) / (R norm0))
+//   LOOP:  mf = relu((cit.xc - cit.mu - 1/(R (mf_prev + eps))) / (R norm))
 //   FINAL: as LOOP, written scaled by 1e5, no statistics
 //   PASS:  mf = mf_prev, R read (fused_iter's first call)
-// then g = cov_scale R mf, and thread t < S adds its band's
-// u[t] += sum over the tile of xs[t, p] g[p]. The per-chunk record is
-// [u(S) | sum g | sum g^2]. Sums run in a fixed order, so a rerun is bitwise
-// identical.
+// then g = cov_scale R mf. The per-chunk record is [u(S) | sum g | sum g^2].
+// Every sum runs in a fixed order, so a rerun is bitwise identical.
+// ---------------------------------------------------------------------------
+constexpr int kRoundThreads = 128;
+constexpr int kRoundWarps = kRoundThreads / 32;
+constexpr int kBandSlots = kMaxBands / kRoundWarps;  // bands a warp owns in the u sum
+constexpr int kMaxStages = 4;
+constexpr int kMaxRoundSmem = 227 * 1024;
+// Per stage beside the tile: R, mf_prev, the mask word (4 bytes each) and
+// the mask byte's position in its word (4: the column lies past W).
+constexpr int kPixStageBytes = 3 * 4 * kRoundThreads + kRoundThreads;
+// Once per CTA: g, the pixel-counts flags, cit, m0 and 16 scalars.
+constexpr int kRoundFixedBytes = 4 * (2 * kRoundThreads + 2 * kMaxBands + 16);
+constexpr int kBf16RowPitch = kRoundThreads + 8;  // bf16 stream row: 272 bytes, 16-aligned
+
+// The launch geometry, as ops/mag1c_kernels.py:round_geometry gives it.
+struct RoundGeom {
+  int tile_rows;        // image rows of a cube tile (1 on the stream)
+  int tile_cols;        // columns of a cube tile (kRoundThreads on the stream)
+  int tiles_per_chunk;  // tiles of one CTA
+  int stages;           // tiles in the ring, 2..kMaxStages
+  int aligned;          // 16-byte copies of the tile values (else 4-byte)
+  int smem;             // dynamic shared-memory bytes
+};
+
+inline RoundGeom round_geom_from(const int* v) {
+  return RoundGeom{v[0], v[1], v[2], v[3], v[4], v[5]};
+}
+
+inline size_t round_smem_bytes(int stages, int tile_bytes) {
+  return (size_t)stages * (size_t)(tile_bytes + kPixStageBytes) + kRoundFixedBytes;
+}
+
+// Floats of one cube tile row: tile_cols pixels of S bands, padded to 16 bytes.
+__host__ __device__ inline int cube_row_pitch(int tile_cols, int S) {
+  return (tile_cols * S + 3) / 4 * 4;
+}
+
+template <typename T>
+__host__ __device__ constexpr int stream_row_pitch() {
+  return sizeof(T) == 2 ? kBf16RowPitch : kRoundThreads;
+}
+
+// The geometry's own invariants against the shapes; false refuses the launch.
+inline bool round_geom_ok(const RoundGeom& g, int tiles_block, int nchunks, int tile_bytes) {
+  return g.tile_rows >= 1 && g.tile_cols >= 1 && g.tile_rows * g.tile_cols <= kRoundThreads &&
+         g.stages >= 2 && g.stages <= kMaxStages && g.tiles_per_chunk >= 1 && nchunks >= 1 &&
+         (long long)nchunks * g.tiles_per_chunk >= tiles_block &&
+         (long long)(nchunks - 1) * g.tiles_per_chunk < tiles_block &&
+         (size_t)g.smem == round_smem_bytes(g.stages, tile_bytes) && g.smem <= kMaxRoundSmem;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most `pending` (0 .. kMaxStages - 2) of this thread's groups
+// are still in flight.
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  if (pending <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
+// The dynamic shared memory of a round CTA.
+struct RoundSmem {
+  unsigned char* tiles;  // stages x tile_bytes
+  float* r;              // stages x kRoundThreads
+  float* mf;             // stages x kRoundThreads
+  unsigned* mword;       // stages x kRoundThreads
+  unsigned char* mpos;   // stages x kRoundThreads
+  float* g;              // kRoundThreads
+  int* ok;               // kRoundThreads
+  float* cit;            // kMaxBands
+  float* m0;             // kMaxBands
+  float* misc;           // 16: cit.mu, m0.m0, per-warp sum g, sum g^2
+};
+
+__device__ __forceinline__ RoundSmem carve_round_smem(unsigned char* base, int stages,
+                                                      int tile_bytes) {
+  RoundSmem sm;
+  sm.tiles = base;
+  unsigned char* p = base + (size_t)stages * tile_bytes;
+  sm.r = reinterpret_cast<float*>(p);
+  sm.mf = sm.r + stages * kRoundThreads;
+  sm.mword = reinterpret_cast<unsigned*>(sm.mf + stages * kRoundThreads);
+  sm.mpos = reinterpret_cast<unsigned char*>(sm.mword + stages * kRoundThreads);
+  sm.g = reinterpret_cast<float*>(sm.mpos + stages * kRoundThreads);
+  sm.ok = reinterpret_cast<int*>(sm.g + kRoundThreads);
+  sm.cit = reinterpret_cast<float*>(sm.ok + kRoundThreads);
+  sm.m0 = sm.cit + kMaxBands;
+  sm.misc = sm.m0 + kMaxBands;
+  return sm;
+}
+
+// cit and m0 of block b into shared memory (rounded to bf16 with BF16_DOTS),
+// cit.mu and m0.m0 (f32, unrounded, in band order) into misc[0], misc[1].
+template <bool BF16_DOTS>
+__device__ __forceinline__ void load_round_consts(const RoundSmem& sm, const float* cb,
+                                                  const float* mb, int S) {
+  const int t = threadIdx.x;
+  for (int s = t; s < S; s += kRoundThreads) {
+    sm.cit[s] = BF16_DOTS ? bf16_round(cb[2 * S + s]) : cb[2 * S + s];
+    sm.m0[s] = BF16_DOTS ? bf16_round(mb[s]) : mb[s];
+  }
+  if (t == 0) {
+    float shift = 0.f, m0n = 0.f;
+    for (int s = 0; s < S; ++s) {
+      shift = fmaf(cb[2 * S + s], cb[s], shift);
+      m0n = fmaf(mb[s], mb[s], m0n);
+    }
+    sm.misc[0] = shift;
+    sm.misc[1] = m0n;
+  }
+  __syncthreads();
+}
+
+// Thread t's copy of its pixel's per-pixel rows (R and mf_prev unless FIRST)
+// and, masked, of the word holding its mask byte (`mask`, nullptr where the
+// column lies past W) into stage `slot`.
+template <int MODE, bool MASKED>
+__device__ __forceinline__ void issue_pixel(const RoundSmem& sm, int slot, long long i,
+                                            const float* r, const float* mf_in,
+                                            const unsigned char* mask) {
+  const int t = threadIdx.x, at = slot * kRoundThreads + t;
+  if (MODE != kFirst) {
+    cp_async4(sm.r + at, r + i);
+    cp_async4(sm.mf + at, mf_in + i);
+  }
+  if constexpr (MASKED) {
+    // The aligned word that holds the byte lies in the mask's allocation
+    // (CUDA allocations start and end on 4-byte multiples).
+    unsigned char pos = 4;
+    if (mask != nullptr) {
+      const size_t a = reinterpret_cast<size_t>(mask);
+      pos = (unsigned char)(a & 3);
+      cp_async4(sm.mword + at, reinterpret_cast<const void*>(a & ~(size_t)3));
+    }
+    sm.mpos[at] = pos;
+  }
+}
+
+// Whether thread t's pixel counts under the mask of stage `slot`.
+__device__ __forceinline__ bool mask_set(const RoundSmem& sm, int slot) {
+  const int at = slot * kRoundThreads + threadIdx.x;
+  const unsigned pos = sm.mpos[at];
+  return pos < 4 && ((sm.mword[at] >> (8 * pos)) & 0xffu) != 0;
+}
+
+// mf and R of one pixel from its projections (see above); ok false: mf = 0,
+// R = 1. at: the pixel's stage slot entry.
+template <int MODE>
+__device__ __forceinline__ void pixel_update(const RoundSmem& sm, int at, bool ok, float proj,
+                                             float q, float norm, float& ru, float& mf) {
+  ru = 1.f;
+  mf = 0.f;
+  if (!ok) return;
+  const float shift = sm.misc[0], m0n = sm.misc[1];
+  if (MODE == kFirst) {
+    ru = q / m0n + 1.f;
+    mf = fmaxf((proj - shift) / (ru * norm), 0.f);
+  } else if (MODE == kPass) {
+    ru = sm.r[at];
+    mf = sm.mf[at];
+  } else {
+    ru = sm.r[at];
+    const float reg = 1.f / (ru * (sm.mf[at] + kEpsilon));
+    mf = fmaxf((proj - shift - reg) / (ru * norm), 0.f);
+  }
+}
+
+// proj = sum_s cit[s] xc(s) and, with Q, q = sum_s m0[s] xc(s), each in band
+// order, where xc(s) = load(s), less m0[s] with CENTER. cit and m0 are read
+// four bands at a time (one broadcast load each).
+template <bool Q, bool CENTER, typename Load>
+__device__ __forceinline__ void project(const RoundSmem& sm, int S, Load load, float& proj,
+                                        float& q) {
+  const float4* cit4 = reinterpret_cast<const float4*>(sm.cit);
+  const float4* m04 = reinterpret_cast<const float4*>(sm.m0);
+  int s = 0;
+  for (; s + 4 <= S; s += 4) {
+    const float4 c = cit4[s / 4];
+    float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (Q || CENTER) m = m04[s / 4];
+    float x0 = load(s), x1 = load(s + 1), x2 = load(s + 2), x3 = load(s + 3);
+    if (CENTER) {
+      x0 -= m.x;
+      x1 -= m.y;
+      x2 -= m.z;
+      x3 -= m.w;
+    }
+    proj = fmaf(c.x, x0, proj);
+    proj = fmaf(c.y, x1, proj);
+    proj = fmaf(c.z, x2, proj);
+    proj = fmaf(c.w, x3, proj);
+    if (Q) {
+      q = fmaf(m.x, x0, q);
+      q = fmaf(m.y, x1, q);
+      q = fmaf(m.z, x2, q);
+      q = fmaf(m.w, x3, q);
+    }
+  }
+  for (; s < S; ++s) {
+    float xv = load(s);
+    if (CENTER) xv -= sm.m0[s];
+    proj = fmaf(sm.cit[s], xv, proj);
+    if (Q) q = fmaf(sm.m0[s], xv, q);
+  }
+}
+
+// u[k] += xc(s, pixel lane + 32 j) g[pixel] over the tile's pixels that
+// count, for the warp's bands s = warp + kRoundWarps k: each sum in pixel
+// order. xc(s, j) = load(s, j), less m0[s] with CENTER.
+template <bool CENTER, typename Load>
+__device__ __forceinline__ void accumulate_u(const RoundSmem& sm, int S, Load load,
+                                             float (&u)[kBandSlots]) {
+  constexpr int J = kRoundThreads / 32;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  float gp[J];
+  bool okp[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    okp[j] = sm.ok[lane + 32 * j] != 0;
+    gp[j] = sm.g[lane + 32 * j];
+  }
+#pragma unroll
+  for (int k = 0; k < kBandSlots; ++k) {
+    const int s = warp + kRoundWarps * k;
+    if (s >= S) break;  // uniform across the warp
+    const float m = CENTER ? sm.m0[s] : 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (!okp[j]) continue;
+      float xv = load(s, j);
+      if (CENTER) xv -= m;
+      u[k] = fmaf(xv, gp[j], u[k]);
+    }
+  }
+}
+
+// The chunk's record [u(S) | sum g | sum g^2]: each warp's band sums reduced
+// over its lanes, the g moments over the warps in order.
+__device__ __forceinline__ void write_round_record(const RoundSmem& sm, float* rec,
+                                                   const float (&u)[kBandSlots], float gsum,
+                                                   float gsq, int S) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int k = 0; k < kBandSlots; ++k) {
+    const int s = warp + kRoundWarps * k;
+    if (s >= S) break;  // uniform across the warp
+    const float v = warp_sum(u[k]);
+    if (lane == 0) rec[s] = v;
+  }
+  gsum = warp_sum(gsum);
+  gsq = warp_sum(gsq);
+  if (lane == 0) {
+    sm.misc[2 + warp] = gsum;
+    sm.misc[2 + kRoundWarps + warp] = gsq;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sum_g = 0.f, sum_g2 = 0.f;
+    for (int w = 0; w < kRoundWarps; ++w) {
+      sum_g += sm.misc[2 + w];
+      sum_g2 += sm.misc[2 + kRoundWarps + w];
+    }
+    rec[S] = sum_g;
+    rec[S + 1] = sum_g2;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// One streaming pass over the blocked stream (nb, R, P): the chunk of block
+// b = blockIdx.y that CTA blockIdx.x owns (filter_round_bsp,
+// filter_round_mono and fused_iter's WOODBURY mode). A tile is kRoundThreads
+// contiguous pixels of every live band row, staged band-major (row s at
+// s * pitch), so thread t reads pixel t of a row and the lanes of a warp
+// read consecutive words: no bank conflicts in either phase. VEC16: P *
+// sizeof(T) is a multiple of 16, so every tile row starts on 16 bytes and is
+// copied in 16-byte pieces; else 4-byte copies (f32: one per value; bf16: the
+// aligned words that cover the row, the row's first value at half-word
+// `off` of its staged row).
 //
 // T is the storage type: bf16 (the centred stream) or float. CENTER (float
 // only) subtracts m0 in registers: the raw f32 stream of JAX's
@@ -186,133 +497,129 @@ init_stats_reduce_kernel(const float* __restrict__ partial, const float* __restr
 // bf16 MXU dots take them (:633-636, :693-701, _lane_dot :555-574); the
 // products are then exact in f32. cit.mu, m0.m0, sum g, sum g^2 stay f32.
 // MASKED reads a uint8 valid mask (H, W) and the width W: pixel p of block b
-// counts if its column b*step + p % step is < W and its mask byte is set; a
-// pixel that does not count loads nothing and gets mf = 0, R = 1. A (B, P)
+// counts if its column b*step + p % step is < W and its mask byte is set
+// (one division per pixel and tile, when its copies are issued). A (B, P)
 // row mask is the case H = 1, W = B * P, step = P.
 // ---------------------------------------------------------------------------
-constexpr int kRoundBspThreads = 128;
-
-// The staged row pitch: an odd number of 4-byte words, no bank conflicts.
 template <typename T>
-constexpr int kStagedPitch = sizeof(T) == 2 ? kRoundBspThreads + 2 : kRoundBspThreads + 1;
-
-template <typename T>
-size_t round_bsp_smem(int S) {
-  return (size_t)S * kStagedPitch<T> * sizeof(T);
+__host__ __device__ inline int stream_tile_bytes(int S) {
+  return S * stream_row_pitch<T>() * (int)sizeof(T);
 }
 
-template <typename T, int MODE, bool MASKED, bool BF16_DOTS, bool CENTER>
+template <typename T, int MODE, bool MASKED, bool BF16_DOTS, bool CENTER, bool VEC16>
 __device__ __forceinline__ void round_bsp_chunk(
     const T* __restrict__ xs, const unsigned char* __restrict__ valid,
     const float* __restrict__ m0, const float* __restrict__ carry, float* __restrict__ r,
     const float* __restrict__ mf_in, float* __restrict__ mf_out, float* __restrict__ partial,
-    int W, int S, int R, int step, int P, int chunk, int nchunks, float cov_scale) {
+    int W, int S, int R, int step, int P, const RoundGeom& geom, int nchunks, float cov_scale) {
   static_assert(!CENTER || sizeof(T) == 4, "only the f32 stream streams raw");
   static_assert(!BF16_DOTS || sizeof(T) == 2, "bf16 dots read a bf16 stream");
-  constexpr int TP = kRoundBspThreads;
-  constexpr int LD = kStagedPitch<T>;
+  constexpr int TP = kRoundThreads;
+  constexpr int LD = stream_row_pitch<T>();
   extern __shared__ __align__(16) unsigned char round_smem[];
-  T* xt = reinterpret_cast<T*>(round_smem);  // [S][LD]
-  __shared__ float cit_d[kMaxBands], m0_d[kMaxBands], g_d[TP];
-  __shared__ float red[2][TP / 32];
-  __shared__ float consts[2];  // cit . mu, m0 . m0
-
-  const int c = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+  const int tile_bytes = stream_tile_bytes<T>(S);
+  const RoundSmem sm = carve_round_smem(round_smem, geom.stages, tile_bytes);
+  const int c = blockIdx.x, b = blockIdx.y, t = threadIdx.x, lane = t % 32;
   const float* cb = carry + (long long)b * 4 * S;
-  const float* mb = m0 + (long long)b * S;
-  for (int s = t; s < S; s += TP) {
-    cit_d[s] = BF16_DOTS ? bf16_round(cb[2 * S + s]) : cb[2 * S + s];
-    m0_d[s] = BF16_DOTS ? bf16_round(mb[s]) : mb[s];
-  }
-  if (t == 0) {
-    float shift = 0.f, m0n = 0.f;
-    for (int s = 0; s < S; ++s) {
-      shift = fmaf(cb[2 * S + s], cb[s], shift);
-      m0n = fmaf(mb[s], mb[s], m0n);
-    }
-    consts[0] = shift;
-    consts[1] = m0n;
-  }
-  __syncthreads();
-  const float shift = consts[0], m0n = consts[1], norm = cb[3 * S];
+  load_round_consts<BF16_DOTS>(sm, cb, m0 + (long long)b * S, S);
+  const float norm = cb[3 * S];
 
-  float uacc = 0.f, gsum = 0.f, gsq = 0.f;
-  const int p_beg = c * chunk;
-  const int p_end = min(P, p_beg + chunk);
   const T* xb = xs + (long long)b * R * P;
-  for (int p0 = p_beg; p0 < p_end; p0 += TP) {
-    const int p = p0 + t;
-    const bool in = p < p_end;
-    bool ok = in;
-    if (MASKED && in) {
-      const int h = p / step;
-      const int col = b * step + (p - h * step);
-      ok = col < W && valid[(long long)h * W + col] != 0;
-    }
-    float proj = 0.f, q = 0.f;
-    for (int s = 0; s < S; ++s) {
-      T v = ok ? xb[(long long)s * P + p] : T(0.f);
-      float xv = to_f32(v);
-      if constexpr (CENTER) {
-        xv = ok ? xv - m0_d[s] : 0.f;
-        v = xv;
-      }
-      if (MODE != kFinal) xt[s * LD + t] = v;
-      proj = fmaf(cit_d[s], xv, proj);
-      if (MODE == kFirst) q = fmaf(m0_d[s], xv, q);
-    }
-    float ru = 1.f, mf = 0.f;
-    if (ok) {
-      const long long i = (long long)b * P + p;
-      if (MODE == kFirst) {
-        ru = q / m0n + 1.f;
-        mf = fmaxf((proj - shift) / (ru * norm), 0.f);
-      } else if (MODE == kPass) {
-        ru = r[i];
-        mf = mf_in[i];
+  const int tiles_block = (P + TP - 1) / TP;
+  const int t_beg = c * geom.tiles_per_chunk;
+  const int ntile = min(tiles_block, t_beg + geom.tiles_per_chunk) - t_beg;
+
+  // The staged value of band s, pixel pl of the tile at p0 in stage `tile`.
+  auto value = [&](const T* tile, int s, int p0, int pl) -> float {
+    int off = 0;
+    if constexpr (!VEC16 && sizeof(T) == 2)
+      off = (int)((reinterpret_cast<size_t>(xb + (long long)s * P + p0) >> 1) & 1);
+    return to_f32(tile[s * LD + off + pl]);
+  };
+
+  auto issue = [&](int i) {
+    if (i < ntile) {
+      const int slot = i % geom.stages, p0 = (t_beg + i) * TP, n_t = min(TP, P - p0);
+      unsigned char* dst = sm.tiles + (size_t)slot * tile_bytes;
+      if constexpr (VEC16) {
+        constexpr int kPieces = TP * (int)sizeof(T) / 16;  // per row
+        const int nbytes = n_t * (int)sizeof(T);
+        for (int e = t; e < S * kPieces; e += kRoundThreads) {
+          const int s = e / kPieces, k = e % kPieces;
+          if (16 * k < nbytes)
+            cp_async16(dst + (size_t)s * LD * sizeof(T) + 16 * k,
+                       reinterpret_cast<const unsigned char*>(xb + (long long)s * P + p0) + 16 * k);
+        }
+      } else if constexpr (sizeof(T) == 4) {
+        for (int e = t; e < S * TP; e += kRoundThreads) {
+          const int s = e / TP, pl = e % TP;
+          if (pl < n_t)
+            cp_async4(reinterpret_cast<T*>(dst) + s * LD + pl, xb + (long long)s * P + p0 + pl);
+        }
       } else {
-        ru = r[i];
-        const float reg = 1.f / (ru * (mf_in[i] + kEpsilon));
-        mf = fmaxf((proj - shift - reg) / (ru * norm), 0.f);
+        constexpr int kWords = TP / 2 + 1;  // covering words of one bf16 row
+        for (int e = t; e < S * kWords; e += kRoundThreads) {
+          const int s = e / kWords, w = e % kWords;
+          const size_t a = reinterpret_cast<size_t>(xb + (long long)s * P + p0);
+          const int off = (int)((a >> 1) & 1);
+          if (w < (off + n_t + 1) / 2)
+            cp_async4(dst + (size_t)s * LD * sizeof(T) + 4 * w,
+                      reinterpret_cast<const void*>((a & ~(size_t)3) + 4 * w));
+        }
+      }
+      if (t < n_t) {
+        const int p = p0 + t;
+        const unsigned char* mask = nullptr;
+        if constexpr (MASKED) {
+          const int h = p / step;
+          const int col = b * step + (p - h * step);
+          if (col < W) mask = valid + (long long)h * W + col;
+        }
+        issue_pixel<MODE, MASKED>(sm, slot, (long long)b * P + p, r, mf_in, mask);
       }
     }
+    cp_async_commit();
+  };
+
+  float u[kBandSlots];
+#pragma unroll
+  for (int k = 0; k < kBandSlots; ++k) u[k] = 0.f;
+  float gsum = 0.f, gsq = 0.f;
+
+  for (int i = 0; i < geom.stages - 1; ++i) issue(i);
+  for (int i = 0; i < ntile; ++i) {
+    cp_async_wait_pending(geom.stages - 2);
+    __syncthreads();  // tile i staged by every thread; tile i - 1's stage free
+    issue(i + geom.stages - 1);
+    const int slot = i % geom.stages, p0 = (t_beg + i) * TP, n_t = min(TP, P - p0);
+    const T* tile = reinterpret_cast<const T*>(sm.tiles + (size_t)slot * tile_bytes);
+    const bool in = t < n_t;
+    bool ok = in;
+    if constexpr (MASKED) ok = in && mask_set(sm, slot);
+    float proj = 0.f, q = 0.f;
+    if (ok)
+      project<MODE == kFirst, CENTER>(
+          sm, S, [&](int s) { return value(tile, s, p0, t); }, proj, q);
+    float ru, mf;
+    pixel_update<MODE>(sm, slot * kRoundThreads + t, ok, proj, q, norm, ru, mf);
     if (in) {
-      const long long i = (long long)b * P + p;
-      if (MODE == kFirst) r[i] = ru;
-      mf_out[i] = MODE == kFinal ? mf * kScaling : mf;
+      const long long i_px = (long long)b * P + p0 + t;
+      if (MODE == kFirst) r[i_px] = ru;
+      mf_out[i_px] = MODE == kFinal ? mf * kScaling : mf;
     }
     if (MODE == kFinal) continue;
     const float g = cov_scale * (ru * mf);  // 0 where the pixel does not count
     gsum += g;
     gsq = fmaf(g, g, gsq);
-    g_d[t] = BF16_DOTS ? bf16_round(g) : g;
+    sm.g[t] = BF16_DOTS ? bf16_round(g) : g;
+    sm.ok[t] = ok;
     __syncthreads();
-    if (t < S) {
-      const T* row = xt + t * LD;
-      for (int k = 0; k < TP; ++k) uacc = fmaf(to_f32(row[k]), g_d[k], uacc);
-    }
-    __syncthreads();
+    accumulate_u<CENTER>(
+        sm, S, [&](int s, int j) { return value(tile, s, p0, lane + 32 * j); }, u);
   }
+  cp_async_wait_pending(0);
   if (MODE == kFinal) return;
-
-  gsum = warp_sum(gsum);
-  gsq = warp_sum(gsq);
-  if (t % 32 == 0) {
-    red[0][t / 32] = gsum;
-    red[1][t / 32] = gsq;
-  }
-  __syncthreads();
-  float* rec = partial + ((long long)b * nchunks + c) * (S + 2);
-  if (t < S) rec[t] = uacc;
-  if (t == 0) {
-    float sum_g = 0.f, sum_g2 = 0.f;
-    for (int w = 0; w < TP / 32; ++w) {
-      sum_g += red[0][w];
-      sum_g2 += red[1][w];
-    }
-    rec[S] = sum_g;
-    rec[S + 1] = sum_g2;
-  }
+  write_round_record(sm, partial + ((long long)b * nchunks + c) * (S + 2), u, gsum, gsq, S);
 }
 
 // ---------------------------------------------------------------------------
@@ -441,11 +748,30 @@ __device__ void glue_block(const float* base, int nchunks, const float* __restri
 }
 
 // Raise a kernel's dynamic shared-memory limit when it asks for more than the
-// default 48 KB (the f32 staged tile at S > 93).
+// default 48 KB (the rounds' tile rings).
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T>
+bool stream_geom_ok(const RoundGeom& g, const void* xs, int S, int P, int nchunks) {
+  if (g.tile_rows != 1 || g.tile_cols != kRoundThreads) return false;
+  if (g.aligned && ((size_t)P * sizeof(T) % 16 != 0 || reinterpret_cast<size_t>(xs) % 16 != 0))
+    return false;
+  return round_geom_ok(g, (P + kRoundThreads - 1) / kRoundThreads, nchunks,
+                       stream_tile_bytes<T>(S));
+}
+
+// Launch a round kernel on its (nchunks, nb) grid with the geometry's ring.
+template <typename K, typename... Args>
+cudaError_t launch_round_kernel(K kernel, dim3 grid, const RoundGeom& g, cudaStream_t st,
+                                Args... args) {
+  const cudaError_t err = allow_smem(kernel, (size_t)g.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kRoundThreads, g.smem, st>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace

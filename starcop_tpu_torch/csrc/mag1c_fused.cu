@@ -80,17 +80,17 @@ blocked_transpose_shw_kernel(const float* __restrict__ x, float* __restrict__ ou
 // the optional (B, P) valid row as the mask (H = 1, W = B*P, step = P). bf16
 // is storage only (x_ref.astype(f32), :412): no bf16 dots.
 // ---------------------------------------------------------------------------
-template <typename T, int MODE, bool MASKED, bool CENTER>
-__global__ void __launch_bounds__(kRoundBspThreads)
+template <typename T, int MODE, bool MASKED, bool CENTER, bool VEC16>
+__global__ void __launch_bounds__(kRoundThreads, 4)
 fused_iter_woodbury_kernel(const T* __restrict__ xs, const unsigned char* __restrict__ valid,
                            const float* __restrict__ m0, const float* __restrict__ carry,
                            const float* __restrict__ r, const float* __restrict__ mf_in,
                            float* __restrict__ mf_out, float* __restrict__ partial, int S, int R,
-                           int P, int chunk, int nchunks, float cov_scale) {
+                           int P, RoundGeom geom, int nchunks, float cov_scale) {
   // r is only read in PASS and LOOP.
-  round_bsp_chunk<T, MODE, MASKED, false, CENTER>(xs, valid, m0, carry, const_cast<float*>(r),
-                                                  mf_in, mf_out, partial, gridDim.y * P, S, R, P,
-                                                  P, chunk, nchunks, cov_scale);
+  round_bsp_chunk<T, MODE, MASKED, false, CENTER, VEC16>(
+      xs, valid, m0, carry, const_cast<float*>(r), mf_in, mf_out, partial, gridDim.y * P, S, R, P,
+      P, geom, nchunks, cov_scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -223,21 +223,24 @@ fused_iter_cholesky_partial_kernel(int first, const T* __restrict__ xs,
 // caller's (B, P) weights exclude is 0 in the stream, so it gets R = 1 and
 // mf = 0 (the regulariser pins it, as the TPU kernels do without a weight).
 // ---------------------------------------------------------------------------
-template <typename T, int MODE, bool BF16_DOTS, bool CENTER>
-__global__ void __launch_bounds__(kRoundBspThreads)
+template <typename T, int MODE, bool BF16_DOTS, bool CENTER, bool VEC16>
+__global__ void __launch_bounds__(kRoundThreads, 4)
 filter_round_mono_kernel(const T* __restrict__ xs, const float* __restrict__ m0,
                          const float* __restrict__ carry_in, float* __restrict__ r,
                          const float* __restrict__ mf_in, float* __restrict__ mf_out,
                          float* __restrict__ partial, float* __restrict__ carry_out,
                          unsigned int* __restrict__ counter, const float* __restrict__ k0_all,
                          const float* __restrict__ tmpl, const float* __restrict__ nin_all, int S,
-                         int R, int P, int chunk, int nchunks, float cov_scale, float alpha) {
-  static_assert(kRoundBspThreads == kGlueThreads, "the last CTA runs the glue");
-  round_bsp_chunk<T, MODE, false, BF16_DOTS, CENTER>(xs, nullptr, m0, carry_in, r, mf_in, mf_out,
-                                                     partial, 0, S, R, P, P, chunk, nchunks,
-                                                     cov_scale);
+                         int R, int P, RoundGeom geom, int nchunks, float cov_scale, float alpha) {
+  static_assert(kRoundThreads == kGlueThreads, "the last CTA runs the glue");
+  round_bsp_chunk<T, MODE, false, BF16_DOTS, CENTER, VEC16>(xs, nullptr, m0, carry_in, r, mf_in,
+                                                            mf_out, partial, 0, S, R, P, P, geom,
+                                                            nchunks, cov_scale);
   if constexpr (MODE != kFinal) {
-    __shared__ GlueSmem g;
+    // The glue's scratch reuses the round's ring (drained, no longer read):
+    // no static GlueSmem, so the ring keeps its CTAs per SM.
+    extern __shared__ __align__(16) unsigned char round_smem[];
+    GlueSmem& g = *reinterpret_cast<GlueSmem*>(round_smem);
     __shared__ bool last;
     const int b = blockIdx.y;
     __threadfence();  // this CTA's record before its count
@@ -254,34 +257,37 @@ filter_round_mono_kernel(const T* __restrict__ xs, const float* __restrict__ m0,
   }
 }
 
-template <typename T, int MODE, bool MASKED, bool CENTER>
-cudaError_t launch_woodbury(const void* xs, const unsigned char* valid, const float* m0,
-                            const float* carry, const float* r, const float* mf_in, float* mf_out,
-                            float* partial, int S, int R, int P, int chunk, int nchunks, int nb,
-                            float cov_scale, cudaStream_t st) {
-  auto kernel = fused_iter_woodbury_kernel<T, MODE, MASKED, CENTER>;
-  const size_t smem = round_bsp_smem<T>(S);
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(nchunks, nb), kRoundBspThreads, smem, st>>>(
-      static_cast<const T*>(xs), valid, m0, carry, r, mf_in, mf_out, partial, S, R, P, chunk,
-      nchunks, cov_scale);
-  return cudaGetLastError();
+template <typename T, bool MASKED, bool CENTER, bool VEC16>
+cudaError_t launch_woodbury_vec(int first, const T* xs, const unsigned char* valid,
+                                const float* m0, const float* carry, const float* r,
+                                const float* mf_in, float* mf_out, float* partial, int S, int R,
+                                int P, const RoundGeom& g, int nchunks, int nb, float cov_scale,
+                                cudaStream_t st) {
+  const dim3 grid(nchunks, nb);
+  if (first)
+    return launch_round_kernel(fused_iter_woodbury_kernel<T, kPass, MASKED, CENTER, VEC16>, grid,
+                               g, st, xs, valid, m0, carry, r, mf_in, mf_out, partial, S, R, P,
+                               g, nchunks, cov_scale);
+  return launch_round_kernel(fused_iter_woodbury_kernel<T, kLoop, MASKED, CENTER, VEC16>, grid, g,
+                             st, xs, valid, m0, carry, r, mf_in, mf_out, partial, S, R, P, g,
+                             nchunks, cov_scale);
 }
 
 template <typename T, bool MASKED, bool CENTER>
-cudaError_t launch_woodbury_mode(int first, const void* xs, const unsigned char* valid,
+cudaError_t launch_woodbury_mode(int first, const void* xs_raw, const unsigned char* valid,
                                  const float* m0, const float* carry, const float* r,
                                  const float* mf_in, float* mf_out, float* partial, int S, int R,
-                                 int P, int chunk, int nchunks, int nb, float cov_scale,
+                                 int P, const RoundGeom& g, int nchunks, int nb, float cov_scale,
                                  cudaStream_t st) {
-  if (first)
-    return launch_woodbury<T, kPass, MASKED, CENTER>(xs, valid, m0, carry, r, mf_in, mf_out,
-                                                     partial, S, R, P, chunk, nchunks, nb,
-                                                     cov_scale, st);
-  return launch_woodbury<T, kLoop, MASKED, CENTER>(xs, valid, m0, carry, r, mf_in, mf_out,
-                                                   partial, S, R, P, chunk, nchunks, nb,
-                                                   cov_scale, st);
+  const T* xs = static_cast<const T*>(xs_raw);
+  if (!stream_geom_ok<T>(g, xs, S, P, nchunks)) return cudaErrorInvalidValue;
+  if (g.aligned)
+    return launch_woodbury_vec<T, MASKED, CENTER, true>(first, xs, valid, m0, carry, r, mf_in,
+                                                        mf_out, partial, S, R, P, g, nchunks, nb,
+                                                        cov_scale, st);
+  return launch_woodbury_vec<T, MASKED, CENTER, false>(first, xs, valid, m0, carry, r, mf_in,
+                                                       mf_out, partial, S, R, P, g, nchunks, nb,
+                                                       cov_scale, st);
 }
 
 template <int TS>
@@ -302,27 +308,50 @@ cudaError_t launch_cholesky(int first, const void* xs, int f32, const unsigned c
   return cudaGetLastError();
 }
 
-template <typename T, int MODE, bool BF16_DOTS, bool CENTER>
-cudaError_t launch_mono(const void* xs, const float* m0, const float* carry_in, float* r,
-                        const float* mf_in, float* mf_out, float* partial, float* carry_out,
-                        unsigned int* counter, const float* k0, const float* tmpl,
-                        const float* nin, int S, int R, int P, int chunk, int nchunks, int nb,
-                        float cov_scale, float alpha, cudaStream_t st) {
-  auto kernel = filter_round_mono_kernel<T, MODE, BF16_DOTS, CENTER>;
-  const size_t smem = round_bsp_smem<T>(S);
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(nchunks, nb), kRoundBspThreads, smem, st>>>(
-      static_cast<const T*>(xs), m0, carry_in, r, mf_in, mf_out, partial, carry_out, counter, k0,
-      tmpl, nin, S, R, P, chunk, nchunks, cov_scale, alpha);
-  return cudaGetLastError();
+template <typename T, bool BF16_DOTS, bool CENTER, bool VEC16>
+cudaError_t launch_mono_vec(int mode, const T* xs, const float* m0, const float* carry_in,
+                            float* r, const float* mf_in, float* mf_out, float* partial,
+                            float* carry_out, unsigned int* counter, const float* k0,
+                            const float* tmpl, const float* nin, int S, int R, int P,
+                            const RoundGeom& g, int nchunks, int nb, float cov_scale, float alpha,
+                            cudaStream_t st) {
+  const dim3 grid(nchunks, nb);
+#define STARCOP_MONO(MODE)                                                                      \
+  return launch_round_kernel(filter_round_mono_kernel<T, MODE, BF16_DOTS, CENTER, VEC16>, grid, \
+                             g, st, xs, m0, carry_in, r, mf_in, mf_out, partial, carry_out,     \
+                             counter, k0, tmpl, nin, S, R, P, g, nchunks, cov_scale, alpha)
+  if (mode == kFirst) STARCOP_MONO(kFirst);
+  if (mode == kLoop) STARCOP_MONO(kLoop);
+  STARCOP_MONO(kFinal);
+#undef STARCOP_MONO
 }
 
-template <typename T, bool BF16_DOTS, bool CENTER, typename... Args>
-cudaError_t launch_mono_mode(int mode, Args... args) {
-  if (mode == kFirst) return launch_mono<T, kFirst, BF16_DOTS, CENTER>(args...);
-  if (mode == kLoop) return launch_mono<T, kLoop, BF16_DOTS, CENTER>(args...);
-  return launch_mono<T, kFinal, BF16_DOTS, CENTER>(args...);
+template <typename T, bool BF16_DOTS, bool CENTER>
+cudaError_t launch_mono_mode(int mode, const void* xs_raw, const float* m0,
+                             const float* carry_in, float* r, const float* mf_in, float* mf_out,
+                             float* partial, float* carry_out, unsigned int* counter,
+                             const float* k0, const float* tmpl, const float* nin, int S, int R,
+                             int P, const RoundGeom& g, int nchunks, int nb, float cov_scale,
+                             float alpha, cudaStream_t st) {
+  const T* xs = static_cast<const T*>(xs_raw);
+  if (!stream_geom_ok<T>(g, xs, S, P, nchunks) || (size_t)g.smem < sizeof(GlueSmem))
+    return cudaErrorInvalidValue;
+  if (g.aligned)
+    return launch_mono_vec<T, BF16_DOTS, CENTER, true>(mode, xs, m0, carry_in, r, mf_in, mf_out,
+                                                       partial, carry_out, counter, k0, tmpl, nin,
+                                                       S, R, P, g, nchunks, nb, cov_scale, alpha,
+                                                       st);
+  return launch_mono_vec<T, BF16_DOTS, CENTER, false>(mode, xs, m0, carry_in, r, mf_in, mf_out,
+                                                      partial, carry_out, counter, k0, tmpl, nin,
+                                                      S, R, P, g, nchunks, nb, cov_scale, alpha,
+                                                      st);
+}
+
+// fused_iter's operands: the stream (nb, R, P) with S <= R live bands,
+// stored f32 (f32 != 0) or bf16; valid (nb, P) uint8 or nullptr; center
+// (f32 only, unmasked) subtracts m0 from the raw stream.
+bool fused_iter_args_ok(int f32, const unsigned char* valid, int center, int S, int R) {
+  return S >= 1 && S <= kMaxBands && R >= S && (f32 || !center) && (valid == nullptr || !center);
 }
 
 }  // namespace
@@ -341,33 +370,40 @@ int starcop_blocked_transpose_shw(const float* x, float* out, int S, int R, int 
   return (int)cudaGetLastError();
 }
 
-// One fused_iter pass over the stream (nb, R, P) with S <= R live bands,
-// stored f32 (f32 != 0) or bf16; valid (nb, P) uint8 or nullptr; center
-// (f32 only, unmasked) subtracts m0 from the raw stream. woodbury: partial is
-// (nb, nchunks, S + 2), one launch; else partial is (nb, nchunks,
-// 1 + S + S*S) and mean (nb, S), cov (nb, S, S) come from a second launch.
-int starcop_fused_iter(int woodbury, int first, const void* xs, int f32,
-                       const unsigned char* valid, int center, const float* m0,
-                       const float* carry, const float* r, const float* mf_in, float* mf_out,
-                       float* partial, float* mean, float* cov, int nb, int S, int R, int P,
-                       int chunk, int nchunks, float cov_scale, void* stream) {
+// One fused_iter WOODBURY pass: partial is (nb, nchunks, S + 2), one launch
+// with the round geometry geom (the six RoundGeom fields).
+int starcop_fused_iter_woodbury(int first, const void* xs, int f32, const unsigned char* valid,
+                                int center, const float* m0, const float* carry, const float* r,
+                                const float* mf_in, float* mf_out, float* partial, int nb, int S,
+                                int R, int P, const int* geom, int nchunks, float cov_scale,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S < 1 || S > kMaxBands || R < S || (!f32 && center) || (valid != nullptr && center))
-    return (int)cudaErrorInvalidValue;
-  if (woodbury) {
-#define STARCOP_WOODBURY(T, MASKED, CENTER)                                                   \
-  return (int)launch_woodbury_mode<T, MASKED, CENTER>(first, xs, valid, m0, carry, r, mf_in,  \
-                                                      mf_out, partial, S, R, P, chunk,        \
-                                                      nchunks, nb, cov_scale, st)
-    if (f32) {
-      if (valid != nullptr) STARCOP_WOODBURY(float, true, false);
-      if (center) STARCOP_WOODBURY(float, false, true);
-      STARCOP_WOODBURY(float, false, false);
-    }
-    if (valid != nullptr) STARCOP_WOODBURY(__nv_bfloat16, true, false);
-    STARCOP_WOODBURY(__nv_bfloat16, false, false);
-#undef STARCOP_WOODBURY
+  if (!fused_iter_args_ok(f32, valid, center, S, R)) return (int)cudaErrorInvalidValue;
+  const RoundGeom g = round_geom_from(geom);
+#define STARCOP_WOODBURY(T, MASKED, CENTER)                                                  \
+  return (int)launch_woodbury_mode<T, MASKED, CENTER>(first, xs, valid, m0, carry, r, mf_in, \
+                                                      mf_out, partial, S, R, P, g, nchunks,  \
+                                                      nb, cov_scale, st)
+  if (f32) {
+    if (valid != nullptr) STARCOP_WOODBURY(float, true, false);
+    if (center) STARCOP_WOODBURY(float, false, true);
+    STARCOP_WOODBURY(float, false, false);
   }
+  if (valid != nullptr) STARCOP_WOODBURY(__nv_bfloat16, true, false);
+  STARCOP_WOODBURY(__nv_bfloat16, false, false);
+#undef STARCOP_WOODBURY
+}
+
+// One fused_iter CHOLESKY pass: partial is (nb, nchunks, 1 + S + S*S) over
+// chunks of `chunk` pixels, then mean (nb, S), cov (nb, S, S) come from a
+// second launch.
+int starcop_fused_iter_cholesky(int first, const void* xs, int f32, const unsigned char* valid,
+                                int center, const float* m0, const float* carry, const float* r,
+                                const float* mf_in, float* mf_out, float* partial, float* mean,
+                                float* cov, int nb, int S, int R, int P, int chunk, int nchunks,
+                                float cov_scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!fused_iter_args_ok(f32, valid, center, S, R)) return (int)cudaErrorInvalidValue;
   const float* m0c = center ? m0 : nullptr;
   cudaError_t err;
   switch ((S + 15) / 16) {
@@ -395,29 +431,31 @@ int starcop_fused_iter(int woodbury, int first, const void* xs, int f32,
 
 // One mono round over the stream (nb, R, P): FIRST / LOOP write carry_out,
 // FINAL writes mf * 1e5 only. f32: center subtracts m0 from a raw stream;
-// bf16: the centred stream with bf16 dots. counter (nb,) must be 0.
+// bf16: the centred stream with bf16 dots. counter (nb,) must be 0. geom:
+// the six RoundGeom fields.
 int starcop_filter_round_mono(int mode, const void* xs, int f32, int center, const float* m0,
                               const float* carry_in, float* r, const float* mf_in, float* mf_out,
                               float* partial, float* carry_out, unsigned int* counter,
                               const float* k0, const float* tmpl, const float* nin, int nb,
-                              int S, int R, int P, int chunk, int nchunks, float cov_scale,
+                              int S, int R, int P, const int* geom, int nchunks, float cov_scale,
                               float alpha, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const RoundGeom g = round_geom_from(geom);
   if (mode < kFirst || mode > kFinal || S < 1 || S > kGlueThreads || R < S || (!f32 && center))
     return (int)cudaErrorInvalidValue;
   if (f32 && center)
     return (int)launch_mono_mode<float, false, true>(mode, xs, m0, carry_in, r, mf_in, mf_out,
                                                      partial, carry_out, counter, k0, tmpl, nin,
-                                                     S, R, P, chunk, nchunks, nb, cov_scale,
+                                                     S, R, P, g, nchunks, nb, cov_scale,
                                                      alpha, st);
   if (f32)
     return (int)launch_mono_mode<float, false, false>(mode, xs, m0, carry_in, r, mf_in, mf_out,
                                                       partial, carry_out, counter, k0, tmpl, nin,
-                                                      S, R, P, chunk, nchunks, nb, cov_scale,
+                                                      S, R, P, g, nchunks, nb, cov_scale,
                                                       alpha, st);
   return (int)launch_mono_mode<__nv_bfloat16, true, false>(mode, xs, m0, carry_in, r, mf_in,
                                                            mf_out, partial, carry_out, counter,
-                                                           k0, tmpl, nin, S, R, P, chunk,
+                                                           k0, tmpl, nin, S, R, P, g,
                                                            nchunks, nb, cov_scale, alpha, st);
 }
 

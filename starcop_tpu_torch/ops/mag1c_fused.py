@@ -52,7 +52,9 @@ from starcop_tpu_torch.ops.mag1c_kernels import (
     fused_iter,
     init_stats_stream,
     mono_counters,
+    mono_geometry,
     pack_carry,
+    stream_geometry,
     stream_rows,
 )
 
@@ -115,7 +117,7 @@ def _mono_filter(xs, m0, k0, tgt0, cit0, norm0, template, n, *, num_iter, alpha,
     block counters. Returns (mf * 1e5, R)."""
     rnd = functools.partial(filter_round_mono, xs, m0, template=template, k0=k0, n=n,
                             alpha=alpha, cov_scale=cov_scale, center=center,
-                            counter=mono_counters(xs))
+                            counter=mono_counters(xs), geom=mono_geometry(xs, m0.shape[1]))
     mf, r, carry = rnd(pack_carry(tgt0, cit0, norm0), None, None, mode=FIRST)
     for _ in range(num_iter - 1):
         mf, _, carry = rnd(carry, r, mf, mode=LOOP)
@@ -134,7 +136,8 @@ def _fused_iter_filter(xs, valid, m0, k0, tgt0, cit0, norm0, template, n, *, woo
     # The first pass reads only the target: mu = 0, cit = 0, norm = 1 as JAX.
     carry = pack_carry(tgt0, torch.zeros_like(cit0), torch.ones_like(norm0))
     rnd = functools.partial(fused_iter, xs, valid, m0, r=r, woodbury=woodbury,
-                            cov_scale=cov_scale, center=center)
+                            cov_scale=cov_scale, center=center,
+                            geom=stream_geometry(xs, m0.shape[1]) if woodbury else None)
     if woodbury:
         glue = functools.partial(filter_glue, m0=m0, template=template, k0=k0, n=n, alpha=alpha)
     else:
@@ -237,7 +240,8 @@ def acrwl1mf_fused(
             # A weight row is the rounds' (H, W) mask with H = 1, step = P.
             mask = None if glue == "resident" or valid is None else valid.reshape(1, -1)
             rnd = functools.partial(filter_round_bsp, xs, mask, p, m0, cov_scale=kw["cov_scale"],
-                                    bf16_dots=bf16 and glue == "fused", center=center)
+                                    bf16_dots=bf16 and glue == "fused", center=center,
+                                    geom=stream_geometry(xs, s))
             mf, r = _filter_sequence(rnd, filter_glue, *base, num_iter=num_iter, alpha=alpha)
         else:
             mf, r = _fused_iter_filter(xs, valid, *base, woodbury=glue == "woodbury",

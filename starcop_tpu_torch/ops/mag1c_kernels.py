@@ -89,7 +89,7 @@ from __future__ import annotations
 
 import functools
 import threading
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -105,7 +105,127 @@ from starcop_tpu_torch.ops.mag1c import (
 
 FIRST, LOOP, FINAL = 0, 1, 2
 INIT_CHUNK = 2048   # pixels of one block per init_stats[_bsp] CTA
-ROUND_CHUNK = 1024  # pixels of one block per filter_round[_bsp] CTA
+
+# The streaming rounds' launch geometry (csrc/mag1c_common.cuh, "The
+# streaming rounds"): a CTA of ROUND_THREADS threads, one pixel each per tile,
+# a ring of 2..MAX_STAGES tiles in shared memory.
+ROUND_THREADS = 128
+MAX_BANDS = 128
+MAX_STAGES = 4
+# The ring a CTA aims at, so that four share an SM: at S = 50 an f32 tile
+# ring holds 2 stages, a bf16 one 3.
+RING_BYTES = 48 * 1024
+SMEM_PER_SM = 228 * 1024       # H100: shared memory of an SM
+CTA_RESERVED_SMEM = 1024       # what the runtime keeps per CTA
+ROUND_CTAS_PER_SM = 4          # __launch_bounds__(128, 4): <= 128 registers a thread
+PIX_STAGE_BYTES = 3 * 4 * ROUND_THREADS + ROUND_THREADS  # R, mf_prev, mask word, mask position
+ROUND_FIXED_BYTES = 4 * (2 * ROUND_THREADS + 2 * MAX_BANDS + 16)
+BF16_ROW_PITCH = ROUND_THREADS + 8  # staged bf16 stream row, 272 bytes
+MONO_STATIC_SMEM = 16          # filter_round_mono's static flag (its glue reuses the ring)
+DEFAULT_SM_COUNT = 132         # H100 SXM; a CUDA device reports its own
+
+
+class RoundGeometry(NamedTuple):
+    """The launch geometry of one round kernel; ``op_args`` is what the ops
+    take (the kernels check it against the shapes).
+
+    A tile is ``tile_rows`` x ``tile_cols`` pixels (on the cube: image rows x
+    columns of a block; on the stream: 1 x ROUND_THREADS contiguous pixels),
+    a chunk ``tiles_per_chunk`` consecutive tiles, one CTA per (chunk,
+    block), ``nchunks`` per block. ``aligned`` selects 16-byte copies of the
+    tile values (every tile row starts and ends on 16 bytes), else 4-byte
+    ones."""
+
+    tile_rows: int
+    tile_cols: int
+    tiles_per_block: int
+    tiles_per_chunk: int
+    nchunks: int
+    stages: int
+    aligned: bool
+    smem_bytes: int      # dynamic shared memory of a CTA
+    static_smem: int     # its static shared memory
+    ctas_per_sm: int
+
+    def op_args(self):
+        return [self.tile_rows, self.tile_cols, self.tiles_per_chunk, self.stages,
+                int(self.aligned), self.smem_bytes]
+
+
+def _chunk_tiles(nb: int, tiles: int, unit: int, slots: int, stages: int) -> int:
+    """Tiles per chunk, a multiple of ``unit``: the fewest waves of ``slots``
+    resident CTAs times a CTA's work (its tiles plus the ring's fill), so the
+    last wave runs (nearly) full. Every chunk holds at least one tile."""
+    best = None
+    for k in range(unit, -(-tiles // unit) * unit + 1, unit):
+        n = -(-tiles // k)
+        cost = -(-nb * n // slots) * (k + stages)
+        if best is None or cost < best[0]:
+            best = (cost, k)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def round_geometry(layout: str, nb: int, p: int, s: int, *, step: int = 0, width: int = 0,
+                   elem_bytes: int = 4, aligned_ptr: bool = True,
+                   sm_count: int = DEFAULT_SM_COUNT, static_smem: int = 0) -> RoundGeometry:
+    """The geometry of ``filter_round[_masked]`` (``layout="hws"``: the
+    (H, width, s) cube, P = H * step) or of a round on the blocked stream
+    (``"bsp"``: ``filter_round_bsp``, ``fused_iter`` WOODBURY,
+    ``filter_round_mono``; elements of ``elem_bytes``) for ``nb`` blocks of
+    ``p`` pixels. ``aligned_ptr``: the cube or stream starts on 16 bytes.
+    ``static_smem``: the kernel's static shared memory (mono's glue)."""
+    if not 1 <= s <= MAX_BANDS:
+        raise ValueError(f"band count {s} outside [1, {MAX_BANDS}]")
+    if layout == "hws":
+        h = p // step
+        tile_cols = min(step, ROUND_THREADS)
+        tile_rows = max(1, ROUND_THREADS // step) if step <= ROUND_THREADS else 1
+        nseg = -(-step // tile_cols)
+        tiles, unit = -(-h // tile_rows) * nseg, nseg
+        tile_bytes = 4 * tile_rows * (-(-tile_cols * s // 4) * 4)
+        aligned = aligned_ptr and (width * s) % 4 == 0 and (step * s) % 4 == 0
+    elif layout == "bsp":
+        tile_rows, tile_cols = 1, ROUND_THREADS
+        tiles, unit = -(-p // ROUND_THREADS), 1
+        tile_bytes = s * (BF16_ROW_PITCH * 2 if elem_bytes == 2 else ROUND_THREADS * 4)
+        aligned = aligned_ptr and (p * elem_bytes) % 16 == 0
+    else:
+        raise ValueError(f"layout must be 'hws' or 'bsp', got {layout!r}")
+    stage = tile_bytes + PIX_STAGE_BYTES
+    stages = max(2, min(MAX_STAGES, RING_BYTES // stage))
+    smem = stages * stage + ROUND_FIXED_BYTES
+    ctas = min(ROUND_CTAS_PER_SM, SMEM_PER_SM // (smem + static_smem + CTA_RESERVED_SMEM))
+    k = _chunk_tiles(nb, tiles, unit, max(1, ctas) * sm_count, stages)
+    return RoundGeometry(tile_rows, tile_cols, tiles, k, -(-tiles // k), stages, aligned, smem,
+                         static_smem, ctas)
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).multi_processor_count
+    return DEFAULT_SM_COUNT
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
+def stream_geometry(xs: torch.Tensor, s: int, *, static_smem: int = 0) -> RoundGeometry:
+    """``round_geometry`` of a round over the blocked stream xs (nb, R, P)
+    with s live bands."""
+    nb, _, p = xs.shape
+    return round_geometry("bsp", nb, p, s, elem_bytes=xs.element_size(),
+                          aligned_ptr=_aligned16(xs), sm_count=_sm_count(xs.device),
+                          static_smem=static_smem)
+
+
+def cube_geometry(x: torch.Tensor, nb: int, step: int) -> RoundGeometry:
+    """``round_geometry`` of ``filter_round[_masked]`` on the (H, W, S) cube x."""
+    h, w, s = x.shape
+    return round_geometry("hws", nb, h * step, s, step=step, width=w, aligned_ptr=_aligned16(x),
+                          sm_count=_sm_count(x.device))
+
 
 # The masked rounds count their FIRST launches (row 5 of the TPU kernel
 # table) apart from their LOOP and FINAL ones (row 6), the mono rounds their
@@ -514,41 +634,45 @@ def init_stats_masked(x: torch.Tensor, valid: torch.Tensor, nb: int, step: int):
     return out
 
 
-def _launch_round(op, args, x, nb, step, m0, carry, r, mf_prev, mode, cov_scale):
+def _launch_round(op, args, x, nb, step, m0, carry, r, mf_prev, mode, cov_scale, geom):
     h, _, s = x.shape
     p = h * step
-    nchunks = -(-p // ROUND_CHUNK)
+    if geom is None:
+        geom = cube_geometry(x, nb, step)
     mf = torch.empty((nb, p), dtype=torch.float32, device=x.device)
     if mode == FIRST:
         r = torch.empty_like(mf)
         mf_prev = mf  # not read in the first round
-    stats = torch.empty((nb, nchunks, s + 2), dtype=torch.float32, device=x.device)
-    op(mode, *args, m0, carry, r, mf_prev, mf, stats, nb, step, ROUND_CHUNK, float(cov_scale),
+    stats = torch.empty((nb, geom.nchunks, s + 2), dtype=torch.float32, device=x.device)
+    op(mode, *args, m0, carry, r, mf_prev, mf, stats, nb, step, geom.op_args(), float(cov_scale),
        _stream(x))
     return mf, r, (None if mode == FINAL else stats)
 
 
-def filter_round(x, nb, step, m0, carry, r, mf_prev, *, mode, cov_scale=1.0):
+def filter_round(x, nb, step, m0, carry, r, mf_prev, *, mode, cov_scale=1.0, geom=None):
     """One streaming pass; see ``filter_round_plain``. On CUDA the stats
-    come back per pixel chunk, (nb, nchunks, S + 2)."""
+    come back per pixel chunk, (nb, nchunks, S + 2). ``geom``:
+    ``cube_geometry(x, nb, step)``, which a filter works out once for all
+    its rounds; made here when None."""
     if x.device.type == "cpu":
         return filter_round_plain(x, nb, step, m0, carry, r, mf_prev, mode=mode,
                                   cov_scale=cov_scale)
     out = _launch_round(_kernels().filter_round, (x,), x, nb, step, m0, carry, r, mf_prev,
-                        mode, cov_scale)
+                        mode, cov_scale, geom)
     _count("filter_round")
     return out
 
 
-def filter_round_masked(x, valid, nb, step, m0, carry, r, mf_prev, *, mode, cov_scale=1.0):
+def filter_round_masked(x, valid, nb, step, m0, carry, r, mf_prev, *, mode, cov_scale=1.0,
+                        geom=None):
     """One streaming pass of the weighted filter; see
     ``filter_round_masked_plain``. On CUDA the stats come back per pixel
-    chunk, (nb, nchunks, S + 2)."""
+    chunk, (nb, nchunks, S + 2). ``geom`` as ``filter_round``'s."""
     if x.device.type == "cpu":
         return filter_round_masked_plain(x, valid, nb, step, m0, carry, r, mf_prev, mode=mode,
                                          cov_scale=cov_scale)
     out = _launch_round(_kernels().filter_round_masked, (x, _mask_u8(valid)), x, nb, step, m0,
-                        carry, r, mf_prev, mode, cov_scale)
+                        carry, r, mf_prev, mode, cov_scale, geom)
     _count("filter_round_masked_first" if mode == FIRST else "filter_round_masked_loop")
     return out
 
@@ -601,22 +725,25 @@ def init_stats_bsp(xs: torch.Tensor, n: torch.Tensor):
 
 
 def filter_round_bsp(xs, valid, step, m0, carry, r, mf_prev, *, mode, cov_scale=1.0,
-                     bf16_dots=False, center=False):
+                     bf16_dots=False, center=False, geom=None):
     """One streaming pass over the blocked stream, bf16 or f32; see
     ``filter_round_bsp_plain``. On CUDA the stats come back per pixel chunk,
-    (nb, nchunks, S + 2)."""
+    (nb, nchunks, S + 2). ``geom``: ``stream_geometry(xs, S)``, which a
+    filter works out once for all its rounds; made here when None."""
     if xs.device.type == "cpu":
         return filter_round_bsp_plain(xs, valid, step, m0, carry, r, mf_prev, mode=mode,
                                       cov_scale=cov_scale, bf16_dots=bf16_dots, center=center)
     nb, _, p = xs.shape
+    if geom is None:
+        geom = stream_geometry(xs, m0.shape[1])
     mf = torch.empty((nb, p), dtype=torch.float32, device=xs.device)
     if mode == FIRST:
         r = torch.empty_like(mf)
         mf_prev = mf  # not read in the first round
-    stats = torch.empty((nb, -(-p // ROUND_CHUNK), m0.shape[1] + 2), dtype=torch.float32,
+    stats = torch.empty((nb, geom.nchunks, m0.shape[1] + 2), dtype=torch.float32,
                         device=xs.device)
     _kernels().filter_round_bsp(mode, xs, None if valid is None else _mask_u8(valid), bf16_dots,
-                                center, m0, carry, r, mf_prev, mf, stats, step, ROUND_CHUNK,
+                                center, m0, carry, r, mf_prev, mf, stats, step, geom.op_args(),
                                 float(cov_scale), _stream(xs))
     if valid is None:
         _count("filter_round_bsp_f32" if xs.dtype == torch.float32 else "filter_round_bsp")
@@ -652,11 +779,12 @@ def init_stats_stream(xs: torch.Tensor, s: int):
 
 
 def fused_iter(xs, valid, m0, carry, r, mf_prev, *, first, woodbury, cov_scale=1.0,
-               center=False):
+               center=False, geom=None):
     """One ``_fused_iter_kernel`` pass over the stream xs (nb, R, P), f32 or
     bf16; see ``fused_iter_plain``. On CUDA the WOODBURY stats come back per
-    pixel chunk, (nb, nchunks, S + 2); a CHOLESKY call is two launches (the
-    chunk records, then their f64 combine), as ``init_stats``."""
+    pixel chunk, (nb, nchunks, S + 2), with ``geom`` as ``filter_round_bsp``'s;
+    a CHOLESKY call is two launches (the chunk records, then their f64
+    combine), as ``init_stats``."""
     if xs.device.type == "cpu":
         return fused_iter_plain(xs, valid, m0, carry, r, mf_prev, first=first, woodbury=woodbury,
                                 cov_scale=cov_scale, center=center)
@@ -667,8 +795,11 @@ def fused_iter(xs, valid, m0, carry, r, mf_prev, *, first, woodbury, cov_scale=1
     args = (bool(first), xs, None if valid is None else _mask_u8(valid), center, m0, carry, r,
             mf_prev, mf)
     if woodbury:
-        stats = torch.empty((nb, -(-p // ROUND_CHUNK), s + 2), dtype=torch.float32, device=dev)
-        _kernels().fused_iter_woodbury(*args, stats, ROUND_CHUNK, float(cov_scale), _stream(xs))
+        if geom is None:
+            geom = stream_geometry(xs, s)
+        stats = torch.empty((nb, geom.nchunks, s + 2), dtype=torch.float32, device=dev)
+        _kernels().fused_iter_woodbury(*args, stats, geom.op_args(), float(cov_scale),
+                                       _stream(xs))
         _count("fused_iter_woodbury")
         return mf, stats
     partial = torch.empty((nb, -(-p // INIT_CHUNK), 1 + s + s * s), dtype=torch.float32,
@@ -688,12 +819,19 @@ def mono_counters(xs: torch.Tensor) -> torch.Tensor:
     return torch.zeros((xs.shape[0],), dtype=torch.int32, device=xs.device)
 
 
+def mono_geometry(xs: torch.Tensor, s: int) -> RoundGeometry:
+    """``stream_geometry`` of ``filter_round_mono`` (its static flag beside
+    the ring)."""
+    return stream_geometry(xs, s, static_smem=MONO_STATIC_SMEM)
+
+
 def filter_round_mono(xs, m0, carry, r, mf_prev, template, k0, n, *, mode, alpha,
-                      counter, cov_scale=1.0, center=False):
+                      counter, cov_scale=1.0, center=False, geom=None):
     """One mono round and, unless FINAL, the glue of every block in the same
     launch; see ``filter_round_mono_plain``. Returns (mf, R, the next carry
     or None). ``counter`` is ``mono_counters(xs)``, shared by the rounds of
-    one filter (the twin does not read it)."""
+    one filter (the twin does not read it); ``geom`` is ``mono_geometry(xs,
+    S)``, made here when None."""
     if xs.device.type == "cpu":
         return filter_round_mono_plain(xs, m0, carry, r, mf_prev, template, k0, n, mode=mode,
                                        alpha=alpha, cov_scale=cov_scale, center=center)
@@ -703,11 +841,12 @@ def filter_round_mono(xs, m0, carry, r, mf_prev, template, k0, n, *, mode, alpha
     if mode == FIRST:
         r = torch.empty_like(mf)
         mf_prev = mf  # not read in the first round
-    partial = torch.empty((nb, -(-p // ROUND_CHUNK), m0.shape[1] + 2), dtype=torch.float32,
-                          device=dev)
+    if geom is None:
+        geom = mono_geometry(xs, m0.shape[1])
+    partial = torch.empty((nb, geom.nchunks, m0.shape[1] + 2), dtype=torch.float32, device=dev)
     carry_out = torch.empty_like(carry)
     _kernels().filter_round_mono(mode, xs, center, m0, carry, r, mf_prev, mf, partial, carry_out,
-                                 counter, k0, template, _inverse_counts(n, m0), ROUND_CHUNK,
+                                 counter, k0, template, _inverse_counts(n, m0), geom.op_args(),
                                  float(cov_scale), float(alpha), _stream(xs))
     _count("filter_round_mono_first" if mode == FIRST else "filter_round_mono_loop")
     return mf, r, (None if mode == FINAL else carry_out)
@@ -795,7 +934,8 @@ def acrwl1mf_resident(
         m0, c0 = init_stats(x, nb, step)
         k0, tgt0, cit0, norm0 = _woodbury_base(c0, m0, tpl, alpha)
         rnd = functools.partial(filter_round, x, nb, step, m0,
-                                cov_scale=covariance_update_scaling)
+                                cov_scale=covariance_update_scaling,
+                                geom=cube_geometry(x, nb, step))
         return _filter_sequence(rnd, filter_glue, m0, k0.contiguous(), tgt0, cit0, norm0, tpl,
                                 x.shape[0] * step, num_iter=num_iter, alpha=alpha)
 
@@ -836,7 +976,8 @@ def acrwl1mf_masked(
         m0, c0 = init_stats_masked(x, valid, nb, step)
         k0, tgt0, cit0, norm0 = _woodbury_base(c0, m0, tpl, alpha)
         rnd = functools.partial(filter_round_masked, x, valid, nb, step, m0,
-                                cov_scale=covariance_update_scaling)
+                                cov_scale=covariance_update_scaling,
+                                geom=cube_geometry(x, nb, step))
         return _filter_sequence(rnd, filter_glue, m0, k0.contiguous(), tgt0, cit0, norm0, tpl,
                                 n, num_iter=num_iter, alpha=alpha)
 
@@ -887,7 +1028,8 @@ def acrwl1mf_resident_bsp(
         k0, tgt0, cit0, norm0 = _woodbury_base(c0, m0, tpl, alpha)
         xs = blocked_transpose(x, nb, step, stream_rows(x.shape[2]), m0)
         rnd = functools.partial(filter_round_bsp, xs, None, step, m0,
-                                cov_scale=covariance_update_scaling)
+                                cov_scale=covariance_update_scaling,
+                                geom=stream_geometry(xs, m0.shape[1]))
         return _filter_sequence(rnd, filter_glue, m0, k0.contiguous(), tgt0, cit0, norm0, tpl,
                                 x.shape[0] * step, num_iter=num_iter, alpha=alpha)
 
@@ -929,6 +1071,7 @@ def acrwl1mf_masked_bf16(
         c0r = init_stats_bsp(xs, n)
         k0, tgt0, cit0, norm0 = _woodbury_base(c0r[:, :s, :s], m0, tpl, alpha)
         rnd = functools.partial(filter_round_bsp, xs, valid, step, m0,
-                                cov_scale=covariance_update_scaling, bf16_dots=True)
+                                cov_scale=covariance_update_scaling, bf16_dots=True,
+                                geom=stream_geometry(xs, s))
         return _filter_sequence(rnd, filter_glue, m0, k0.contiguous(), tgt0, cit0, norm0, tpl,
                                 n, num_iter=num_iter, alpha=alpha)
