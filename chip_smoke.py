@@ -24,7 +24,13 @@ every hand-written kernel against its plain torch twin on the card:
      at 99 x 47 x 37 with a ragged last block; filter_round_bsp f32 / bf16,
      unmasked / masked, filter_round_mono and fused_iter WOODBURY on the
      stream of the 99 x 45 x 37 cube), each FIRST / LOOP / FINAL within 4x
-     the f32 twin's error against the f64 twin + 1e-6;
+     the f32 twin's error against the f64 twin + 1e-6; the statistics kernel
+     on odd geometries (init_stats at 99 x 45 x 37 step 15 and 60 x 50 x 128
+     step 25, init_stats_masked at 99 x 47 x 37 and 60 x 72 x 128 with a
+     ragged last block and a wholly invalid block) within 1e-5 of its f64
+     twin, the empty block at m0 = 0 and C0 = 0, reruns bitwise equal; and
+     filter_glue at S = 37 and S = 128 within 4x the f32 twin's error
+     against the f64 twin + 1e-6, bitwise equal on a rerun;
   5. emit_granule_to_mask on a seeded U-Net whose output spreads over
      (0, 1) and follows the filter (Kaiming-normal convolutions, randomised
      batch-norm statistics, the first layer's mag1c weights x MF_GAIN),
@@ -113,7 +119,14 @@ every hand-written kernel against its plain torch twin on the card:
      mono, woodbury and shw at bf16 meeting bf16_contract against their f32
      route; every filter bitwise equal on a rerun; each filter timed beside
      the Woodbury base of the stream's statistics, and the mono and resident
-     filters traced.
+     filters traced;
+ 14. mag1c_column_blocks(num_iter=0), the rmf-only result that JAX routes
+     to its plain filter, on the bench scene and on phase 7's served
+     granule, with launch counts zeroed just before and read just after
+     (no kernel launched), held against reference_oracle_acrwl1mf(num_iter=0)
+     in float64 (per block, over the valid pixels of the served granule):
+     finite, the fill value exactly at invalid pixels, threshold-500
+     agreement >= 0.999 with detections.
 
 Prints the card line, every kernel's registers, spills and static shared
 memory from the build ("ptxas:" lines), each timed kernel's share of
@@ -177,6 +190,27 @@ def cuda_ms(fn, *, reps: int = 12, inner: int = 1, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, reps: int = 30) -> float:
+    """Device time in ms per call of ``fn`` of the kernels whose name holds
+    ``kernel``, from torch.profiler over ``reps`` calls after a warm-up: the
+    kernel's own time. A CUDA-event timing of a few-microsecond kernel
+    measures the host's launch gaps instead."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key]
+    check(sum(e.count for e in events) == reps, f"{kernel}: {reps} launches traced")
+    return sum(e.self_device_time_total for e in events) / reps / 1e3
 
 
 def host_us(fn, n: int = 200) -> float:
@@ -1399,6 +1433,142 @@ def odd_geometry_phase(dev):
     return out
 
 
+def odd_stats_phase(dev):
+    """Phase 4d, the redesigned statistics kernel and glue on odd geometries:
+    init_stats at 99 x 45 x 37 (step 15, 4-byte copies) and 60 x 50 x 128
+    (step 25, 16-byte copies, one CTA per SM), init_stats_masked at 99 x 47 x
+    37 and 60 x 72 x 128 (a ragged last block, block 1 wholly invalid), each
+    within 1e-5 of its f64 twin on the blocks with valid pixels, m0 = 0 and
+    C0 = 0 on the empty one, bitwise equal on a rerun; then filter_glue at
+    S = 37 and S = 128 from the cube's own first round against its twins,
+    bitwise equal on a rerun. Returns {check: (rel err vs f64, max abs err)}."""
+    import torch
+
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+
+    rng = np.random.default_rng(4)
+
+    def cube(h, w, s):
+        base = rng.uniform(2.0, 6.0, (1, 1, s))
+        x = rng.uniform(0.5, 2.0, (h, w, 1)) * base * (1 + 0.02 * rng.normal(size=(h, w, s)))
+        return torch.as_tensor(x.astype(np.float32), device=dev)
+
+    def empty_block(h, w, step):
+        valid = torch.as_tensor(rng.random((h, w)) > 0.1, device=dev)
+        valid[:, step:2 * step] = False  # block 1
+        return valid
+
+    cases = (  # name, cube, mask, nb, step, 16-byte copies
+        ("init_stats 99x45x37 step 15", cube(99, 45, 37), None, 3, 15, False),
+        ("init_stats_masked 99x47x37 step 15", cube(99, 47, 37), empty_block(99, 47, 15), 4, 15,
+         False),
+        ("init_stats 60x50x128 step 25", cube(60, 50, 128), None, 2, 25, True),
+        ("init_stats_masked 60x72x128 step 25", cube(60, 72, 128), empty_block(60, 72, 25), 3,
+         25, True))
+    out, glue_inputs = {}, {}
+    for name, x, valid, nb, step, aligned in cases:
+        geom = mk.cube_stats_geometry(x, nb, step)
+        check(geom.aligned == aligned, f"{name}: {'16' if aligned else '4'}-byte copies "
+                                       f"({geom._asdict()})")
+        if valid is None:
+            run = lambda x=x, nb=nb, step=step: mk.init_stats(x, nb, step)  # noqa: E731
+            m0_64, c0_64 = mk.init_stats_plain(x.double(), nb, step)
+            m0_32, c0_32 = mk.init_stats_plain(x, nb, step)
+            live = torch.ones(nb, dtype=torch.bool, device=dev)
+        else:
+            run = lambda x=x, v=valid, nb=nb, step=step: mk.init_stats_masked(x, v, nb, step)  # noqa: E731
+            m0_64, c0_64 = mk.init_stats_masked_plain(x.double(), valid, nb, step)
+            m0_32, c0_32 = mk.init_stats_masked_plain(x, valid, nb, step)
+            live = mk.block_valid_counts(valid, nb, step) > 0
+        m0, c0 = run()
+        e = max(rel_err(m0[live], m0_64[live]), rel_err(c0[live], c0_64[live]))
+        empty = bool((m0[~live] == 0).all() and (c0[~live] == 0).all())
+        again = run()
+        check(e <= 1e-5 and empty and int((~live).sum()) == (valid is not None)
+              and torch.equal(again[0], m0) and torch.equal(again[1], c0),
+              f"odd geometry {name}: m0, C0 rel err vs f64 twin {e:.3e} (<= 1e-5), "
+              f"{int((~live).sum())} empty block(s) at m0 = 0, C0 = 0, rerun bitwise equal")
+        out[name] = (e, max(float((m0 - m0_32).abs().max()), float((c0 - c0_32).abs().max())))
+        if valid is None:
+            glue_inputs[x.shape[2]] = (x, nb, step, m0, c0)
+
+    d64 = lambda t: t.double()  # noqa: E731
+    for s, (x, nb, step, m0, c0) in glue_inputs.items():
+        tpl = -torch.abs(torch.sin(torch.linspace(0.3, 9.4, s, device=dev)))
+        k0, tgt0, cit0, norm0 = mk._woodbury_base(c0, m0, tpl, ALPHA)
+        k0 = k0.contiguous()
+        carry = mk.pack_carry(tgt0, cit0, norm0)
+        n = x.shape[0] * step
+        _, _, st = mk.filter_round(x, nb, step, m0, carry, None, None, mode=mk.FIRST)
+        kw = dict(m0=m0, template=tpl, k0=k0, n=n, alpha=ALPHA)
+        got = mk.filter_glue(st, carry, **kw)
+        err = held_against_twins(
+            f"odd geometry filter_glue at S = {s}", [got],
+            [mk.filter_glue_plain(st.sum(1, keepdim=True), carry, **kw)],
+            [mk.filter_glue_plain(d64(st).sum(1, keepdim=True), d64(carry), m0=d64(m0),
+                                  template=d64(tpl), k0=d64(k0), n=n, alpha=ALPHA)])
+        check(bool(torch.isfinite(got).all()) and torch.equal(mk.filter_glue(st, carry, **kw), got),
+              f"odd geometry filter_glue at S = {s}: finite, rerun bitwise equal")
+        out[f"filter_glue S={s}"] = err
+    print("odd geometry statistics: " + json.dumps(out), flush=True)
+    return out
+
+
+def num_iter0_phase(dev, x, template, granule):
+    """Phase 14: mag1c_column_blocks(num_iter=0) on the bench scene (x, on
+    the card) and on a served granule, launch counts zeroed just before and
+    read just after each (the rmf-only result is JAX's plain route: no
+    kernel), held against reference_oracle_acrwl1mf(num_iter=0) in float64
+    (on the served granule per block, over its valid pixels)."""
+    import torch
+
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.ops.mag1c import (
+        block_columns,
+        mag1c_column_blocks,
+        reference_oracle_acrwl1mf,
+        unblock_columns,
+    )
+
+    tpl = torch.as_tensor(template, dtype=torch.float32, device=dev)
+    kw = dict(num_iter=0, alpha=ALPHA, device=dev)
+    for name, cube, valid, step in (
+            ("bench scene", x, None, STEP),
+            ("served granule", torch.as_tensor(granule["cube"], device=dev),
+             torch.as_tensor(granule["valid"], device=dev), MSTEP)):
+        nb = -(-W // step)
+        mk.reset_launch_counts()
+        mf, alb = mag1c_column_blocks(cube, tpl, valid, column_step=step, **kw)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in mk.LAUNCH_COUNTS.items() if v}
+        ok = torch.ones((H, W), dtype=torch.bool, device=dev) if valid is None else valid
+        check(not launched and mf.is_cuda and mf.shape == (H, W)
+              and bool(torch.isfinite(mf[ok]).all() and torch.isfinite(alb[ok]).all())
+              and bool((mf[~ok] == FILL).all() and (alb[~ok] == FILL).all()),
+              f"num_iter=0 on the {name}: (H, W) on the card, finite at valid pixels, the fill "
+              f"value at invalid ones, no kernel launched ({launched})")
+        if valid is None:
+            xb = block_columns(cube.double(), nb, step).cpu().numpy()
+            ref = reference_oracle_acrwl1mf(xb, template, num_iter=0, alpha=ALPHA)[0][..., 0]
+        else:
+            ref = np.zeros((nb, H * step))
+            xm, keep = mk._masked_blocks(cube.double(), valid, nb, step)
+            xm, keep = xm.cpu().numpy(), keep.cpu().numpy()
+            for b in range(nb):
+                if keep[b].any():
+                    ref[b, keep[b]] = reference_oracle_acrwl1mf(
+                        xm[b][keep[b]][None], template, num_iter=0, alpha=ALPHA)[0][0, :, 0]
+        ref = unblock_columns(torch.as_tensor(ref), H, step)[:, :W].numpy()
+        got = mf.cpu().numpy()
+        okn = ok.cpu().numpy()
+        det = int((ref[okn] > 500).sum())
+        agree = float(((got[okn] > 500) == (ref[okn] > 500)).mean())
+        check(det > 0 and agree >= 0.999,
+              f"num_iter=0 on the {name}: threshold-500 agreement with the f64 oracle "
+              f"{agree:.6f} (>= 0.999) over {det} detections; mf correlation "
+              f"{corr(got[okn], ref[okn]):.7f}")
+
+
 def seeded_model(dev, seed: int = 0, bf16: bool = False):
     """A full-width SegmentationModel whose output spreads over (0, 1) and
     follows the filter: Kaiming-normal (fan-out) convolutions, zero conv
@@ -1582,11 +1752,16 @@ def main() -> int:
               f"{gh}x{gw}x{len(g['template'])} step {gstep}: init rel err {e_init:.2e}, "
               f"5-iteration mf correlation with f32 twin {corr(gmf, gmf32):.7f}")
 
-    # 4d. the redesigned rounds' narrow-copy paths on odd shapes -----------------
+    # 4d. the redesigned rounds' narrow-copy paths, the statistics kernel and the
+    # glue on odd shapes ------------------------------------------------------------
     odd_geometry_phase(dev)
+    odd_stats_phase(dev)
     for what, geom in (("filter_round (bench cube)", mk.cube_geometry(x, nb, STEP)),
                        ("filter_round_masked (served cube)",
-                        mk.cube_geometry(x, -(-W // MSTEP), MSTEP))):
+                        mk.cube_geometry(x, -(-W // MSTEP), MSTEP)),
+                       ("init_stats (bench cube)", mk.cube_stats_geometry(x, nb, STEP)),
+                       ("init_stats_masked (served cube)",
+                        mk.cube_stats_geometry(x, -(-W // MSTEP), MSTEP))):
         print(f"geometry {what}: {geom._asdict()}", flush=True)
 
     # 5. the slice: granule -> mask --------------------------------------------
@@ -1656,17 +1831,25 @@ def main() -> int:
             plain=lambda: mk.filter_glue_plain(st1, carry, **glue_kw),
             library=None,
             bound=bound_ms(4.0 * nb * (n_round * (s + 2) + 10 * s + s * s),
-                           nb * (10.0 * s * s + 40 * s))),
+                           nb * (10.0 * s * s + 40 * s)),
+            device_kernel="filter_glue_kernel"),
     }
     sources = {"init_stats": "_init_stats_swh_kernel (row 11)",
                "filter_round": "_resident_swh_kernel / _resident_filter_body (row 12)",
                "filter_glue": "_resident_swh_kernel / _glue_math :776 (row 12)"}
     lines = {"init_stats": 1332, "filter_round": 1361, "filter_glue": 1361}
     notes = {"init_stats": "one call = 2 __global__ launches (per-chunk partials, then the "
-                           "f64 reduce); ms covers both"}
+                           "f64 reduce); ms covers both",
+             "filter_glue": "ms: the kernel's device time per launch (torch.profiler); "
+                            "event_ms: CUDA events around back-to-back calls, which the host's "
+                            "launch gaps set"}
     kernels = []
     for name, plan in timing_plan.items():
         ms = cuda_ms(plan["kernel"], inner=10)
+        extra = {}
+        if "device_kernel" in plan:
+            extra["event_ms"] = ms
+            ms = device_ms(plan["kernel"], plan["device_kernel"])
         plain_ms = cuda_ms(plan["plain"], inner=3)
         lib_ms = None if plan["library"] is None else cuda_ms(plan["library"], inner=3)
         bms, bby = plan["bound"]
@@ -1677,7 +1860,7 @@ def main() -> int:
             launches=launches[name],
             max_abs_err=results[name]["max_abs_err"], rel_err_vs_f64=results[name]["rel_err"],
             check=results[name]["check"], ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=bby, share_of_bound=bms / ms, library_ms=lib_ms,
+            bound_by=bby, share_of_bound=bms / ms, library_ms=lib_ms, **extra,
             **({"note": notes[name]} if name in notes else {})))
 
     pad_r, pad_c = find_padding(H, 32), find_padding(W, 32)
@@ -1833,6 +2016,9 @@ def main() -> int:
         route_timings[f"{route}_filter_kernels_ms"] = (
             sum(k["ms"] * k["launches"] for k in used) + glue["ms"] * glues)
     kernels += route_rows
+
+    # 14. num_iter=0: JAX's plain route, on the bench scene and a served granule ------
+    num_iter0_phase(dev, x, template, granules[0])
     print("timings " + json.dumps({"card": card, **timings, **masked_timings,
                                    **serving_timings, **bf16_timings, **masked_bf16_timings,
                                    **served_bf16_timings, **route_timings}), flush=True)

@@ -17,8 +17,8 @@ extern "C" {
 int starcop_max_bands();
 const char* starcop_error_string(int err);
 int starcop_init_stats(const float* x, const unsigned char* valid, float* partial, float* m0,
-                       float* c0, int H, int W, int S, int nb, int step, int chunk, int nchunks,
-                       void* stream);
+                       float* c0, int H, int W, int S, int nb, int step, const int* geom,
+                       int nchunks, void* stream);
 int starcop_filter_round(int mode, const float* x, const unsigned char* valid, const float* m0,
                          const float* carry, float* r, const float* mf_in, float* mf_out,
                          float* partial, int H, int W, int S, int nb, int step, const int* geom,
@@ -95,9 +95,10 @@ Cube check_cube(const at::Tensor& x, int64_t nb, int64_t step, const at::Tensor*
   return c;
 }
 
-// The round launch geometry (ops/mag1c_kernels.py:RoundGeometry.op_args):
-// tile rows, tile columns, tiles per chunk, stages, 16-byte copies, shared
-// memory bytes. The kernels check it against the shapes.
+// The launch geometry of a round or of the cube statistics
+// (ops/mag1c_kernels.py:RoundGeometry.op_args): tile rows, tile columns,
+// tiles per chunk, stages, 16-byte copies, shared memory bytes. The kernels
+// check it against the shapes.
 struct Geom {
   int v[6];
 };
@@ -116,30 +117,34 @@ const unsigned char* mask_ptr(const at::Tensor* valid) {
   return valid == nullptr ? nullptr : valid->data_ptr<uint8_t>();
 }
 
+// Floats of one statistics record [n | mean(S) | lower triangle of S x S].
+int64_t stats_record_len(int64_t s) { return 1 + s + s * (s + 1) / 2; }
+
 void run_init_stats(const at::Tensor& x, const at::Tensor* valid, const at::Tensor& partial,
                     const at::Tensor& m0, const at::Tensor& c0, int64_t nb, int64_t step,
-                    int64_t chunk, int64_t stream, const char* op) {
+                    c10::IntArrayRef geom, int64_t stream, const char* op) {
   const Cube c = check_cube(x, nb, step, valid);
   const int64_t nchunks = partial.size(1);
-  TORCH_CHECK(nchunks * chunk >= c.h * step, "chunks do not cover the block");
-  check(partial, x, "partial", {nb, nchunks, 1 + c.s + c.s * c.s});
+  const Geom g = round_geom(geom);
+  check(partial, x, "partial", {nb, nchunks, stats_record_len(c.s)});
   check(m0, x, "m0", {nb, c.s});
   check(c0, x, "c0", {nb, c.s, c.s});
   check_launch(starcop_init_stats(x.data_ptr<float>(), mask_ptr(valid), partial.data_ptr<float>(),
                                   m0.data_ptr<float>(), c0.data_ptr<float>(), c.h, c.w, c.s, nb,
-                                  step, chunk, nchunks, reinterpret_cast<void*>(stream)),
+                                  step, g.v, nchunks, reinterpret_cast<void*>(stream)),
                op);
 }
 
 void init_stats(const at::Tensor& x, const at::Tensor& partial, const at::Tensor& m0,
-                const at::Tensor& c0, int64_t nb, int64_t step, int64_t chunk, int64_t stream) {
-  run_init_stats(x, nullptr, partial, m0, c0, nb, step, chunk, stream, "init_stats");
+                const at::Tensor& c0, int64_t nb, int64_t step, c10::IntArrayRef geom,
+                int64_t stream) {
+  run_init_stats(x, nullptr, partial, m0, c0, nb, step, geom, stream, "init_stats");
 }
 
 void init_stats_masked(const at::Tensor& x, const at::Tensor& valid, const at::Tensor& partial,
                        const at::Tensor& m0, const at::Tensor& c0, int64_t nb, int64_t step,
-                       int64_t chunk, int64_t stream) {
-  run_init_stats(x, &valid, partial, m0, c0, nb, step, chunk, stream, "init_stats_masked");
+                       c10::IntArrayRef geom, int64_t stream) {
+  run_init_stats(x, &valid, partial, m0, c0, nb, step, geom, stream, "init_stats_masked");
 }
 
 void run_filter_round(int64_t mode, const at::Tensor& x, const at::Tensor* valid,
@@ -249,7 +254,7 @@ void init_stats_bsp(const at::Tensor& xs, const at::Tensor& n, const at::Tensor&
   check_stream(xs, xs, nb, rows, p);
   const int64_t nchunks = partial.size(1);
   TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
-  check(partial, xs, "partial", {nb, nchunks, 1 + rows + rows * rows});
+  check(partial, xs, "partial", {nb, nchunks, stats_record_len(rows)});
   check(c0, xs, "c0", {nb, rows, rows});
   check(n, xs, "n", {nb});
   check_launch(starcop_init_stats_bsp(xs.data_ptr(), n.data_ptr<float>(),
@@ -304,7 +309,7 @@ void init_stats_stream(const at::Tensor& xs, const at::Tensor& partial, const at
   TORCH_CHECK(s >= 1 && s <= rows, "m0 has ", s, " bands for a stream of ", rows, " rows");
   const int64_t nchunks = partial.size(1);
   TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
-  check(partial, xs, "partial", {nb, nchunks, 1 + s + s * s});
+  check(partial, xs, "partial", {nb, nchunks, stats_record_len(s)});
   check(m0, xs, "m0", {nb, s});
   check(c0, xs, "c0", {nb, s, s});
   check_launch(starcop_init_stats_stream(xs.data_ptr<float>(), partial.data_ptr<float>(),
@@ -376,7 +381,7 @@ void fused_iter_cholesky(bool first, const at::Tensor& xs, const std::optional<a
                                                       mf_out);
   const int64_t nchunks = partial.size(1);
   TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
-  check(partial, xs, "partial", {nb, nchunks, 1 + s + s * s});
+  check(partial, xs, "partial", {nb, nchunks, stats_record_len(s)});
   check(mean, xs, "mean", {nb, s});
   check(cov, xs, "cov", {nb, s, s});
   check_launch(starcop_fused_iter_cholesky(first, xs.data_ptr(), f32,
@@ -430,10 +435,10 @@ void filter_round_mono(int64_t mode, const at::Tensor& xs, bool center, const at
 
 TORCH_LIBRARY(starcop_mag1c, m) {
   m.def("init_stats(Tensor x, Tensor(a!) partial, Tensor(b!) m0, Tensor(c!) c0, int nb, "
-        "int step, int chunk, int stream) -> ()",
+        "int step, int[] geom, int stream) -> ()",
         &init_stats);
   m.def("init_stats_masked(Tensor x, Tensor valid, Tensor(a!) partial, Tensor(b!) m0, "
-        "Tensor(c!) c0, int nb, int step, int chunk, int stream) -> ()",
+        "Tensor(c!) c0, int nb, int step, int[] geom, int stream) -> ()",
         &init_stats_masked);
   m.def("filter_round(int mode, Tensor x, Tensor m0, Tensor carry, Tensor(a!) r, "
         "Tensor mf_in, Tensor(b!) mf_out, Tensor(c!) partial, int nb, int step, int[] geom, "

@@ -90,94 +90,318 @@
 
 namespace {
 
-struct Pixel {
-  long long off;  // float offset of band 0 in the cube
-  bool ok;        // counts in the statistics (always true unmasked)
-};
+// ---------------------------------------------------------------------------
+// init_stats / init_stats_masked, pass 1: the partial record [n | mean | tri]
+// (mag1c_common.cuh) of each (chunk, block) of the (H, W, S) cube, by Chan's
+// pairwise fold one tile at a time. Masked, n is the VALID count.
+//
+// What bounds it: one read of the cube (4 H W S bytes) against the scatter's
+// S (S + 1) / 2 FMAs per pixel; at S = 50 the two take about the same time on
+// the H100 (~0.1 ms at 1280 x 1242), so the design keeps both the bytes in
+// flight and the FMA pipes fed. On the card the on-chip work (sweep,
+// scatter, barriers) sets its time (PERF.md §6):
+//  * Tiles and chunks as the rounds': a tile is whole rows of block b (or a
+//    segment of a row wider than kRoundThreads pixels), each tile row
+//    tile_cols * S contiguous floats, so no pixel needs p / step; a CTA owns
+//    tiles_per_chunk consecutive tiles, the chunk count chosen in Python
+//    (ops/mag1c_kernels.py:stats_geometry) for full waves at
+//    kStatsCtasPerSm CTAs per SM; the kernel checks the geometry.
+//  * A ring of 2-4 tiles filled by cp.async (16-byte copies where every tile
+//    row starts and ends on 16 bytes, else 4-byte ones), each pixel's mask
+//    word in the same commit group. Columns past W are neither copied nor
+//    read, and a pixel that does not count is selected out before its values
+//    are read: the fill -9999 and NaN never reach a sum.
+//  * Two barriers a tile. Chan's update of the running (n, mean, M) by a tile
+//    of n_t pixels with mean m_t, d = m_t - mean, is
+//      M += sum (x - m_t)(x - m_t)^T + (n n_t / n') d d^T
+//         = sum (x - mean)(x - mean)^T - (n_t^2 / n') d d^T,   n' = n + n_t,
+//    so the tile is centred on the running mean, known before it arrives, in
+//    the pass that also sums it: thread t takes a unit of 2 bands (1 where S
+//    is odd) of every (kThreads / units)-th pixel, restages it as x - mean
+//    at SPP = 8 ceil(S / 8) floats a pixel (0 where the pixel does not count;
+//    pad bands stay 0) and keeps its sums; the barrier after it counts the
+//    tile's valid pixels (__syncthreads_count). Then threads t < S form d and
+//    the new mean while every thread scatters; the rank-1 term waits for the
+//    next tile's first phase. A chunk's first tile with valid pixels is
+//    centred on its own mean (one more pass and barrier), so no tile is
+//    summed about 0.
+//  * The scatter's lower triangle only, in 8 x 8 register micro-tiles:
+//    micro-tile (i, k), k <= i < ceil(S / 8), takes two float4 of bands 8i..
+//    and two of 8k.. per pixel for 64 FMAs (S = 50: 28 micro-tiles, 1,792
+//    FMAs a pixel; 4 x 8 tiles waste fewer FMAs but read a third more shared
+//    memory per FMA, and measured slower).
+//    The restaged pixel keeps the first and last four bands of each 8-band
+//    group in its two halves, so a quarter-warp's float4 reads of 8 groups
+//    hit 8 distinct bank groups. With T <= 136 micro-tiles, G = kThreads / T
+//    groups of threads split the tile's pixels (thread t: micro-tile t % T,
+//    pixels t / T, + G, ...), the group sums added in group order at the
+//    chunk's end.
+//  * f32 values and FMAs; the chunk records are combined in f64 by
+//    init_stats_reduce_kernel (a plain f32 covariance drifts the 30-iteration
+//    filter; PERF.md, "f32 conditioning"). No TF32, no tensor cores.
+// ---------------------------------------------------------------------------
+constexpr int kStatsCtasPerSm = 2;
 
-// Pixel p of block b. Masked: the column test comes first, so neither the
-// mask nor the cube is read for a column past W.
-template <bool MASKED>
-__device__ __forceinline__ Pixel locate(const unsigned char* __restrict__ valid, int p, int b,
-                                        int step, int W, int S) {
-  const int h = p / step;
-  const int col = b * step + (p - h * step);
-  const long long hw = (long long)h * W + col;
-  bool ok = true;
-  if constexpr (MASKED) ok = col < W && valid[hw] != 0;
-  return {hw * S, ok};
+// Micro-tiles of the triangle at S bands, and the thread groups over pixels.
+__host__ __device__ inline int stats_microtiles(int S) {
+  const int nr = (S + 7) / 8;
+  return nr * (nr + 1) / 2;
+}
+__host__ __device__ inline int stats_groups(int S) { return kThreads / stats_microtiles(S); }
+// Floats of one pixel of the centred tile.
+__host__ __device__ inline int stats_pixel_pitch(int S) { return (S + 7) / 8 * 8; }
+
+// The kernel's static shared memory.
+struct StatsScratch {
+  float psum[2 * kThreads];        // the sweep's sums, [pixel group][band unit][2]
+  float delta[kMaxBands], mean[kMaxBands];
+  int poff[kRoundThreads], pcol[kRoundThreads];  // pixel offsets and columns in a tile
+};
+static_assert(sizeof(StatsScratch) == 4096, "ops/mag1c_kernels.py:STATS_STATIC_SMEM");
+
+// Dynamic shared memory of a statistics CTA: the ring (stages x [tile | mask
+// words | mask positions]) and the centred tile, or the group sums at the
+// chunk's end where those need more.
+inline size_t stats_smem_bytes(int stages, int tile_bytes, int S) {
+  const size_t ring = (size_t)stages * (tile_bytes + 5 * kRoundThreads) +
+                      (size_t)4 * kRoundThreads * stats_pixel_pitch(S);
+  const size_t groups = (size_t)256 * stats_microtiles(S) * (stats_groups(S) - 1);
+  return ring > groups ? ring : groups;
 }
 
-// ---------------------------------------------------------------------------
-// init_stats / init_stats_masked, pass 1: per (chunk, block) partial moments
-// (the tiles and Chan fold of mag1c_common.cuh). n_tile is the tile's VALID
-// count. Masked, invalid rows of the tile hold 0 and a tile with no valid
-// pixel is skipped (no 0/0).
-// ---------------------------------------------------------------------------
-template <int TS, bool MASKED>
-__global__ void __launch_bounds__(kThreads)
+inline bool stats_geom_ok(const RoundGeom& g, int tiles_block, int nchunks, int tile_bytes,
+                          int S) {
+  return tiling_ok(g, tiles_block, nchunks) &&
+         (size_t)g.smem == stats_smem_bytes(g.stages, tile_bytes, S) &&
+         g.smem + sizeof(StatsScratch) <= (size_t)kMaxRoundSmem;
+}
+
+template <bool MASKED, bool VEC16>
+__global__ void __launch_bounds__(kThreads, kStatsCtasPerSm)
 init_stats_partial_kernel(const float* __restrict__ x, const unsigned char* __restrict__ valid,
-                          float* __restrict__ partial, int W, int S, int step, int P,
-                          int chunk, int nchunks) {
-  constexpr int SP = 16 * TS;
-  __shared__ float tile[kSub][SP + 1];
-  __shared__ float mean[SP], delta[SP];
-  __shared__ unsigned char tile_ok[kSub];
-  __shared__ int tile_n;
+                          float* __restrict__ partial, int H, int W, int S, int step,
+                          RoundGeom geom, int nchunks) {
+  extern __shared__ __align__(16) unsigned char stats_smem[];
+  __shared__ StatsScratch sc;
+  const int TR = geom.tile_rows, CW = geom.tile_cols, RP = cube_row_pitch(CW, S);
+  const int tile_floats = TR * RP, TP = TR * CW;
+  const int SPP = stats_pixel_pitch(S), SP4 = SPP / 4, HALF = SPP / 8;
+  // Band s of a restaged pixel lies at spos(s).
+  auto spos = [&](int s) { return (s % 8 / 4) * (SPP / 2) + 4 * (s / 8) + s % 4; };
+  const int T = stats_microtiles(S), G = stats_groups(S);
+  float* ring = reinterpret_cast<float*>(stats_smem);
+  unsigned* mword = reinterpret_cast<unsigned*>(ring + geom.stages * tile_floats);
+  unsigned char* mpos = reinterpret_cast<unsigned char*>(mword + geom.stages * kRoundThreads);
+  float* ctile = reinterpret_cast<float*>(mpos + geom.stages * kRoundThreads);
+  const float4* ctile4 = reinterpret_cast<const float4*>(ctile);
+  const int c = blockIdx.x, b = blockIdx.y, t = threadIdx.x, lane = t % 32, warp = t / 32;
 
-  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int p_beg = c * chunk;
-  const int p_end = min(P, p_beg + chunk);
+  const int nseg = (step + CW - 1) / CW;
+  const int tiles_block = (H + TR - 1) / TR * nseg;
+  const int t_beg = c * geom.tiles_per_chunk;
+  const int ntile = min(tiles_block, t_beg + geom.tiles_per_chunk) - t_beg;
+  const int ncols_b = MASKED ? min(step, W - b * step) : step;  // columns below W
+  const int tr = t / CW, tc = t - tr * CW;  // this thread's pixel in every tile (t < TP)
 
-  float acc[TS][TS];
+  // This thread's micro-tile j = t % T -> (row group mi, column group mk)
+  // over the pixels of group g = t / T (g >= G: idle in the scatter); group
+  // 0 writes the record.
+  const int g = t / T, j = t % T;
+  int mi = 0;
+  while (tri_index(mi + 1, 0) <= j) ++mi;
+  const int mk = j - tri_index(mi, 0);
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < TS; ++i)
-#pragma unroll
-    for (int k = 0; k < TS; ++k) acc[i][k] = 0.f;
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
 
-  for (int e = tid; e < kSub * (SP + 1); e += kThreads) (&tile[0][0])[e] = 0.f;
-  if (tid < SP) mean[tid] = delta[tid] = 0.f;
-  __syncthreads();
+  if (t < TP) {
+    sc.poff[t] = tr * RP + tc * S;
+    sc.pcol[t] = tc;
+  }
+  if (t < kMaxBands) sc.mean[t] = sc.delta[t] = 0.f;  // pad bands keep delta = 0
+  for (int e = t; e < kRoundThreads * (SPP - S); e += kThreads)  // the sweeps leave pad bands 0
+    ctile[e / (SPP - S) * SPP + spos(S + e % (SPP - S))] = 0.f;
+
+  struct Tile {
+    int h0, nrows, col0, nload;  // first row, rows, first column, columns read
+  };
+  auto tile_at = [&](int i) {
+    const int tile = t_beg + i, grp = tile / nseg, seg = tile - grp * nseg;
+    Tile tl;
+    tl.h0 = grp * TR;
+    tl.nrows = min(TR, H - tl.h0);
+    tl.col0 = seg * CW;
+    tl.nload = max(0, min(min(CW, step - tl.col0), ncols_b - tl.col0));
+    return tl;
+  };
+
+  auto issue = [&](int i) {
+    if (i < ntile) {
+      const Tile tl = tile_at(i);
+      const int slot = i % geom.stages, n = tl.nload * S;
+      float* dst = ring + slot * tile_floats;
+      for (int rr = 0; rr < tl.nrows; ++rr) {
+        const float* src = x + ((long long)(tl.h0 + rr) * W + b * step + tl.col0) * S;
+        float* d = dst + rr * RP;
+        if constexpr (VEC16) {
+          for (int e = t; 4 * e < n; e += kThreads) cp_async16(d + 4 * e, src + 4 * e);
+        } else {
+          for (int e = t; e < n; e += kThreads) cp_async4(d + e, src + e);
+        }
+      }
+      if constexpr (MASKED) {
+        if (t < TP) {
+          // The aligned word that holds the byte lies in the mask's allocation.
+          unsigned char pos = 4;  // 4: the pixel is outside the tile or past W
+          if (tr < tl.nrows && tc < tl.nload) {
+            const size_t a = reinterpret_cast<size_t>(
+                valid + (long long)(tl.h0 + tr) * W + b * step + tl.col0 + tc);
+            pos = (unsigned char)(a & 3);
+            cp_async4(mword + slot * kRoundThreads + t,
+                      reinterpret_cast<const void*>(a & ~(size_t)3));
+          }
+          mpos[slot * kRoundThreads + t] = pos;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // The rank-1 term -(n_t^2 / n') d d^T of the last folded tile (group 0).
+  auto fold_rank1 = [&](float coef) {
+    if (coef == 0.f || g != 0) return;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float dr = coef * sc.delta[8 * mi + r];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[8 * r + q] = fmaf(dr, sc.delta[8 * mk + q], acc[8 * r + q]);
+    }
+  };
+
+  // Thread t over band unit u = t % NU (VW bands: 2 where S is even, else
+  // 1) of the tile's pixels q, q + NQ, ... (q = t / NU < NQ): its sum of
+  // (x - shift) over the pixels that count; with out, the centred values
+  // (0 where a pixel does not count) restaged there. Returns whether this
+  // thread's own pixel t counts (for the count barrier).
+  const int VW = S % 2 == 0 ? 2 : 1, NU = S / VW, NQ = kThreads / NU;
+  const int su = t % NU, sq = t / NU;
+  auto pixel_counts = [&](int slot, int pl, int nload) {
+    if constexpr (MASKED) {
+      const unsigned pos = mpos[slot * kRoundThreads + pl];
+      return pos < 4 && ((mword[slot * kRoundThreads + pl] >> (8 * pos)) & 0xffu) != 0;
+    } else {
+      return sc.pcol[pl] < nload;
+    }
+  };
+  auto sweep = [&](const float* raw, int slot, int npx, int nload, float* out) {
+    float p0 = 0.f, p1 = 0.f;
+    if (sq < NQ) {
+      if (VW == 2) {
+        const float k0 = sc.mean[2 * su], k1 = sc.mean[2 * su + 1];
+        for (int pl = sq; pl < npx; pl += NQ) {
+          const bool counts = pixel_counts(slot, pl, nload);
+          const float2 v = *reinterpret_cast<const float2*>(raw + sc.poff[pl] + 2 * su);
+          const float v0 = counts ? v.x - k0 : 0.f, v1 = counts ? v.y - k1 : 0.f;
+          if (out != nullptr)
+            *reinterpret_cast<float2*>(out + pl * SPP + spos(2 * su)) = make_float2(v0, v1);
+          p0 += v0;
+          p1 += v1;
+        }
+      } else {
+        const float k0 = sc.mean[su];
+        for (int pl = sq; pl < npx; pl += NQ) {
+          const bool counts = pixel_counts(slot, pl, nload);
+          const float v0 = counts ? raw[sc.poff[pl] + su] - k0 : 0.f;
+          if (out != nullptr) out[pl * SPP + spos(su)] = v0;
+          p0 += v0;
+        }
+      }
+    }
+    sc.psum[2 * t] = p0;  // [q][u][VW] flat
+    sc.psum[2 * t + 1] = p1;
+    return t < npx && pixel_counts(slot, t, nload);
+  };
+  auto band_sum = [&](int s) {
+    const int u = s / VW, e = s - u * VW;
+    float v = 0.f;
+    for (int q = 0; q < NQ; ++q) v += sc.psum[2 * (q * NU + u) + e];
+    return v;
+  };
 
   int n_run = 0;
-  for (int p0 = p_beg; p0 < p_end; p0 += kSub) {
-    const int n_span = min(kSub, p_end - p0);
-    int n_tile = n_span;
-    if constexpr (MASKED) {
-      if (tid < kSub) {  // warp 0 marks the tile's valid pixels
-        const bool ok = tid < n_span && locate<true>(valid, p0 + tid, b, step, W, S).ok;
-        const unsigned vote = __ballot_sync(0xffffffffu, ok);
-        tile_ok[tid] = ok;
-        if (tid == 0) tile_n = __popc(vote);
-      }
+  float coef = 0.f;  // the rank-1 term still to fold
+  for (int i = 0; i < geom.stages - 1; ++i) issue(i);
+  for (int i = 0; i < ntile; ++i) {
+    cp_async_wait_pending(geom.stages - 2);
+    __syncthreads();  // tile i staged; tile i - 1's stage, ctile and psum free; d, mean set
+    issue(i + geom.stages - 1);
+    fold_rank1(coef);
+    coef = 0.f;
+    const Tile tl = tile_at(i);
+    const int slot = i % geom.stages, npx = tl.nrows * CW;
+    const float* raw = ring + slot * tile_floats;
+    if (n_run == 0) {  // uniform: the first tile with valid pixels centres on its own mean
+      const int n0 = __syncthreads_count(sweep(raw, slot, npx, tl.nload, nullptr));
+      if (t < S) sc.mean[t] = n0 > 0 ? band_sum(t) / (float)n0 : 0.f;
       __syncthreads();
-      n_tile = tile_n;
-      if (n_tile == 0) {  // uniform across the CTA
-        __syncthreads();
-        continue;
+      if (n0 == 0) continue;
+    }
+    const int n_t = __syncthreads_count(sweep(raw, slot, npx, tl.nload, ctile));
+    if (n_t == 0) continue;  // uniform across the CTA
+    const float n_new = (float)(n_run + n_t);
+    if (t < S) {
+      const float d = band_sum(t) / (float)n_t;
+      sc.delta[t] = d;
+      sc.mean[t] += d * ((float)n_t / n_new);
+    }
+    coef = -(float)n_t * ((float)n_t / n_new);
+    if (g < G) {
+#pragma unroll 2
+      for (int pl = g; pl < npx; pl += G) {
+        const float4* px = ctile4 + pl * SP4;
+        const float4 a0 = px[mi], a1 = px[HALF + mi], v0 = px[mk], v1 = px[HALF + mk];
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int q = 0; q < 8; ++q) acc[8 * r + q] = fmaf(av[r], bv[q], acc[8 * r + q]);
       }
     }
-    for (int e = tid; e < n_span * S; e += kThreads) {
-      const int pl = e / S, s = e - pl * S;
-      const long long off = locate<false>(valid, p0 + pl, b, step, W, S).off;
-      if constexpr (MASKED)
-        tile[pl][s] = tile_ok[pl] ? x[off + s] : 0.f;
-      else
-        tile[pl][s] = x[off + s];
-    }
-    __syncthreads();
-    fold_tile<TS>(tile, MASKED ? tile_ok : nullptr, n_span, n_tile, n_run, mean, delta, acc, S);
-    __syncthreads();
+    n_run += n_t;
   }
-  write_stats_record<TS>(partial + ((long long)b * nchunks + c) * (1 + S + S * S), n_run, mean,
-                         acc, S);
+  cp_async_wait_pending(0);
+  __syncthreads();  // the last d is set; the ring is free
+  fold_rank1(coef);
+  if (G > 1) {  // the groups' sums into group 0, in group order
+    float* sums = reinterpret_cast<float*>(stats_smem);  // [(g - 1) * 64 + e][j]
+    if (g > 0 && g < G)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) sums[((g - 1) * 64 + e) * T + j] = acc[e];
+    __syncthreads();
+    if (g == 0)
+      for (int gg = 1; gg < G; ++gg)
+#pragma unroll
+        for (int e = 0; e < 64; ++e) acc[e] += sums[((gg - 1) * 64 + e) * T + j];
+  }
+  float* rec = partial + ((long long)b * nchunks + c) * stats_record_len(S);
+  if (t == 0) rec[0] = (float)n_run;
+  if (t < S) rec[1 + t] = sc.mean[t];
+  if (g == 0)
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int a = 8 * mi + r, bb = 8 * mk + q;
+        if (a < S && bb <= a) rec[1 + S + tri_index(a, bb)] = acc[8 * r + q];
+      }
 }
 
 // ---------------------------------------------------------------------------
 // init_stats_bsp / init_stats_stream, pass 1: the statistics of the blocked
-// stream (nb, R, P) over its first S rows, in init_stats_partial_kernel's
-// tiles. Row s of a tile is 32 contiguous pixels of band row s, so a warp's
-// load is one coalesced span. One read of the stream.
+// stream (nb, R, P) over its first S rows, in tiles of kSub pixels
+// (mag1c_common.cuh). Row s of a tile is 32 contiguous pixels of band row s,
+// so a warp's load is one coalesced span. One read of the stream.
 //   bf16 (init_stats_bsp): the raw second moment sum xs xs^T of the centred
 //     stream, which is zero wherever a pixel does not count (f32 products and
 //     sums, no re-centring, as :1814-1824). The records carry zero means, so
@@ -225,7 +449,7 @@ init_stats_bsp_partial_kernel(const T* __restrict__ xs, float* __restrict__ part
       scatter_tile<TS>(tile, n_span, acc);
     __syncthreads();
   }
-  write_stats_record<TS>(partial + ((long long)b * nchunks + c) * (1 + S + S * S),
+  write_stats_record<TS>(partial + ((long long)b * nchunks + c) * stats_record_len(S),
                          p_end - p_beg, mean, acc, S);
 }
 
@@ -424,31 +648,32 @@ filter_round_bsp_kernel(const T* __restrict__ xs, const unsigned char* __restric
 
 // ---------------------------------------------------------------------------
 // filter_glue: glue_block (mag1c_common.cuh) for one block per CTA, with 1/n
-// of that block (nin[b]: the valid count clamped to >= 1, or H*step unmasked).
+// of that block (nin[b]: the valid count clamped to >= 1, or H*step unmasked),
+// on glue_smem_bytes(S) of dynamic shared memory (GlueSmem, then K0).
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kGlueThreads)
 filter_glue_kernel(const float* __restrict__ partial, const float* __restrict__ carry_in,
                    float* __restrict__ carry_out, const float* __restrict__ m0,
                    const float* __restrict__ tmpl, const float* __restrict__ k0_all,
                    const float* __restrict__ nin_all, int S, int nchunks, float alpha) {
-  __shared__ GlueSmem g;
+  extern __shared__ __align__(16) unsigned char glue_smem[];
+  GlueSmem& g = *reinterpret_cast<GlueSmem*>(glue_smem);
   const int b = blockIdx.x;
   glue_block(partial + (long long)b * nchunks * (S + 2), nchunks, carry_in + (long long)b * 4 * S,
              carry_out + (long long)b * 4 * S, m0 + (long long)b * S, tmpl,
-             k0_all + (long long)b * S * S, nin_all[b], S, alpha, g);
+             k0_all + (long long)b * S * S, nin_all[b], S, alpha, g,
+             reinterpret_cast<float*>(glue_smem + sizeof(GlueSmem)));
 }
 
-template <int TS>
+template <bool MASKED, bool VEC16>
 cudaError_t launch_init_partial(const float* x, const unsigned char* valid, float* partial,
-                                int W, int S, int step, int P, int chunk, int nchunks, int nb,
-                                cudaStream_t st) {
-  const dim3 grid(nchunks, nb);
-  if (valid != nullptr)
-    init_stats_partial_kernel<TS, true><<<grid, kThreads, 0, st>>>(
-        x, valid, partial, W, S, step, P, chunk, nchunks);
-  else
-    init_stats_partial_kernel<TS, false><<<grid, kThreads, 0, st>>>(
-        x, valid, partial, W, S, step, P, chunk, nchunks);
+                                int H, int W, int S, int step, const RoundGeom& g, int nchunks,
+                                int nb, cudaStream_t st) {
+  const auto kernel = init_stats_partial_kernel<MASKED, VEC16>;
+  const cudaError_t err = allow_smem(kernel, (size_t)g.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(nchunks, nb), kThreads, g.smem, st>>>(x, valid, partial, H, W, S, step, g,
+                                                      nchunks);
   return cudaGetLastError();
 }
 
@@ -539,27 +764,32 @@ const char* starcop_error_string(int err) {
 
 // valid == nullptr: every pixel of the (H, nb*step, S) cube counts
 // (init_stats); else the (H, W) uint8 mask selects (init_stats_masked).
+// geom: the six RoundGeom fields of stats_geometry; partial has nchunks
+// records per block.
 int starcop_init_stats(const float* x, const unsigned char* valid, float* partial, float* m0,
-                       float* c0, int H, int W, int S, int nb, int step, int chunk, int nchunks,
-                       void* stream) {
+                       float* c0, int H, int W, int S, int nb, int step, const int* geom,
+                       int nchunks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int P = H * step;
+  const RoundGeom g = round_geom_from(geom);
+  if (S < 1 || S > kMaxBands) return (int)cudaErrorInvalidValue;
+  // Tiles of whole block rows, or one segment of a row wider than a tile.
+  const bool shape_ok = g.tile_cols <= step && (g.tile_rows == 1 || g.tile_cols == step);
+  const int tiles_block = (H + g.tile_rows - 1) / g.tile_rows * ((step + g.tile_cols - 1) / g.tile_cols);
+  if (!shape_ok || !stats_geom_ok(g, tiles_block, nchunks, 4 * g.tile_rows * cube_row_pitch(g.tile_cols, S), S))
+    return (int)cudaErrorInvalidValue;
+  if (g.aligned && ((long long)W * S % 4 != 0 || (long long)step * S % 4 != 0 ||
+                    reinterpret_cast<size_t>(x) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+#define STARCOP_INIT(MASKED, VEC16) \
+  launch_init_partial<MASKED, VEC16>(x, valid, partial, H, W, S, step, g, nchunks, nb, st)
   cudaError_t err;
-  switch ((S + 15) / 16) {
-    case 1: err = launch_init_partial<1>(x, valid, partial, W, S, step, P, chunk, nchunks, nb, st); break;
-    case 2: err = launch_init_partial<2>(x, valid, partial, W, S, step, P, chunk, nchunks, nb, st); break;
-    case 3: err = launch_init_partial<3>(x, valid, partial, W, S, step, P, chunk, nchunks, nb, st); break;
-    case 4: err = launch_init_partial<4>(x, valid, partial, W, S, step, P, chunk, nchunks, nb, st); break;
-    case 5: err = launch_init_partial<5>(x, valid, partial, W, S, step, P, chunk, nchunks, nb, st); break;
-    case 6: err = launch_init_partial<6>(x, valid, partial, W, S, step, P, chunk, nchunks, nb, st); break;
-    case 7: err = launch_init_partial<7>(x, valid, partial, W, S, step, P, chunk, nchunks, nb, st); break;
-    case 8: err = launch_init_partial<8>(x, valid, partial, W, S, step, P, chunk, nchunks, nb, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (valid != nullptr)
+    err = g.aligned ? STARCOP_INIT(true, true) : STARCOP_INIT(true, false);
+  else
+    err = g.aligned ? STARCOP_INIT(false, true) : STARCOP_INIT(false, false);
+#undef STARCOP_INIT
   if (err != cudaSuccess) return (int)err;
-  init_stats_reduce_kernel<<<nb, kThreads, S * sizeof(double), st>>>(partial, nullptr, m0, c0, S,
-                                                                     nchunks);
-  return (int)cudaGetLastError();
+  return (int)launch_stats_reduce(partial, nullptr, m0, c0, S, nchunks, nb, st);
 }
 
 // The (H, W, S) f32 cube -> the bf16 stream (nb, R, P) centred by m0
@@ -585,9 +815,7 @@ int starcop_init_stats_bsp(const void* xs, const float* n_given, float* partial,
   const cudaError_t err = launch_init_bsp_ts<__nv_bfloat16>(xs, partial, R, R, P, chunk, nchunks,
                                                             nb, st);
   if (err != cudaSuccess) return (int)err;
-  init_stats_reduce_kernel<<<nb, kThreads, R * sizeof(double), st>>>(partial, n_given, nullptr,
-                                                                     c0, R, nchunks);
-  return (int)cudaGetLastError();
+  return (int)launch_stats_reduce(partial, n_given, nullptr, c0, R, nchunks, nb, st);
 }
 
 // m0 (nb, S), C0 (nb, S, S) of the raw f32 stream (nb, R, P) over its first S
@@ -598,9 +826,7 @@ int starcop_init_stats_stream(const float* xs, float* partial, float* m0, float*
   if (S < 1 || S > R) return (int)cudaErrorInvalidValue;
   const cudaError_t err = launch_init_bsp_ts<float>(xs, partial, S, R, P, chunk, nchunks, nb, st);
   if (err != cudaSuccess) return (int)err;
-  init_stats_reduce_kernel<<<nb, kThreads, S * sizeof(double), st>>>(partial, nullptr, m0, c0, S,
-                                                                     nchunks);
-  return (int)cudaGetLastError();
+  return (int)launch_stats_reduce(partial, nullptr, m0, c0, S, nchunks, nb, st);
 }
 
 // One pass over the blocked stream (nb, R, P) with S <= R live bands, stored
@@ -669,8 +895,11 @@ int starcop_filter_round(int mode, const float* x, const unsigned char* valid, c
 int starcop_filter_glue(const float* partial, const float* carry_in, float* carry_out,
                         const float* m0, const float* tmpl, const float* k0, const float* nin,
                         int S, int nb, int nchunks, float alpha, void* stream) {
-  if (S > kGlueThreads) return (int)cudaErrorInvalidValue;
-  filter_glue_kernel<<<nb, kGlueThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (S < 1 || S > kGlueThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = glue_smem_bytes(S);
+  const cudaError_t err = allow_smem(filter_glue_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  filter_glue_kernel<<<nb, kGlueThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       partial, carry_in, carry_out, m0, tmpl, k0, nin, S, nchunks, alpha);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
-// Device code shared by mag1c.cu and mag1c_fused.cu: constants, the tile
-// statistics of init_stats (Chan fold, f64 chunk combine), the streaming round
-// over the blocked (nb, R, P) layout, and the Woodbury glue.
+// Device code shared by mag1c.cu and mag1c_fused.cu: constants, the
+// statistics record and its f64 chunk combine, the tile statistics of the
+// blocked-stream kernels (Chan fold), the streaming round over the blocked
+// (nb, R, P) layout, and the Woodbury glue.
 //
 // Everything here lives in an anonymous namespace, so each translation unit
 // that includes it gets its own copy of every kernel and device function.
@@ -38,15 +39,28 @@ __device__ __forceinline__ float bf16_round(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Tile statistics. A CTA of kThreads walks its pixel chunk in tiles of kSub
-// pixels x S bands staged in shared memory; thread (ty, tx) of a 16 x 16 grid
-// owns scatter entries (ty + 16 i, tx + 16 k), i, k < TS, over SP = 16 * TS
-// >= S bands (padding bands stay zero). Partial record per (b, c):
-// [n | mean(S) | scatter(S*S)].
+// Tile statistics. Every statistics kernel (init_stats[_masked],
+// init_stats_bsp / init_stats_stream, fused_iter CHOLESKY) writes one partial
+// record per (block b, chunk c) in one format,
+//   [n | mean(S) | tri(S (S + 1) / 2)],
+// tri holding the centred scatter's lower triangle row by row: entry (a, bb),
+// bb <= a, at a (a + 1) / 2 + bb (tri_index). init_stats_reduce_kernel
+// combines the records in f64 and mirrors the triangle into the full S x S.
+//
+// The kernels of init_stats_bsp, init_stats_stream and fused_iter CHOLESKY
+// walk their chunk in tiles of kSub pixels x S bands; thread (ty, tx) of a
+// 16 x 16 grid owns scatter entries (ty + 16 i, tx + 16 k) with k <= i < TS
+// (the blocks on or below the diagonal), over SP = 16 * TS >= S bands
+// (padding bands stay zero). init_stats[_masked] has its own tiles (mag1c.cu).
 // ---------------------------------------------------------------------------
 
+__host__ __device__ __forceinline__ int tri_index(int a, int bb) { return a * (a + 1) / 2 + bb; }
+__host__ __device__ __forceinline__ int stats_record_len(int S) {
+  return 1 + S + S * (S + 1) / 2;
+}
+
 // acc[i][k] += sum over the tile's first n_span rows of
-// tile[pl][ty + 16 i] * tile[pl][tx + 16 k].
+// tile[pl][ty + 16 i] * tile[pl][tx + 16 k], for k <= i.
 template <int TS>
 __device__ __forceinline__ void scatter_tile(const float (*tile)[16 * TS + 1], int n_span,
                                              float (&acc)[TS][TS]) {
@@ -60,7 +74,7 @@ __device__ __forceinline__ void scatter_tile(const float (*tile)[16 * TS + 1], i
 #pragma unroll
     for (int i = 0; i < TS; ++i)
 #pragma unroll
-      for (int k = 0; k < TS; ++k) acc[i][k] = fmaf(av[i], bv[k], acc[i][k]);
+      for (int k = 0; k <= i; ++k) acc[i][k] = fmaf(av[i], bv[k], acc[i][k]);
   }
 }
 
@@ -95,13 +109,13 @@ __device__ __forceinline__ void fold_tile(float (*tile)[16 * TS + 1],
 #pragma unroll
   for (int i = 0; i < TS; ++i)
 #pragma unroll
-    for (int k = 0; k < TS; ++k)
+    for (int k = 0; k <= i; ++k)
       acc[i][k] = fmaf(coef * delta[ty + 16 * i], delta[tx + 16 * k], acc[i][k]);
   scatter_tile<TS>(tile, n_span, acc);
   n_run += n_tile;
 }
 
-// The partial record [n | mean(S) | scatter(S*S)] of (b, c).
+// The partial record [n | mean(S) | tri] of (b, c) from the 16 x 16 grid.
 template <int TS>
 __device__ __forceinline__ void write_stats_record(float* rec, int n, const float* mean,
                                                    const float (&acc)[TS][TS], int S) {
@@ -111,28 +125,30 @@ __device__ __forceinline__ void write_stats_record(float* rec, int n, const floa
 #pragma unroll
   for (int i = 0; i < TS; ++i)
 #pragma unroll
-    for (int k = 0; k < TS; ++k) {
+    for (int k = 0; k <= i; ++k) {
       const int a = ty + 16 * i, bb = tx + 16 * k;
-      if (a < S && bb < S) rec[1 + S + a * S + bb] = acc[i][k];
+      if (a < S && bb <= a) rec[1 + S + tri_index(a, bb)] = acc[i][k];
     }
 }
 
 // ---------------------------------------------------------------------------
-// Pass 2 of the tile statistics: one CTA per block combines the chunk records
-// in chunk order in f64 by the same pairwise rule:
+// Pass 2 of the tile statistics: the chunk records of block b = blockIdx.y
+// combined in chunk order in f64 by the pairwise rule
 //   m = sum_c n_c mean_c / n,
 //   C = sum_c [M_c + n_c (mean_c - m)(mean_c - m)^T] / n,
 // with n clamped to >= 1 (a block with no valid pixel gets m0 = 0, C0 = 0,
 // as JAX's max(sum w, 1)). With n_given (init_stats_bsp on the centred
 // stream, whose records carry zero means) n is the block's given valid count
-// instead; m0 == nullptr writes no mean.
+// instead; m0 == nullptr writes no mean. CTA blockIdx.x owns kThreads
+// entries of the triangle (every CTA of a block works out m, in the same
+// order) and writes each to both halves of C0.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
 init_stats_reduce_kernel(const float* __restrict__ partial, const float* __restrict__ n_given,
                          float* __restrict__ m0, float* __restrict__ c0, int S, int nchunks) {
   extern __shared__ double mean_all[];  // S
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int rec_len = 1 + S + S * S;
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int rec_len = stats_record_len(S);
   const float* base = partial + (long long)b * nchunks * rec_len;
 
   double n = 0.0;
@@ -145,20 +161,34 @@ init_stats_reduce_kernel(const float* __restrict__ partial, const float* __restr
       acc += (double)rec[0] * (double)rec[1 + s];
     }
     mean_all[s] = acc / n;
-    if (m0 != nullptr) m0[(long long)b * S + s] = (float)(acc / n);
+    if (m0 != nullptr && blockIdx.x == 0) m0[(long long)b * S + s] = (float)(acc / n);
   }
   __syncthreads();
-  for (int e = tid; e < S * S; e += kThreads) {
-    const int a = e / S, bb = e - a * S;
-    double acc = 0.0;
-    for (int c = 0; c < nchunks; ++c) {
-      const float* rec = base + (long long)c * rec_len;
-      const double da = (double)rec[1 + a] - mean_all[a];
-      const double db = (double)rec[1 + bb] - mean_all[bb];
-      acc += (double)rec[1 + S + e] + (double)rec[0] * da * db;
-    }
-    c0[(long long)b * S * S + e] = (float)(acc / n);
+  const int e = blockIdx.x * kThreads + tid;
+  if (e >= S * (S + 1) / 2) return;
+  int a = (int)((sqrtf(8.f * (float)e + 1.f) - 1.f) * 0.5f);
+  while (tri_index(a + 1, 0) <= e) ++a;
+  while (tri_index(a, 0) > e) --a;
+  const int bb = e - tri_index(a, 0);
+  double acc = 0.0;
+  for (int c = 0; c < nchunks; ++c) {
+    const float* rec = base + (long long)c * rec_len;
+    const double da = (double)rec[1 + a] - mean_all[a];
+    const double db = (double)rec[1 + bb] - mean_all[bb];
+    acc += (double)rec[1 + S + e] + (double)rec[0] * da * db;
   }
+  const float v = (float)(acc / n);
+  c0[((long long)b * S + a) * S + bb] = v;
+  c0[((long long)b * S + bb) * S + a] = v;
+}
+
+// Launch init_stats_reduce_kernel over the nb blocks' records.
+inline cudaError_t launch_stats_reduce(const float* partial, const float* n_given, float* m0,
+                                       float* c0, int S, int nchunks, int nb, cudaStream_t st) {
+  const dim3 grid((S * (S + 1) / 2 + kThreads - 1) / kThreads, nb);
+  init_stats_reduce_kernel<<<grid, kThreads, S * sizeof(double), st>>>(partial, n_given, m0, c0,
+                                                                       S, nchunks);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -237,12 +267,19 @@ __host__ __device__ constexpr int stream_row_pitch() {
   return sizeof(T) == 2 ? kBf16RowPitch : kRoundThreads;
 }
 
-// The geometry's own invariants against the shapes; false refuses the launch.
-inline bool round_geom_ok(const RoundGeom& g, int tiles_block, int nchunks, int tile_bytes) {
+// The tiling's own invariants against the shapes (the rounds' and the cube
+// statistics'): tiles of at most kRoundThreads pixels, a ring of 2..kMaxStages,
+// chunks that cover the block's tiles with none empty.
+inline bool tiling_ok(const RoundGeom& g, int tiles_block, int nchunks) {
   return g.tile_rows >= 1 && g.tile_cols >= 1 && g.tile_rows * g.tile_cols <= kRoundThreads &&
          g.stages >= 2 && g.stages <= kMaxStages && g.tiles_per_chunk >= 1 && nchunks >= 1 &&
          (long long)nchunks * g.tiles_per_chunk >= tiles_block &&
-         (long long)(nchunks - 1) * g.tiles_per_chunk < tiles_block &&
+         (long long)(nchunks - 1) * g.tiles_per_chunk < tiles_block;
+}
+
+// A round's geometry against the shapes; false refuses the launch.
+inline bool round_geom_ok(const RoundGeom& g, int tiles_block, int nchunks, int tile_bytes) {
+  return tiling_ok(g, tiles_block, nchunks) &&
          (size_t)g.smem == round_smem_bytes(g.stages, tile_bytes) && g.smem <= kMaxRoundSmem;
 }
 
@@ -627,123 +664,244 @@ __device__ __forceinline__ void round_bsp_chunk(
 // the block's nchunks records [u | sum g | sum g^2] and 1/n (nin: the valid
 // count clamped to >= 1, or P unmasked), the rank-2 update of the carry
 // [mu | target | cit | norm]. Values are f32 as in the TPU kernel; the
-// records are summed over chunks in chunk order, and every dot product is
-// accumulated, in f64 (the Woodbury solve amplifies rounding by the
-// covariance's condition number, ~5e5 on EMIT-like scenes). Threads own
-// band rows for the K0 matvecs; thread 0 forms the scalar dots serially in
-// band order. Runs on a CTA of kGlueThreads >= S threads. The records are
-// read through L2 (__ldcg): in filter_round_mono other CTAs of the same
-// launch wrote them.
+// record sums and every product with K0 accumulate in f64 (the Woodbury
+// solve amplifies rounding by the covariance's condition number, ~5e5 on
+// EMIT-like scenes).
+//
+// What bounds it: nothing the card is short of. One CTA per block does ~10
+// S^2 operations on ~4 S^2 bytes; its time is the latency of its dependent
+// chains, so the design shortens every chain:
+//  * K0 (S x S) is staged in shared memory by cp.async (16-byte copies where
+//    S is a multiple of 4 and K0 starts on 16 bytes, else 4-byte ones) while
+//    the records are summed, at a row pitch of 8 m + 4 floats, so that the
+//    matvecs' float4 row reads are free of bank conflicts;
+//  * the record sums in parts: thread t sums column t % (S + 2) over the
+//    chunks q, q + Q, ... (part q = t / (S + 2), Q = kGlueThreads / (S + 2)),
+//    its loads independent of one another, so they stay in flight together;
+//    the parts are added in order (a fixed tree);
+//  * a matvec K0 v splits each row over Q = kGlueThreads / S threads (row
+//    t % S, part t / S), each a chain of ~S / Q f64 FMAs, the parts summed
+//    in order; the first two (K0 target, K0 u) share one sweep of K0;
+//  * each scalar dot is one warp's (lanes over bands, a fixed butterfly);
+//    independent dots run on different warps (g00, g01, g10, g11; y0, y1).
+// Every order is fixed, so a rerun is bitwise identical. Runs on a CTA of
+// kGlueThreads >= S threads with glue_smem_bytes(S) of shared memory
+// (filter_round_mono: its drained ring). The records are read through L2
+// (__ldcg): in filter_round_mono other CTAs of the same launch wrote them.
 // ---------------------------------------------------------------------------
 constexpr int kGlueThreads = 128;  // >= S
+constexpr int kGlueWarps = kGlueThreads / 32;
 
-struct GlueScalars {
-  float gbar, beta, i00, i01, i10, i11, det, x0, x1, norm;
-};
-
-struct GlueSmem {
+struct __align__(16) GlueSmem {
   float u[kGlueThreads], tgt[kGlueThreads], tnew[kGlueThreads];
-  float wt[kGlueThreads], wu[kGlueThreads], kv[kGlueThreads];
+  float wt[kGlueThreads], wu[kGlueThreads];
   float z[kGlueThreads], v2[kGlueThreads], z2[kGlueThreads];
-  GlueScalars sc;
+  double part[2][kGlueThreads];  // record sums' parts; matvec parts at t = part * S + row
+  double dot[8];                 // g00, g01, g10, g11 | y0, y1 | tnew.z
+  float sc[16];                  // gbar, mom1 (both times nin)
 };
+static_assert(sizeof(GlueSmem) == 6272, "ops/mag1c_kernels.py:GLUE_FIXED_BYTES");
 
-__device__ void k0_matvec(const float* __restrict__ k0, const float* v, float* out, int S) {
-  const int t = threadIdx.x;
-  if (t < S) {
-    double acc = 0.0;
-    for (int j = 0; j < S; ++j) acc = fma((double)k0[t * S + j], (double)v[j], acc);
-    out[t] = (float)acc;
-  }
+// Row pitch (floats) of the staged K0: S rounded up to 4, plus 4 where that
+// is a multiple of 8.
+__host__ __device__ inline int glue_k0_pitch(int S) {
+  const int p = (S + 3) / 4 * 4;
+  return p % 8 == 0 ? p + 4 : p;
 }
 
-__device__ float dot_serial(const float* a, const float* b, int S) {
+// Shared memory of glue_block: GlueSmem, then the staged K0.
+__host__ __device__ inline size_t glue_smem_bytes(int S) {
+  return sizeof(GlueSmem) + sizeof(float) * (size_t)S * glue_k0_pitch(S);
+}
+
+struct GlueInv {
+  float i00, i01, i10, i11, det;
+};
+
+__device__ __forceinline__ double warp_sum_f64(double v) {
+  // Butterfly: every lane ends with the same, bitwise identical sum.
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+// sum_j a[j] b[j] over j < S in f64 by the calling warp (every lane gets it).
+__device__ __forceinline__ double warp_dot(const float* a, const float* b, int S) {
   double acc = 0.0;
-  for (int j = 0; j < S; ++j) acc = fma((double)a[j], (double)b[j], acc);
+  for (int j = threadIdx.x % 32; j < S; j += 32) acc = fma((double)a[j], (double)b[j], acc);
+  return warp_sum_f64(acc);
+}
+
+// K0 of the block into k0s at glue_k0_pitch(S), the pad columns zero; one
+// commit group.
+__device__ __forceinline__ void stage_k0(float* k0s, const float* __restrict__ k0, int S) {
+  const int t = threadIdx.x, pitch = glue_k0_pitch(S), padc = pitch - S;
+  if (S % 4 == 0 && (reinterpret_cast<size_t>(k0) & 15) == 0) {
+    const int q = S / 4;  // 16-byte pieces per row
+    for (int e = t; e < S * q; e += kGlueThreads) {
+      const int row = e / q, k = e - row * q;
+      cp_async16(k0s + row * pitch + 4 * k, k0 + row * S + 4 * k);
+    }
+  } else {
+    for (int e = t; e < S * S; e += kGlueThreads) {
+      const int row = e / S;
+      cp_async4(k0s + row * pitch + (e - row * S), k0 + e);
+    }
+  }
+  if (padc > 0)
+    for (int e = t; e < S * padc; e += kGlueThreads) {
+      const int row = e / padc;
+      k0s[row * pitch + S + (e - row * padc)] = 0.f;
+    }
+  cp_async_commit();
+}
+
+// part[n][t] = the f64 sum over part q = t / S of row t % S of K0 v_n (float4
+// columns in order); the vectors are zero past S.
+template <int NV>
+__device__ __forceinline__ void k0_matvec_parts(const float* k0s, const float* const (&v)[NV],
+                                                double (*part)[kGlueThreads], int S) {
+  const int t = threadIdx.x, nparts = kGlueThreads / S;
+  const int row = t % S, q = t / S;
+  if (q >= nparts) return;
+  const int n4 = (S + 3) / 4, per = (n4 + nparts - 1) / nparts;
+  const int c_beg = q * per, c_end = min(n4, c_beg + per);
+  const float4* r4 = reinterpret_cast<const float4*>(k0s + row * glue_k0_pitch(S));
+  double acc[NV];
+#pragma unroll
+  for (int n = 0; n < NV; ++n) acc[n] = 0.0;
+  for (int c = c_beg; c < c_end; ++c) {
+    const float4 k = r4[c];
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      const float4 x = reinterpret_cast<const float4*>(v[n])[c];
+      acc[n] = fma((double)k.x, (double)x.x, acc[n]);
+      acc[n] = fma((double)k.y, (double)x.y, acc[n]);
+      acc[n] = fma((double)k.z, (double)x.z, acc[n]);
+      acc[n] = fma((double)k.w, (double)x.w, acc[n]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NV; ++n) part[n][t] = acc[n];
+}
+
+// (K0 v)[row] from its parts, summed in part order.
+__device__ __forceinline__ float combine_parts(const double* part, int row, int S) {
+  double acc = part[row];
+  for (int q = 1; q < kGlueThreads / S; ++q) acc += part[q * S + row];
   return (float)acc;
 }
 
-// out = A0^{-1} v by Woodbury against K0 = C0s^{-1} (the a0inv of _glue_math).
-__device__ void a0inv(const float* __restrict__ k0, const float* v, float* out,
-                      const float* wt, const float* wu, float* kv, GlueScalars& sc, int S) {
-  k0_matvec(k0, v, kv, S);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const float y0 = dot_serial(wt, v, S);
-    const float y1 = dot_serial(wu, v, S);
-    sc.x0 = (sc.i11 * y0 - sc.i01 * y1) / sc.det;
-    sc.x1 = (-sc.i10 * y0 + sc.i00 * y1) / sc.det;
+// out = A0^{-1} v by Woodbury against K0 = C0s^{-1} (the a0inv of _glue_math):
+// the matvec's parts and the dots y0 = wt.v, y1 = wu.v (warps 0, 1) in one
+// phase, then the update. v is complete and zero past S on entry.
+__device__ __forceinline__ void a0inv(const float* k0s, const float* v, float* out, GlueSmem& g,
+                                      const GlueInv& iv, int S) {
+  const int t = threadIdx.x, warp = t / 32;
+  const float* vs[1] = {v};
+  k0_matvec_parts<1>(k0s, vs, g.part, S);
+  if (warp < 2) {
+    const double y = warp_dot(warp == 0 ? g.wt : g.wu, v, S);
+    if (t % 32 == 0) g.dot[4 + warp] = y;
   }
   __syncthreads();
-  const int t = threadIdx.x;
-  if (t < S) out[t] = kv[t] - wt[t] * sc.x0 - wu[t] * sc.x1;
+  const float y0 = (float)g.dot[4], y1 = (float)g.dot[5];
+  const float x0 = (iv.i11 * y0 - iv.i01 * y1) / iv.det;
+  const float x1 = (-iv.i10 * y0 + iv.i00 * y1) / iv.det;
+  if (t < S) out[t] = combine_parts(g.part[0], t, S) - g.wt[t] * x0 - g.wu[t] * x1;
   __syncthreads();
 }
 
 // base: the block's records, (nchunks, S + 2); cin / cnext: its carry rows
-// (4, S); m0b (S,); k0 (S, S) of the block.
+// (4, S); m0b (S,); k0 (S, S) of the block; k0s: glue_k0_pitch(S) * S floats
+// of shared memory beside g.
 __device__ void glue_block(const float* base, int nchunks, const float* __restrict__ cin,
                            float* __restrict__ cnext, const float* __restrict__ m0b,
                            const float* __restrict__ tmpl, const float* __restrict__ k0,
-                           float nin, int S, float alpha, GlueSmem& g) {
-  const int t = threadIdx.x;
-  GlueScalars& sc = g.sc;
-  for (int s = t; s < S + 2; s += kGlueThreads) {
-    double acc = 0.0;
-    for (int c = 0; c < nchunks; ++c) acc += (double)__ldcg(base + (long long)c * (S + 2) + s);
-    if (s < S) {
-      g.u[s] = (float)acc * nin;  // u = s1 * nin
-    } else if (s == S) {
-      sc.gbar = (float)acc * nin;
-    } else {
-      sc.beta = (float)acc * nin;  // mom1 * nin; gbar^2 subtracted below
-    }
+                           float nin, int S, float alpha, GlueSmem& g, float* k0s) {
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  stage_k0(k0s, k0, S);
+  float tmpl_t = 0.f, m0_t = 0.f;
+  if (t < S) {
+    tmpl_t = tmpl[t];
+    m0_t = m0b[t];
+    g.tgt[t] = cin[S + t];
+  } else {  // the matvecs read whole float4s: zero past S
+    g.u[t] = g.tgt[t] = g.tnew[t] = g.v2[t] = g.wt[t] = g.wu[t] = 0.f;
   }
-  if (t < S) g.tgt[t] = cin[S + t];
+  const int ncol = S + 2, nq = max(1, kGlueThreads / ncol);
+  double* parts = &g.part[0][0];
+  for (int e = t; e < nq * ncol; e += kGlueThreads) {  // overlaps K0's copies
+    const int col = e % ncol;
+    double acc = 0.0;
+#pragma unroll 8
+    for (int c = e / ncol; c < nchunks; c += nq) acc += (double)__ldcg(base + (long long)c * ncol + col);
+    parts[e] = acc;
+  }
+  cp_async_wait_pending(0);
   __syncthreads();
-  if (t == 0) sc.beta = sc.beta - sc.gbar * sc.gbar;
+  for (int col = t; col < ncol; col += kGlueThreads) {
+    double acc = parts[col];
+    for (int q = 1; q < nq; ++q) acc += parts[q * ncol + col];
+    const float v = (float)acc * nin;  // u = s1 * nin; gbar; mom1 * nin
+    if (col < S)
+      g.u[col] = v;
+    else
+      g.sc[col - S] = v;
+  }
   __syncthreads();
+  const float gbar = g.sc[0], beta = g.sc[1] - gbar * gbar;
 
   float mu_new = 0.f;
   if (t < S) {
-    mu_new = -g.tgt[t] * sc.gbar;
-    g.tnew[t] = tmpl[t] * (m0b[t] + mu_new);
+    mu_new = -g.tgt[t] * gbar;
+    g.tnew[t] = tmpl_t * (m0_t + mu_new);
   }
-  k0_matvec(k0, g.tgt, g.wt, S);
-  k0_matvec(k0, g.u, g.wu, S);
-  __syncthreads();
-  if (t == 0) {
-    const float g00 = dot_serial(g.tgt, g.wt, S);
-    const float g01 = dot_serial(g.tgt, g.wu, S);
-    const float g10 = dot_serial(g.u, g.wt, S);
-    const float g11 = dot_serial(g.u, g.wu, S);
-    const float sa = 1.f - alpha;
-    sc.i00 = g00;
-    sc.i01 = g01 - 1.f / sa;
-    sc.i10 = g10 - 1.f / sa;
-    sc.i11 = g11 - sc.beta / sa;
-    sc.det = sc.i00 * sc.i11 - sc.i01 * sc.i10;
+  {
+    const float* vs[2] = {g.tgt, g.u};  // K0 target and K0 u in one sweep
+    k0_matvec_parts<2>(k0s, vs, g.part, S);
   }
   __syncthreads();
+  if (t < S) {
+    g.wt[t] = combine_parts(g.part[0], t, S);
+    g.wu[t] = combine_parts(g.part[1], t, S);
+  }
+  __syncthreads();
+  {  // g00 = target.wt, g01 = target.wu, g10 = u.wt, g11 = u.wu: one warp each
+    const double d = warp_dot(warp < 2 ? g.tgt : g.u, warp % 2 == 0 ? g.wt : g.wu, S);
+    if (lane == 0) g.dot[warp] = d;
+  }
+  __syncthreads();
+  const float sa = 1.f - alpha;
+  GlueInv iv;
+  iv.i00 = (float)g.dot[0];
+  iv.i01 = (float)g.dot[1] - 1.f / sa;
+  iv.i10 = (float)g.dot[2] - 1.f / sa;
+  iv.i11 = (float)g.dot[3] - beta / sa;
+  iv.det = iv.i00 * iv.i11 - iv.i01 * iv.i10;
 
-  a0inv(k0, g.tnew, g.z, g.wt, g.wu, g.kv, sc, S);
+  a0inv(k0s, g.tnew, g.z, g, iv, S);
   if (alpha != 0.f) {
     if (t < S) {
-      const float d = sc.beta * g.tgt[t] * g.tgt[t] - 2.f * g.tgt[t] * g.u[t];
+      const float d = beta * g.tgt[t] * g.tgt[t] - 2.f * g.tgt[t] * g.u[t];
       g.v2[t] = alpha * d * g.z[t];
     }
     __syncthreads();
-    a0inv(k0, g.v2, g.z2, g.wt, g.wu, g.kv, sc, S);
+    a0inv(k0s, g.v2, g.z2, g, iv, S);
     if (t < S) g.z[t] = g.z[t] - g.z2[t];
     __syncthreads();
   }
-  if (t == 0) sc.norm = fmaxf(dot_serial(g.tnew, g.z, S), 1.f);
+  if (warp == 0) {
+    const double d = warp_dot(g.tnew, g.z, S);
+    if (lane == 0) g.dot[6] = d;
+  }
   __syncthreads();
+  const float norm = fmaxf((float)g.dot[6], 1.f);
   if (t < S) {
     cnext[t] = mu_new;
     cnext[S + t] = g.tnew[t];
     cnext[2 * S + t] = g.z[t];
-    cnext[3 * S + t] = sc.norm;
+    cnext[3 * S + t] = norm;
   }
 }
 

@@ -22,7 +22,7 @@
 // bound by HBM bytes, fused_iter CHOLESKY's S x S scatter aside.
 //
 // Numerics: f32 values and FMAs, no TF32 and no tensor cores; cross-chunk
-// reductions in f64 in chunk order, so a rerun is bitwise identical.
+// reductions in f64 in a fixed order, so a rerun is bitwise identical.
 //
 // Interface: plain C functions taking raw pointers and the caller's stream;
 // bindings.cpp registers them as torch ops. Each returns the cudaError_t of
@@ -204,8 +204,8 @@ fused_iter_cholesky_partial_kernel(int first, const T* __restrict__ xs,
     }
     __syncthreads();
   }
-  write_stats_record<TS>(partial + ((long long)b * nchunks + c) * (1 + S + S * S), n_run, mean,
-                         acc, S);
+  write_stats_record<TS>(partial + ((long long)b * nchunks + c) * stats_record_len(S), n_run,
+                         mean, acc, S);
 }
 
 // ---------------------------------------------------------------------------
@@ -215,7 +215,7 @@ fused_iter_cholesky_partial_kernel(int first, const T* __restrict__ xs,
 // a 13.8 MB f32 block fits no SM, so here many CTAs share a block and the
 // last one to finish runs the glue: each CTA writes its chunk record, fences
 // (__threadfence) and adds one to its block's counter; the CTA that sees
-// nchunks - 1 fences again, sums the block's records in chunk order (so a
+// nchunks - 1 fences again, sums the block's records in a fixed order (so a
 // rerun is bitwise identical) and runs glue_block, the math of filter_glue,
 // into carry_out, then puts the counter back to 0, so the next launch finds
 // it so. The caller zeroes the counters once per filter, in stream order,
@@ -237,8 +237,9 @@ filter_round_mono_kernel(const T* __restrict__ xs, const float* __restrict__ m0,
                                                             mf_out, partial, 0, S, R, P, P, geom,
                                                             nchunks, cov_scale);
   if constexpr (MODE != kFinal) {
-    // The glue's scratch reuses the round's ring (drained, no longer read):
-    // no static GlueSmem, so the ring keeps its CTAs per SM.
+    // The glue's scratch and K0 reuse the round's ring (drained, no longer
+    // read; the launch checks that it holds glue_smem_bytes(S)): no static
+    // GlueSmem, so the ring keeps its CTAs per SM.
     extern __shared__ __align__(16) unsigned char round_smem[];
     GlueSmem& g = *reinterpret_cast<GlueSmem*>(round_smem);
     __shared__ bool last;
@@ -252,7 +253,7 @@ filter_round_mono_kernel(const T* __restrict__ xs, const float* __restrict__ m0,
     glue_block(partial + (long long)b * nchunks * (S + 2), nchunks,
                carry_in + (long long)b * 4 * S, carry_out + (long long)b * 4 * S,
                m0 + (long long)b * S, tmpl, k0_all + (long long)b * S * S, nin_all[b], S, alpha,
-               g);
+               g, reinterpret_cast<float*>(round_smem + sizeof(GlueSmem)));
     if (threadIdx.x == 0) counter[b] = 0u;
   }
 }
@@ -334,7 +335,7 @@ cudaError_t launch_mono_mode(int mode, const void* xs_raw, const float* m0,
                              int P, const RoundGeom& g, int nchunks, int nb, float cov_scale,
                              float alpha, cudaStream_t st) {
   const T* xs = static_cast<const T*>(xs_raw);
-  if (!stream_geom_ok<T>(g, xs, S, P, nchunks) || (size_t)g.smem < sizeof(GlueSmem))
+  if (!stream_geom_ok<T>(g, xs, S, P, nchunks) || (size_t)g.smem < glue_smem_bytes(S))
     return cudaErrorInvalidValue;
   if (g.aligned)
     return launch_mono_vec<T, BF16_DOTS, CENTER, true>(mode, xs, m0, carry_in, r, mf_in, mf_out,
@@ -394,7 +395,7 @@ int starcop_fused_iter_woodbury(int first, const void* xs, int f32, const unsign
 #undef STARCOP_WOODBURY
 }
 
-// One fused_iter CHOLESKY pass: partial is (nb, nchunks, 1 + S + S*S) over
+// One fused_iter CHOLESKY pass: partial is (nb, nchunks, stats_record_len(S)) over
 // chunks of `chunk` pixels, then mean (nb, S), cov (nb, S, S) come from a
 // second launch.
 int starcop_fused_iter_cholesky(int first, const void* xs, int f32, const unsigned char* valid,
@@ -424,9 +425,7 @@ int starcop_fused_iter_cholesky(int first, const void* xs, int f32, const unsign
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  init_stats_reduce_kernel<<<nb, kThreads, S * sizeof(double), st>>>(partial, nullptr, mean, cov,
-                                                                     S, nchunks);
-  return (int)cudaGetLastError();
+  return (int)launch_stats_reduce(partial, nullptr, mean, cov, S, nchunks, nb, st);
 }
 
 // One mono round over the stream (nb, R, P): FIRST / LOOP write carry_out,

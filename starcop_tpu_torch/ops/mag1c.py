@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from starcop_tpu_torch.device import DeviceLike, resolve_device
+from starcop_tpu_torch.device import DeviceLike, float32_precision, resolve_device
 
 NODATA = -9999.0
 SCALING = 1e5
@@ -81,8 +81,13 @@ def _shrink_diag(c: torch.Tensor, alpha: float) -> torch.Tensor:
 
 
 def _cho_solve_vec(c: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve C z = b for SPD C. c (B, S, S), b (B, S) -> (B, S)."""
-    return torch.cholesky_solve(b[..., None], torch.linalg.cholesky(c))[..., 0]
+    """Solve C z = b for SPD C. c (B, S, S), b (B, S) -> (B, S). Where C is
+    not positive definite (a block with no valid pixel has C = 0) z is NaN,
+    as JAX's ``jnp.linalg.cholesky`` gives; nothing raises or waits for the
+    device."""
+    factor, info = torch.linalg.cholesky_ex(c)
+    z = torch.cholesky_solve(b[..., None], factor)[..., 0]
+    return torch.where((info == 0)[:, None], z, torch.nan)
 
 
 def _chol_inv_rec(a: torch.Tensor) -> torch.Tensor:
@@ -277,6 +282,10 @@ def mag1c_column_blocks(
     as (H, W, S) and takes the masked route above, as JAX's generic path
     does. Any other layout raises ``ValueError``.
 
+    ``num_iter < 1`` (the rmf-only result) takes JAX's own route for it,
+    the plain ``acrwl1mf`` over the blocks at f32 whatever ``stream_dtype``
+    (``_column_blocks_plain``): the kernel filters refuse it.
+
     Returns (mf, albedo) as (H, W) float32 tensors on the device, with
     ``fill_value`` at invalid pixels.
     """
@@ -296,6 +305,14 @@ def mag1c_column_blocks(
     nb = -(-w_dim // step)
     x = torch.as_tensor(scene, dtype=torch.float32, device=dev)
     tpl = torch.as_tensor(template, dtype=torch.float32, device=dev)
+
+    if num_iter < 1:
+        # JAX's routing (starcop_tpu/ops/mag1c.py:621-630): the rmf-only
+        # result is a contract of the plain path; no kernel computes it.
+        if band_major:
+            x = x.permute(1, 2, 0)
+        return _column_blocks_plain(x, tpl, valid_mask, nb, step, num_iter=num_iter,
+                                    alpha=alpha, fill_value=fill_value)
 
     if valid_mask is None and nb * step == w_dim:
         if band_major:
@@ -319,6 +336,32 @@ def mag1c_column_blocks(
     mf2 = unblock_columns(mf, h, step)[:, :w_dim]
     albedo2 = unblock_columns(albedo, h, step)[:, :w_dim]
     return torch.where(valid, mf2, fill_value), torch.where(valid, albedo2, fill_value)
+
+
+def _column_blocks_plain(x, tpl, valid_mask, nb: int, step: int, *, num_iter: int, alpha: float,
+                         fill_value: float):
+    """``mag1c_column_blocks`` through the plain ``acrwl1mf`` over the
+    (nb, H * step, S) blocks of the (H, W, S) cube x at f32, as JAX's XLA
+    path (starcop_tpu/ops/mag1c.py:728-760): the ragged last block padded,
+    the keep rows (valid and below W) as weights when there is a mask or a
+    ragged block, invalid pixels selected to 0 (never multiplied), and
+    ``fill_value`` at invalid pixels of the (H, W) result."""
+    from starcop_tpu_torch.ops.mag1c_kernels import _keep_rows
+
+    h, w_dim, _ = x.shape
+    pad = nb * step - w_dim
+    xb = block_columns(F.pad(x, (0, 0, 0, pad)), nb, step)
+    valid = (torch.ones((h, w_dim), dtype=torch.bool, device=x.device) if valid_mask is None
+             else torch.as_tensor(valid_mask, dtype=torch.bool, device=x.device))
+    weights = None
+    if valid_mask is not None or pad:
+        keep = _keep_rows(valid, nb, step)
+        xb = torch.where(keep[..., None], xb, 0.0)
+        weights = keep.to(x.dtype)
+    with float32_precision():
+        mf, albedo = acrwl1mf(xb, tpl, weights, num_iter=num_iter, alpha=alpha)
+    grid = lambda v: unblock_columns(v[..., 0], h, step)[:, :w_dim]  # noqa: E731
+    return torch.where(valid, grid(mf), fill_value), torch.where(valid, grid(albedo), fill_value)
 
 
 def reference_oracle_acrwl1mf(

@@ -104,7 +104,9 @@ from starcop_tpu_torch.ops.mag1c import (
 )
 
 FIRST, LOOP, FINAL = 0, 1, 2
-INIT_CHUNK = 2048   # pixels of one block per init_stats[_bsp] CTA
+# Pixels of one block per CTA of init_stats_bsp, init_stats_stream and
+# fused_iter CHOLESKY (the cube statistics take stats_geometry's chunks).
+INIT_CHUNK = 2048
 
 # The streaming rounds' launch geometry (csrc/mag1c_common.cuh, "The
 # streaming rounds"): a CTA of ROUND_THREADS threads, one pixel each per tile,
@@ -123,6 +125,17 @@ ROUND_FIXED_BYTES = 4 * (2 * ROUND_THREADS + 2 * MAX_BANDS + 16)
 BF16_ROW_PITCH = ROUND_THREADS + 8  # staged bf16 stream row, 272 bytes
 MONO_STATIC_SMEM = 16          # filter_round_mono's static flag (its glue reuses the ring)
 DEFAULT_SM_COUNT = 132         # H100 SXM; a CUDA device reports its own
+
+# The cube statistics (init_stats[_masked], csrc/mag1c.cu): a CTA of
+# STATS_THREADS threads, __launch_bounds__(256, 2), the rounds' tiles in a
+# ring of 2..MAX_STAGES, the centred tile restaged beside it.
+STATS_THREADS = 256
+STATS_CTAS_PER_SM = 2
+# StatsScratch: the sweep's sums (two a thread), delta / mean, the pixels'
+# offsets and columns.
+STATS_STATIC_SMEM = 4 * (2 * STATS_THREADS + 2 * MAX_BANDS + 2 * ROUND_THREADS)
+# filter_glue / mono's glue: GlueSmem, then K0 staged at glue_k0_pitch(S).
+GLUE_FIXED_BYTES = 6272
 
 
 class RoundGeometry(NamedTuple):
@@ -152,6 +165,48 @@ class RoundGeometry(NamedTuple):
                 int(self.aligned), self.smem_bytes]
 
 
+def stats_record_len(s: int) -> int:
+    """Floats of one statistics record: [n | mean(s) | the lower triangle of
+    the s x s centred scatter, row by row]."""
+    return 1 + s + s * (s + 1) // 2
+
+
+def stats_microtiles(s: int) -> int:
+    """The 8 x 8 register micro-tiles that cover the s x s lower triangle."""
+    n = -(-s // 8)
+    return n * (n + 1) // 2
+
+
+def stats_smem_bytes(stages: int, tile_bytes: int, s: int) -> int:
+    """Dynamic shared memory of an ``init_stats[_masked]`` CTA (the
+    kernel's ``stats_smem_bytes``): the ring (tile, mask word and position
+    per pixel slot) and the centred tile at 8 ceil(s / 8) floats a pixel, or
+    the scatter groups' sums where those need more."""
+    tiles = stats_microtiles(s)
+    ring = stages * (tile_bytes + 5 * ROUND_THREADS) + 4 * ROUND_THREADS * (-(-s // 8) * 8)
+    return max(ring, 256 * tiles * (STATS_THREADS // tiles - 1))
+
+
+def glue_k0_pitch(s: int) -> int:
+    """Row pitch (floats) of K0 staged by the glue: s rounded up to 4, plus
+    4 where that is a multiple of 8 (no bank conflicts)."""
+    p = -(-s // 4) * 4
+    return p + 4 if p % 8 == 0 else p
+
+
+def glue_smem_bytes(s: int) -> int:
+    """Shared memory of the glue (``filter_glue``, mono's last CTA)."""
+    return GLUE_FIXED_BYTES + 4 * s * glue_k0_pitch(s)
+
+
+def _cube_tile(step: int, s: int):
+    """The cube tile: (rows, columns, segments per block row, bytes). Whole
+    rows of a block, or segments of a row wider than ROUND_THREADS pixels."""
+    tile_cols = min(step, ROUND_THREADS)
+    tile_rows = max(1, ROUND_THREADS // step) if step <= ROUND_THREADS else 1
+    return tile_rows, tile_cols, -(-step // tile_cols), 4 * tile_rows * (-(-tile_cols * s // 4) * 4)
+
+
 def _chunk_tiles(nb: int, tiles: int, unit: int, slots: int, stages: int) -> int:
     """Tiles per chunk, a multiple of ``unit``: the fewest waves of ``slots``
     resident CTAs times a CTA's work (its tiles plus the ring's fill), so the
@@ -178,12 +233,8 @@ def round_geometry(layout: str, nb: int, p: int, s: int, *, step: int = 0, width
     if not 1 <= s <= MAX_BANDS:
         raise ValueError(f"band count {s} outside [1, {MAX_BANDS}]")
     if layout == "hws":
-        h = p // step
-        tile_cols = min(step, ROUND_THREADS)
-        tile_rows = max(1, ROUND_THREADS // step) if step <= ROUND_THREADS else 1
-        nseg = -(-step // tile_cols)
-        tiles, unit = -(-h // tile_rows) * nseg, nseg
-        tile_bytes = 4 * tile_rows * (-(-tile_cols * s // 4) * 4)
+        tile_rows, tile_cols, nseg, tile_bytes = _cube_tile(step, s)
+        tiles, unit = -(-(p // step) // tile_rows) * nseg, nseg
         aligned = aligned_ptr and (width * s) % 4 == 0 and (step * s) % 4 == 0
     elif layout == "bsp":
         tile_rows, tile_cols = 1, ROUND_THREADS
@@ -199,6 +250,28 @@ def round_geometry(layout: str, nb: int, p: int, s: int, *, step: int = 0, width
     k = _chunk_tiles(nb, tiles, unit, max(1, ctas) * sm_count, stages)
     return RoundGeometry(tile_rows, tile_cols, tiles, k, -(-tiles // k), stages, aligned, smem,
                          static_smem, ctas)
+
+
+@functools.lru_cache(maxsize=256)
+def stats_geometry(nb: int, h: int, step: int, s: int, *, width: int, aligned_ptr: bool = True,
+                   sm_count: int = DEFAULT_SM_COUNT) -> RoundGeometry:
+    """The geometry of ``init_stats[_masked]`` on the (h, width, s) cube in
+    ``nb`` blocks of ``step`` columns: the rounds' cube tiles, the most ring
+    stages that leave STATS_CTAS_PER_SM CTAs on an SM (at least 2), and the
+    tiles per chunk that fill the last wave."""
+    if not 1 <= s <= MAX_BANDS:
+        raise ValueError(f"band count {s} outside [1, {MAX_BANDS}]")
+    tile_rows, tile_cols, nseg, tile_bytes = _cube_tile(step, s)
+    tiles = -(-h // tile_rows) * nseg
+    per_cta = SMEM_PER_SM // STATS_CTAS_PER_SM - CTA_RESERVED_SMEM - STATS_STATIC_SMEM
+    stages = max([2] + [k for k in range(2, MAX_STAGES + 1)
+                        if stats_smem_bytes(k, tile_bytes, s) <= per_cta])
+    smem = stats_smem_bytes(stages, tile_bytes, s)
+    ctas = min(STATS_CTAS_PER_SM, SMEM_PER_SM // (smem + STATS_STATIC_SMEM + CTA_RESERVED_SMEM))
+    k = _chunk_tiles(nb, tiles, nseg, max(1, ctas) * sm_count, stages)
+    aligned = aligned_ptr and (width * s) % 4 == 0 and (step * s) % 4 == 0
+    return RoundGeometry(tile_rows, tile_cols, tiles, k, -(-tiles // k), stages, aligned, smem,
+                         STATS_STATIC_SMEM, ctas)
 
 
 def _sm_count(dev: torch.device) -> int:
@@ -224,6 +297,13 @@ def cube_geometry(x: torch.Tensor, nb: int, step: int) -> RoundGeometry:
     """``round_geometry`` of ``filter_round[_masked]`` on the (H, W, S) cube x."""
     h, w, s = x.shape
     return round_geometry("hws", nb, h * step, s, step=step, width=w, aligned_ptr=_aligned16(x),
+                          sm_count=_sm_count(x.device))
+
+
+def cube_stats_geometry(x: torch.Tensor, nb: int, step: int) -> RoundGeometry:
+    """``stats_geometry`` of ``init_stats[_masked]`` on the (H, W, S) cube x."""
+    h, w, s = x.shape
+    return stats_geometry(nb, h, step, s, width=w, aligned_ptr=_aligned16(x),
                           sm_count=_sm_count(x.device))
 
 
@@ -606,12 +686,13 @@ def filter_glue_plain(stats, carry, m0, template, k0, *, n, alpha):
 
 
 def _launch_init(op, args, x, nb, step):
-    h, _, s = x.shape
-    nchunks = -(-h * step // INIT_CHUNK)
-    partial = torch.empty((nb, nchunks, 1 + s + s * s), dtype=torch.float32, device=x.device)
+    s = x.shape[2]
+    geom = cube_stats_geometry(x, nb, step)
+    partial = torch.empty((nb, geom.nchunks, stats_record_len(s)), dtype=torch.float32,
+                          device=x.device)
     m0 = torch.empty((nb, s), dtype=torch.float32, device=x.device)
     c0 = torch.empty((nb, s, s), dtype=torch.float32, device=x.device)
-    op(*args, partial, m0, c0, nb, step, INIT_CHUNK, _stream(x))
+    op(*args, partial, m0, c0, nb, step, geom.op_args(), _stream(x))
     return m0, c0
 
 
@@ -716,7 +797,7 @@ def init_stats_bsp(xs: torch.Tensor, n: torch.Tensor):
     if xs.device.type == "cpu":
         return init_stats_bsp_plain(xs, n)
     nb, rows, p = xs.shape
-    partial = torch.empty((nb, -(-p // INIT_CHUNK), 1 + rows + rows * rows), dtype=torch.float32,
+    partial = torch.empty((nb, -(-p // INIT_CHUNK), stats_record_len(rows)), dtype=torch.float32,
                           device=xs.device)
     c0 = torch.empty((nb, rows, rows), dtype=torch.float32, device=xs.device)
     _kernels().init_stats_bsp(xs, n.contiguous(), partial, c0, INIT_CHUNK, _stream(xs))
@@ -769,7 +850,7 @@ def init_stats_stream(xs: torch.Tensor, s: int):
     if xs.device.type == "cpu":
         return init_stats_stream_plain(xs, s)
     nb, _, p = xs.shape
-    partial = torch.empty((nb, -(-p // INIT_CHUNK), 1 + s + s * s), dtype=torch.float32,
+    partial = torch.empty((nb, -(-p // INIT_CHUNK), stats_record_len(s)), dtype=torch.float32,
                           device=xs.device)
     m0 = torch.empty((nb, s), dtype=torch.float32, device=xs.device)
     c0 = torch.empty((nb, s, s), dtype=torch.float32, device=xs.device)
@@ -802,7 +883,7 @@ def fused_iter(xs, valid, m0, carry, r, mf_prev, *, first, woodbury, cov_scale=1
                                        _stream(xs))
         _count("fused_iter_woodbury")
         return mf, stats
-    partial = torch.empty((nb, -(-p // INIT_CHUNK), 1 + s + s * s), dtype=torch.float32,
+    partial = torch.empty((nb, -(-p // INIT_CHUNK), stats_record_len(s)), dtype=torch.float32,
                           device=dev)
     mean = torch.empty((nb, s), dtype=torch.float32, device=dev)
     cov = torch.empty((nb, s, s), dtype=torch.float32, device=dev)

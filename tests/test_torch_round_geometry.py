@@ -81,6 +81,20 @@ def test_ring_fits_shared_memory(s, layout, elem_bytes, step, static):
     assert geom.smem_bytes == geom.stages * (tile + tk.PIX_STAGE_BYTES) + tk.ROUND_FIXED_BYTES
 
 
+@pytest.mark.parametrize("s", [1, 12, 37, 50, 56, 74, 100, 127, 128])
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+def test_mono_ring_holds_the_glue(s, elem_bytes):
+    """filter_round_mono's last CTA runs the glue in its drained ring: the
+    ring holds the glue's scratch and K0 staged at a row pitch whose float4
+    reads are free of bank conflicts (csrc/mag1c_common.cuh: glue_smem_bytes;
+    the kernel refuses a smaller ring)."""
+    geom = tk.round_geometry("bsp", 23, 1280 * 54, s, elem_bytes=elem_bytes,
+                             static_smem=tk.MONO_STATIC_SMEM)
+    pitch = tk.glue_k0_pitch(s)
+    assert pitch >= s and pitch % 4 == 0 and (pitch // 4) % 2 == 1
+    assert geom.smem_bytes >= tk.glue_smem_bytes(s) == tk.GLUE_FIXED_BYTES + 4 * s * pitch
+
+
 @pytest.mark.parametrize("step", [32, 54])
 def test_emit_shapes_take_the_aligned_copies(step):
     h, w, s = 1280, 1242, 50
