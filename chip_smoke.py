@@ -30,7 +30,15 @@ every hand-written kernel against its plain torch twin on the card:
      ragged last block and a wholly invalid block) within 1e-5 of its f64
      twin, the empty block at m0 = 0 and C0 = 0, reruns bitwise equal; and
      filter_glue at S = 37 and S = 128 within 4x the f32 twin's error
-     against the f64 twin + 1e-6, bitwise equal on a rerun;
+     against the f64 twin + 1e-6, bitwise equal on a rerun; the stream
+     statistics on the blocked streams of the same cubes (P = 1,485: 4-byte
+     f32 copies and bf16 word copies; P = 1,500: 16-byte f32 copies and bf16
+     word copies): init_stats_stream, init_stats_bsp (block 1 wholly
+     invalid) and fused_iter CHOLESKY (first and not first, on the raw f32
+     stream and on the masked centred stream with a (B, P) valid row that
+     empties block 1), m0 / C0 / mean / covariance within 1e-5 of the f64
+     twin and CHOLESKY's mf, mean and covariance within 4x the f32 twin's
+     error + 1e-6, the empty block at 0, reruns bitwise equal;
   5. emit_granule_to_mask on a seeded U-Net whose output spreads over
      (0, 1) and follows the filter (Kaiming-normal convolutions, randomised
      batch-norm statistics, the first layer's mag1c weights x MF_GAIN),
@@ -118,8 +126,8 @@ every hand-written kernel against its plain torch twin on the card:
      >= 0.999 with its f64 twin (detections > 0) and albedo within 1e-4;
      mono, woodbury and shw at bf16 meeting bf16_contract against their f32
      route; every filter bitwise equal on a rerun; each filter timed beside
-     the Woodbury base of the stream's statistics, and the mono and resident
-     filters traced;
+     the Woodbury base of the stream's statistics, and the mono, resident and
+     cholesky filters traced;
  14. mag1c_column_blocks(num_iter=0), the rmf-only result that JAX routes
      to its plain filter, on the bench scene and on phase 7's served
      granule, with launch counts zeroed just before and read just after
@@ -129,7 +137,8 @@ every hand-written kernel against its plain torch twin on the card:
      agreement >= 0.999 with detections.
 
 Prints the card line, every kernel's registers, spills and static shared
-memory from the build ("ptxas:" lines), each timed kernel's share of
+memory from the build ("ptxas:" lines; a spill in any of the statistics
+kernels' instantiations fails the build check), each timed kernel's share of
 its bound ("time ..."), "timings" and "profile" JSON lines and a "kernels"
 JSON line, and ends with {"ok": true, "device": {...}}. Any failed check exits non-zero
 without the ok line. Peak rates for the bounds are NVIDIA's H100 SXM data
@@ -268,6 +277,26 @@ def profile_granule(run, label: str = "granule_to_mask") -> None:
         "idle_share": (1 - busy_us / wall_us) if wall_us > 0 else None,
         "top": [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
                 for e in top]}), flush=True)
+
+
+# The statistics kernels, 4 instantiations each (T or MASKED x VEC16), whose
+# 64 accumulators must stay in registers.
+STATS_KERNELS = ("init_stats_partial_kernel", "stream_stats_partial_kernel",
+                 "fused_iter_cholesky_partial_kernel")
+
+
+def stats_spills(log: str) -> dict:
+    """{mangled kernel name: (spill store bytes, spill load bytes)} from the
+    ptxas -v lines of a build log."""
+    spills, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            name = line.split("Function properties for ", 1)[1].strip()
+        elif "spill stores" in line and name is not None:
+            nums = [int(tok) for tok in line.replace(",", " ").split() if tok.isdigit()]
+            spills[name] = (nums[1], nums[2])  # stack frame, spill stores, spill loads
+            name = None
+    return spills
 
 
 def corr(a, b) -> float:
@@ -818,9 +847,9 @@ def masked_bf16_phase(dev, template, granule):
     check(not bool(xs[20].any()), "blocked_transpose: the wholly invalid block 20 is all zero")
     fields["blocked_transpose_masked"] = dict(rel_err=0.0, max_abs_err=0.0,
                                               check="bitwise equal to its twin")
-    c0r = mk.init_stats_bsp(xs, n)
-    c0_64 = mk.init_stats_bsp_plain(xs.double(), n.double())
-    c0_32 = mk.init_stats_bsp_plain(xs, n)
+    c0r = mk.init_stats_bsp(xs, n, s)
+    c0_64 = mk.init_stats_bsp_plain(xs.double(), n.double(), s)
+    c0_32 = mk.init_stats_bsp_plain(xs, n, s)
     e_c0 = rel_err(c0r[live], c0_64[live])
     check(e_c0 <= 1e-5 and bool((c0r[~live] == 0).all()),
           f"init_stats_bsp (n per block) vs f64 twin: C0 rel err {e_c0:.3e} (<= 1e-5) on the "
@@ -828,7 +857,7 @@ def masked_bf16_phase(dev, template, granule):
     fields["init_stats_bsp"] = dict(rel_err=e_c0, max_abs_err=float((c0r - c0_32).abs().max()),
                                     check="C0 rel err vs f64 twin <= 1e-5 on live blocks")
 
-    k0, tgt0, cit0, norm0 = mk._woodbury_base(c0r[:, :s, :s], m0, tpl, ALPHA)
+    k0, tgt0, cit0, norm0 = mk._woodbury_base(c0r, m0, tpl, ALPHA)
     k0 = k0.contiguous()
     carry = mk.pack_carry(tgt0, cit0, norm0)
     glue_kw = dict(m0=m0, template=tpl, k0=k0, n=n, alpha=ALPHA)
@@ -892,7 +921,13 @@ def masked_bf16_phase(dev, template, granule):
     n_round = mk.stream_geometry(xs, s).nchunks  # chunk records per block
     live_bytes = 2.0 * nb * s * p  # the live band rows of the whole stream
     stream_bytes = 2.0 * n_valid * s + H * W  # the valid pixels' live bands and the mask
-    xs32 = xs.float()
+    xs32 = xs[:, :s].float().contiguous()  # the live rows, upcast (set-up)
+    m0_cols = m0.repeat_interleave(MSTEP, 0)[:W]  # each column's block mean (set-up)
+
+    def library_masked_transpose():
+        xc = torch.where(valid[..., None], x - m0_cols, 0.0)
+        xc = torch.nn.functional.pad(xc, (0, 0, 0, nb * MSTEP - W))
+        return xc.view(H, nb, MSTEP, s).permute(1, 3, 0, 2).to(torch.bfloat16)
 
     def library_centred_stats():
         return torch.bmm(xs32, xs32.transpose(1, 2)) / n[:, None, None]
@@ -901,20 +936,22 @@ def masked_bf16_phase(dev, template, granule):
         "blocked_transpose_masked": dict(
             kernel=lambda: mk.blocked_transpose(x, nb, MSTEP, rows, m0, valid=valid),
             plain=lambda: mk.blocked_transpose_plain(x, nb, MSTEP, rows, m0, valid=valid),
-            library=None,
+            library=library_masked_transpose,
             bound=bound_ms(4.0 * n_valid * s + H * W + 4.0 * nb * s + live_bytes,
                            1.0 * n_valid * s),
-            note="bound: the valid pixels read, the live band rows written",
+            note="bound: the valid pixels read, the live band rows written; library: where, "
+                 "pad, permute and cast (no pad rows)",
             replaces="1796", tpu_kernel="XLA centre, mask and transpose of the masked stream "
                                         ":1796-1798 (no Pallas kernel)"),
         "init_stats_bsp": dict(
-            kernel=lambda: mk.init_stats_bsp(xs, n),
-            plain=lambda: mk.init_stats_bsp_plain(xs, n),
+            kernel=lambda: mk.init_stats_bsp(xs, n, s),
+            plain=lambda: mk.init_stats_bsp_plain(xs, n, s),
             library=library_centred_stats,
             bound=bound_ms(live_bytes + 4.0 * nb * (1 + s * s), 1.0 * n_valid * s * (s + 1),
                            BF16_FLOP_PER_S),
             note="one call = 2 __global__ launches; bound: the live band rows, products of "
-                 "bf16 inputs at the tensor-core rate; library on the stream upcast to f32",
+                 "bf16 inputs at the tensor-core rate; library: bmm on the live rows upcast "
+                 "to f32",
             replaces="1814", tpu_kernel="XLA second moment of the bf16 stream :1814-1824 (no "
                                         "Pallas kernel)"),
         "filter_round_bsp_masked_first": dict(
@@ -1271,6 +1308,7 @@ def fused_routes_phase(dev, x_shw, xs, m0, c0, tpl, mf_32, mf_64, r_64):
     timings["stream_woodbury_base_ms"] = cuda_ms(lambda: mk._woodbury_base(c0, m0, tpl, ALPHA))
     profile_granule(routes["mono"][0], "fused_mono_filter")
     profile_granule(routes["resident"][0], "fused_resident_filter")
+    profile_granule(routes["cholesky"][0], "fused_cholesky_filter")
     return launches, timings
 
 
@@ -1377,7 +1415,7 @@ def odd_geometry_phase(dev):
     keep = mk._keep_rows(valid45, nb, step)
     xc = torch.where(keep[..., None], block_columns(x45, nb, step) - m0_m[:, None, :], 0.0)
     centred_masked = torch.nn.functional.pad(xc.transpose(1, 2), (0, 0, 0, rows - s)).contiguous()
-    k0_m, carry0_m = base(m0_m, mk.init_stats_bsp_plain(centred_masked, n_m)[:, :s, :s])
+    k0_m, carry0_m = base(m0_m, mk.init_stats_bsp_plain(centred_masked, n_m, s))
     bf16 = mk.blocked_transpose(x45, nb, step, rows, m0)
     bf16_m = mk.blocked_transpose(x45, nb, step, rows, m0_m, valid=valid45)
     streams = (  # name, stream, mask, m0, k0, carry0, n, bf16 dots, centre
@@ -1510,7 +1548,108 @@ def odd_stats_phase(dev):
         check(bool(torch.isfinite(got).all()) and torch.equal(mk.filter_glue(st, carry, **kw), got),
               f"odd geometry filter_glue at S = {s}: finite, rerun bitwise equal")
         out[f"filter_glue S={s}"] = err
+
+    # The stream statistics (stream_stats_chunk) on the blocked streams of the
+    # same cubes: P = 1,485 (4-byte f32 copies, bf16 word copies) at S = 37 and
+    # P = 1,500 (16-byte f32 copies, bf16 word copies) at S = 128.
+    for s, (x, nb, step, _, _) in glue_inputs.items():
+        out.update(odd_stream_stats(dev, x, nb, step, empty_block(x.shape[0], x.shape[1], step)))
     print("odd geometry statistics: " + json.dumps(out), flush=True)
+    return out
+
+
+def odd_stream_stats(dev, x, nb, step, valid):
+    """The three stream statistics kernels on the blocked streams of the
+    (H, nb * step, S) cube x: init_stats_stream on the raw f32 stream (m0, C0
+    within 1e-5 of the f64 twin), init_stats_bsp on the centred bf16 stream
+    masked by ``valid`` (block 1 wholly invalid: C0 within 1e-5 on the live
+    blocks, 0 on the empty one), and fused_iter CHOLESKY, first and not first,
+    on the raw f32 stream centred in the kernel and on the masked centred
+    stream (f32 at S < 128, else bf16) with its (B, P) valid row: mean and
+    covariance within 1e-5 of the f64 twin and, with mf, within 4x the f32
+    twin's error + 1e-6; the empty block at mean 0, covariance 0 and mf 0.
+    Every kernel bitwise equal on a rerun. Returns {check: (rel err vs f64,
+    max abs err)}."""
+    import torch
+
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.ops.mag1c import _shrink_diag, block_columns
+    from starcop_tpu_torch.ops.mag1c_fused import _cho_solve, _rmf_init
+
+    h, _, s = x.shape
+    p, rows = h * step, mk.stream_rows(s)
+    tpl = -torch.abs(torch.sin(torch.linspace(0.3, 9.4, s, device=dev)))
+
+    def copies(xs):
+        if mk.stream_stats_geometry_for(xs, s).aligned:
+            return "16-byte"
+        return "4-byte" if xs.dtype == torch.float32 else "word"
+
+    same = lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b))  # noqa: E731
+    out = {}
+
+    raw = mk.blocked_transpose_shw(x.permute(2, 0, 1).contiguous(), nb, step, rows)
+    m0, c0 = mk.init_stats_stream(raw, s)
+    m0_64, c0_64 = mk.init_stats_stream_plain(raw.double(), s)
+    m0_32, c0_32 = mk.init_stats_stream_plain(raw, s)
+    e = max(rel_err(m0, m0_64), rel_err(c0, c0_64))
+    name = f"init_stats_stream S = {s} P = {p}"
+    check(e <= 1e-5 and same(mk.init_stats_stream(raw, s), (m0, c0)),
+          f"odd geometry {name} ({copies(raw)} copies): m0, C0 rel err vs f64 twin {e:.3e} "
+          f"(<= 1e-5), rerun bitwise equal")
+    out[name] = (e, max(float((m0 - m0_32).abs().max()), float((c0 - c0_32).abs().max())))
+
+    counts = mk.block_valid_counts(valid, nb, step)
+    live, n = counts > 0, counts.clamp(min=1).float()
+    m0_m = mk.masked_block_means(x, valid, nb, step, n)
+    xs16 = mk.blocked_transpose(x, nb, step, rows, m0_m, valid=valid)
+    c0_m = mk.init_stats_bsp(xs16, n, s)
+    c0_m64 = mk.init_stats_bsp_plain(xs16.double(), n.double(), s)
+    e = rel_err(c0_m[live], c0_m64[live])
+    name = f"init_stats_bsp S = {s} P = {p}"
+    check(e <= 1e-5 and int((~live).sum()) == 1 and bool((c0_m[~live] == 0).all())
+          and torch.equal(mk.init_stats_bsp(xs16, n, s), c0_m),
+          f"odd geometry {name} ({copies(xs16)} copies): C0 rel err vs f64 twin {e:.3e} "
+          f"(<= 1e-5) on the live blocks, 0 on the empty one, rerun bitwise equal")
+    out[name] = (e, float((c0_m - mk.init_stats_bsp_plain(xs16, n, s)).abs().max()))
+
+    keep = mk._keep_rows(valid, nb, step)  # the (B, P) valid row; block 1 empty
+    xc = torch.where(keep[..., None], block_columns(x, nb, step) - m0_m[:, None, :], 0.0)
+    xs_m = torch.nn.functional.pad(xc.transpose(1, 2), (0, 0, 0, rows - s)).contiguous()
+    if s >= 128:
+        xs_m = xs_m.to(torch.bfloat16)
+    every = torch.ones(nb, dtype=torch.bool, device=dev)
+    for label, xs, vrow, m0_c, c0_c, center, lv in (
+            ("raw f32, centred in the kernel", raw, None, m0, c0, True, every),
+            (f"masked {str(xs_m.dtype)[6:]}, a (B, P) valid row", xs_m, keep, m0_m, c0_m, False,
+             live)):
+        tgt0 = tpl[None, :] * m0_c
+        cit0 = _cho_solve(_shrink_diag(c0_c, ALPHA), tgt0)
+        norm0 = (tgt0 * cit0).sum(1)
+        mf0, r = _rmf_init(xs, m0_c, cit0, norm0, center)
+        got = []
+        for first in (True, False):
+            carry = (mk.pack_carry(tgt0, torch.zeros_like(cit0), torch.ones_like(norm0)) if first
+                     else mk.pack_carry(tgt0, cit0, norm0))
+            kw = dict(first=first, woodbury=False, center=center)
+            k = mk.fused_iter(xs, vrow, m0_c, carry, r, mf0, **kw)
+            again = mk.fused_iter(xs, vrow, m0_c, carry, r, mf0, **kw)
+            t32 = mk.fused_iter_plain(xs, vrow, m0_c, carry, r, mf0, **kw)
+            t64 = mk.fused_iter_plain(xs, vrow, m0_c.double(), carry.double(), r.double(),
+                                      mf0.double(), **kw)
+            flat = [[o[0], o[1][0][lv], o[1][1][lv]] for o in (k, t32, t64)]
+            e_stats = max(rel_err(a, b) for a, b in zip(flat[0][1:], flat[2][1:]))
+            empty = bool((k[1][0][~lv] == 0).all() and (k[1][1][~lv] == 0).all())
+            if vrow is not None:
+                empty = empty and bool((k[0][~vrow] == 0).all())
+            what = (f"odd geometry fused_iter CHOLESKY S = {s} P = {p} ({label}, "
+                    f"{copies(xs)} copies, {'first' if first else 'not first'})")
+            check(e_stats <= 1e-5 and empty and same([k[0], *k[1]], [again[0], *again[1]]),
+                  f"{what}: mean, cov rel err vs f64 twin {e_stats:.3e} (<= 1e-5), the empty "
+                  f"block at 0, rerun bitwise equal")
+            got.append(held_against_twins(what + ": mf, mean, cov", *flat))
+        out[f"fused_iter CHOLESKY S = {s} P = {p} {label}"] = (max(e for e, _ in got),
+                                                              max(a for _, a in got))
     return out
 
 
@@ -1638,6 +1777,12 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas:", line.strip())
+    spills = stats_spills(_build.build_log())
+    for family in STATS_KERNELS:
+        found = {k: v for k, v in spills.items() if family in k}
+        check(len(found) == 4 and all(v == (0, 0) for v in found.values()),
+              f"ptxas: {len(found)} instantiations of {family} (4), none spilling "
+              f"({sorted(set(found.values()))} bytes of spill stores, loads)")
 
     centers = np.arange(2122.0, 2488.0, 7.4)
     template = generate_template_from_bands(centers, np.full_like(centers, 8.0))[:, 1]

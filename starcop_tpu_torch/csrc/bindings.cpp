@@ -30,9 +30,10 @@ int starcop_blocked_transpose(const float* x, const float* m0, const unsigned ch
                               void* out, int H, int W, int S, int R, int nb, int step,
                               void* stream);
 int starcop_init_stats_bsp(const void* xs, const float* n_given, float* partial, float* c0,
-                           int nb, int R, int P, int chunk, int nchunks, void* stream);
+                           int nb, int S, int R, int P, const int* geom, int nchunks,
+                           void* stream);
 int starcop_init_stats_stream(const float* xs, float* partial, float* m0, float* c0, int nb,
-                              int S, int R, int P, int chunk, int nchunks, void* stream);
+                              int S, int R, int P, const int* geom, int nchunks, void* stream);
 int starcop_filter_round_bsp(int mode, const void* xs, int f32, const unsigned char* valid,
                              int bf16_dots, int center, const float* m0, const float* carry,
                              float* r, const float* mf_in, float* mf_out, float* partial, int H,
@@ -48,8 +49,8 @@ int starcop_fused_iter_woodbury(int first, const void* xs, int f32, const unsign
 int starcop_fused_iter_cholesky(int first, const void* xs, int f32, const unsigned char* valid,
                                 int center, const float* m0, const float* carry, const float* r,
                                 const float* mf_in, float* mf_out, float* partial, float* mean,
-                                float* cov, int nb, int S, int R, int P, int chunk, int nchunks,
-                                float cov_scale, void* stream);
+                                float* cov, int nb, int S, int R, int P, const int* geom,
+                                int nchunks, float cov_scale, void* stream);
 int starcop_filter_round_mono(int mode, const void* xs, int f32, int center, const float* m0,
                               const float* carry_in, float* r, const float* mf_in, float* mf_out,
                               float* partial, float* carry_out, unsigned int* counter,
@@ -95,7 +96,7 @@ Cube check_cube(const at::Tensor& x, int64_t nb, int64_t step, const at::Tensor*
   return c;
 }
 
-// The launch geometry of a round or of the cube statistics
+// The launch geometry of a round or of the statistics (cube or stream)
 // (ops/mag1c_kernels.py:RoundGeometry.op_args): tile rows, tile columns,
 // tiles per chunk, stages, 16-byte copies, shared memory bytes. The kernels
 // check it against the shapes.
@@ -248,18 +249,19 @@ void blocked_transpose(const at::Tensor& x, const at::Tensor& m0,
 }
 
 void init_stats_bsp(const at::Tensor& xs, const at::Tensor& n, const at::Tensor& partial,
-                    const at::Tensor& c0, int64_t chunk, int64_t stream) {
-  TORCH_CHECK(xs.dim() == 3, "xs must be (nb, R, P)");
-  const int64_t nb = xs.size(0), rows = xs.size(1), p = xs.size(2);
+                    const at::Tensor& c0, c10::IntArrayRef geom, int64_t stream) {
+  TORCH_CHECK(xs.dim() == 3 && c0.dim() == 3, "xs must be (nb, R, P) and c0 (nb, S, S)");
+  const int64_t nb = xs.size(0), rows = xs.size(1), p = xs.size(2), s = c0.size(1);
   check_stream(xs, xs, nb, rows, p);
+  TORCH_CHECK(s >= 1 && s <= rows, "c0 has ", s, " bands for a stream of ", rows, " rows");
+  const Geom g = round_geom(geom);
   const int64_t nchunks = partial.size(1);
-  TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
-  check(partial, xs, "partial", {nb, nchunks, stats_record_len(rows)});
-  check(c0, xs, "c0", {nb, rows, rows});
+  check(partial, xs, "partial", {nb, nchunks, stats_record_len(s)});
+  check(c0, xs, "c0", {nb, s, s});
   check(n, xs, "n", {nb});
   check_launch(starcop_init_stats_bsp(xs.data_ptr(), n.data_ptr<float>(),
-                                      partial.data_ptr<float>(), c0.data_ptr<float>(), nb, rows,
-                                      p, chunk, nchunks, reinterpret_cast<void*>(stream)),
+                                      partial.data_ptr<float>(), c0.data_ptr<float>(), nb, s,
+                                      rows, p, g.v, nchunks, reinterpret_cast<void*>(stream)),
                "init_stats_bsp");
 }
 
@@ -302,19 +304,19 @@ void filter_round_bsp(int64_t mode, const at::Tensor& xs, const std::optional<at
 }
 
 void init_stats_stream(const at::Tensor& xs, const at::Tensor& partial, const at::Tensor& m0,
-                       const at::Tensor& c0, int64_t chunk, int64_t stream) {
+                       const at::Tensor& c0, c10::IntArrayRef geom, int64_t stream) {
   TORCH_CHECK(xs.dim() == 3 && m0.dim() == 2, "xs must be (nb, R, P) and m0 (nb, S)");
   const int64_t nb = xs.size(0), rows = xs.size(1), p = xs.size(2), s = m0.size(1);
   check_stream(xs, xs, nb, rows, p, at::kFloat);
   TORCH_CHECK(s >= 1 && s <= rows, "m0 has ", s, " bands for a stream of ", rows, " rows");
+  const Geom g = round_geom(geom);
   const int64_t nchunks = partial.size(1);
-  TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
   check(partial, xs, "partial", {nb, nchunks, stats_record_len(s)});
   check(m0, xs, "m0", {nb, s});
   check(c0, xs, "c0", {nb, s, s});
   check_launch(starcop_init_stats_stream(xs.data_ptr<float>(), partial.data_ptr<float>(),
                                          m0.data_ptr<float>(), c0.data_ptr<float>(), nb, s, rows,
-                                         p, chunk, nchunks, reinterpret_cast<void*>(stream)),
+                                         p, g.v, nchunks, reinterpret_cast<void*>(stream)),
                "init_stats_stream");
 }
 
@@ -376,11 +378,11 @@ void fused_iter_cholesky(bool first, const at::Tensor& xs, const std::optional<a
                          bool center, const at::Tensor& m0, const at::Tensor& carry,
                          const at::Tensor& r, const at::Tensor& mf_in, const at::Tensor& mf_out,
                          const at::Tensor& partial, const at::Tensor& mean, const at::Tensor& cov,
-                         int64_t chunk, double cov_scale, int64_t stream) {
+                         c10::IntArrayRef geom, double cov_scale, int64_t stream) {
   const auto [nb, s, rows, p, f32] = check_fused_iter(xs, valid, center, m0, carry, r, mf_in,
                                                       mf_out);
+  const Geom g = round_geom(geom);
   const int64_t nchunks = partial.size(1);
-  TORCH_CHECK(nchunks * chunk >= p, "chunks do not cover the block");
   check(partial, xs, "partial", {nb, nchunks, stats_record_len(s)});
   check(mean, xs, "mean", {nb, s});
   check(cov, xs, "cov", {nb, s, s});
@@ -390,7 +392,7 @@ void fused_iter_cholesky(bool first, const at::Tensor& xs, const std::optional<a
                                            r.data_ptr<float>(), mf_in.data_ptr<float>(),
                                            mf_out.data_ptr<float>(), partial.data_ptr<float>(),
                                            mean.data_ptr<float>(), cov.data_ptr<float>(), nb, s,
-                                           rows, p, chunk, nchunks,
+                                           rows, p, g.v, nchunks,
                                            static_cast<float>(cov_scale),
                                            reinterpret_cast<void*>(stream)),
                "fused_iter_cholesky");
@@ -454,7 +456,7 @@ TORCH_LIBRARY(starcop_mag1c, m) {
   m.def("blocked_transpose(Tensor x, Tensor m0, Tensor? valid, Tensor(a!) out, int nb, "
         "int step, int stream) -> ()",
         &blocked_transpose);
-  m.def("init_stats_bsp(Tensor xs, Tensor n, Tensor(a!) partial, Tensor(b!) c0, int chunk, "
+  m.def("init_stats_bsp(Tensor xs, Tensor n, Tensor(a!) partial, Tensor(b!) c0, int[] geom, "
         "int stream) -> ()",
         &init_stats_bsp);
   m.def("filter_round_bsp(int mode, Tensor xs, Tensor? valid, bool bf16_dots, bool center, "
@@ -462,7 +464,7 @@ TORCH_LIBRARY(starcop_mag1c, m) {
         "Tensor(c!) partial, int step, int[] geom, float cov_scale, int stream) -> ()",
         &filter_round_bsp);
   m.def("init_stats_stream(Tensor xs, Tensor(a!) partial, Tensor(b!) m0, Tensor(c!) c0, "
-        "int chunk, int stream) -> ()",
+        "int[] geom, int stream) -> ()",
         &init_stats_stream);
   m.def("blocked_transpose_shw(Tensor x, Tensor(a!) out, int nb, int step, int stream) -> ()",
         &blocked_transpose_shw);
@@ -472,7 +474,7 @@ TORCH_LIBRARY(starcop_mag1c, m) {
         &fused_iter_woodbury);
   m.def("fused_iter_cholesky(bool first, Tensor xs, Tensor? valid, bool center, Tensor m0, "
         "Tensor carry, Tensor r, Tensor mf_in, Tensor(a!) mf_out, Tensor(b!) partial, "
-        "Tensor(c!) mean, Tensor(d!) cov, int chunk, float cov_scale, int stream) -> ()",
+        "Tensor(c!) mean, Tensor(d!) cov, int[] geom, float cov_scale, int stream) -> ()",
         &fused_iter_cholesky);
   m.def("filter_round_mono(int mode, Tensor xs, bool center, Tensor m0, Tensor carry_in, "
         "Tensor(a!) r, Tensor mf_in, Tensor(b!) mf_out, Tensor(c!) partial, "

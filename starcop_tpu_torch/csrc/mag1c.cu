@@ -111,43 +111,23 @@ namespace {
 //    word in the same commit group. Columns past W are neither copied nor
 //    read, and a pixel that does not count is selected out before its values
 //    are read: the fill -9999 and NaN never reach a sum.
-//  * Two barriers a tile. Chan's update of the running (n, mean, M) by a tile
-//    of n_t pixels with mean m_t, d = m_t - mean, is
-//      M += sum (x - m_t)(x - m_t)^T + (n n_t / n') d d^T
-//         = sum (x - mean)(x - mean)^T - (n_t^2 / n') d d^T,   n' = n + n_t,
-//    so the tile is centred on the running mean, known before it arrives, in
-//    the pass that also sums it: thread t takes a unit of 2 bands (1 where S
-//    is odd) of every (kThreads / units)-th pixel, restages it as x - mean
-//    at SPP = 8 ceil(S / 8) floats a pixel (0 where the pixel does not count;
-//    pad bands stay 0) and keeps its sums; the barrier after it counts the
+//  * Two barriers a tile, and the shared scatter ("Tile statistics" in
+//    mag1c_common.cuh): the tile is centred on the running mean in the pass
+//    that also sums it: thread t takes a unit of 2 bands (1 where S is odd)
+//    of every (kThreads / units)-th pixel, restages it as x - mean at SPP =
+//    8 ceil(S / 8) floats a pixel (0 where the pixel does not count; pad
+//    bands stay 0) and keeps its sums; the barrier after it counts the
 //    tile's valid pixels (__syncthreads_count). Then threads t < S form d and
 //    the new mean while every thread scatters; the rank-1 term waits for the
 //    next tile's first phase. A chunk's first tile with valid pixels is
 //    centred on its own mean (one more pass and barrier), so no tile is
-//    summed about 0.
-//  * The scatter's lower triangle only, in 8 x 8 register micro-tiles:
-//    micro-tile (i, k), k <= i < ceil(S / 8), takes two float4 of bands 8i..
-//    and two of 8k.. per pixel for 64 FMAs (S = 50: 28 micro-tiles, 1,792
-//    FMAs a pixel; 4 x 8 tiles waste fewer FMAs but read a third more shared
-//    memory per FMA, and measured slower).
-//    The restaged pixel keeps the first and last four bands of each 8-band
-//    group in its two halves, so a quarter-warp's float4 reads of 8 groups
-//    hit 8 distinct bank groups. With T <= 136 micro-tiles, G = kThreads / T
-//    groups of threads split the tile's pixels (thread t: micro-tile t % T,
-//    pixels t / T, + G, ...), the group sums added in group order at the
-//    chunk's end.
+//    summed about 0. The 8 x 8 micro-tiles (S = 50: 28, 1,792 FMAs a pixel;
+//    4 x 8 tiles waste fewer FMAs but read a third more shared memory per
+//    FMA, and measured slower).
 //  * f32 values and FMAs; the chunk records are combined in f64 by
 //    init_stats_reduce_kernel (a plain f32 covariance drifts the 30-iteration
 //    filter; PERF.md, "f32 conditioning"). No TF32, no tensor cores.
 // ---------------------------------------------------------------------------
-constexpr int kStatsCtasPerSm = 2;
-
-// Micro-tiles of the triangle at S bands, and the thread groups over pixels.
-__host__ __device__ inline int stats_microtiles(int S) {
-  const int nr = (S + 7) / 8;
-  return nr * (nr + 1) / 2;
-}
-__host__ __device__ inline int stats_groups(int S) { return kThreads / stats_microtiles(S); }
 // Floats of one pixel of the centred tile.
 __host__ __device__ inline int stats_pixel_pitch(int S) { return (S + 7) / 8 * 8; }
 
@@ -165,7 +145,7 @@ static_assert(sizeof(StatsScratch) == 4096, "ops/mag1c_kernels.py:STATS_STATIC_S
 inline size_t stats_smem_bytes(int stages, int tile_bytes, int S) {
   const size_t ring = (size_t)stages * (tile_bytes + 5 * kRoundThreads) +
                       (size_t)4 * kRoundThreads * stats_pixel_pitch(S);
-  const size_t groups = (size_t)256 * stats_microtiles(S) * (stats_groups(S) - 1);
+  const size_t groups = stats_group_bytes(S);
   return ring > groups ? ring : groups;
 }
 
@@ -185,16 +165,15 @@ init_stats_partial_kernel(const float* __restrict__ x, const unsigned char* __re
   __shared__ StatsScratch sc;
   const int TR = geom.tile_rows, CW = geom.tile_cols, RP = cube_row_pitch(CW, S);
   const int tile_floats = TR * RP, TP = TR * CW;
-  const int SPP = stats_pixel_pitch(S), SP4 = SPP / 4, HALF = SPP / 8;
-  // Band s of a restaged pixel lies at spos(s).
-  auto spos = [&](int s) { return (s % 8 / 4) * (SPP / 2) + 4 * (s / 8) + s % 4; };
-  const int T = stats_microtiles(S), G = stats_groups(S);
+  const int SPP = stats_pixel_pitch(S), nr = SPP / 8;
+  auto spos = [&](int s) { return stats_spos(s, nr); };
+  const int G = stats_groups(S);
   float* ring = reinterpret_cast<float*>(stats_smem);
   unsigned* mword = reinterpret_cast<unsigned*>(ring + geom.stages * tile_floats);
   unsigned char* mpos = reinterpret_cast<unsigned char*>(mword + geom.stages * kRoundThreads);
   float* ctile = reinterpret_cast<float*>(mpos + geom.stages * kRoundThreads);
   const float4* ctile4 = reinterpret_cast<const float4*>(ctile);
-  const int c = blockIdx.x, b = blockIdx.y, t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int c = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
 
   const int nseg = (step + CW - 1) / CW;
   const int tiles_block = (H + TR - 1) / TR * nseg;
@@ -203,13 +182,7 @@ init_stats_partial_kernel(const float* __restrict__ x, const unsigned char* __re
   const int ncols_b = MASKED ? min(step, W - b * step) : step;  // columns below W
   const int tr = t / CW, tc = t - tr * CW;  // this thread's pixel in every tile (t < TP)
 
-  // This thread's micro-tile j = t % T -> (row group mi, column group mk)
-  // over the pixels of group g = t / T (g >= G: idle in the scatter); group
-  // 0 writes the record.
-  const int g = t / T, j = t % T;
-  int mi = 0;
-  while (tri_index(mi + 1, 0) <= j) ++mi;
-  const int mk = j - tri_index(mi, 0);
+  const ScatterRole sr = scatter_role(S);
   float acc[64];
 #pragma unroll
   for (int e = 0; e < 64; ++e) acc[e] = 0.f;
@@ -265,17 +238,6 @@ init_stats_partial_kernel(const float* __restrict__ x, const unsigned char* __re
       }
     }
     cp_async_commit();
-  };
-
-  // The rank-1 term -(n_t^2 / n') d d^T of the last folded tile (group 0).
-  auto fold_rank1 = [&](float coef) {
-    if (coef == 0.f || g != 0) return;
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const float dr = coef * sc.delta[8 * mi + r];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) acc[8 * r + q] = fmaf(dr, sc.delta[8 * mk + q], acc[8 * r + q]);
-    }
   };
 
   // Thread t over band unit u = t % NU (VW bands: 2 where S is even, else
@@ -335,7 +297,7 @@ init_stats_partial_kernel(const float* __restrict__ x, const unsigned char* __re
     cp_async_wait_pending(geom.stages - 2);
     __syncthreads();  // tile i staged; tile i - 1's stage, ctile and psum free; d, mean set
     issue(i + geom.stages - 1);
-    fold_rank1(coef);
+    fold_rank1(coef, sc.delta, sr, acc);
     coef = 0.f;
     const Tile tl = tile_at(i);
     const int slot = i % geom.stages, npx = tl.nrows * CW;
@@ -355,102 +317,31 @@ init_stats_partial_kernel(const float* __restrict__ x, const unsigned char* __re
       sc.mean[t] += d * ((float)n_t / n_new);
     }
     coef = -(float)n_t * ((float)n_t / n_new);
-    if (g < G) {
-#pragma unroll 2
-      for (int pl = g; pl < npx; pl += G) {
-        const float4* px = ctile4 + pl * SP4;
-        const float4 a0 = px[mi], a1 = px[HALF + mi], v0 = px[mk], v1 = px[HALF + mk];
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int q = 0; q < 8; ++q) acc[8 * r + q] = fmaf(av[r], bv[q], acc[8 * r + q]);
-      }
-    }
+    scatter_pixels(ctile4, SPP / 4, nr, npx, G, sr, acc);
     n_run += n_t;
   }
   cp_async_wait_pending(0);
   __syncthreads();  // the last d is set; the ring is free
-  fold_rank1(coef);
-  if (G > 1) {  // the groups' sums into group 0, in group order
-    float* sums = reinterpret_cast<float*>(stats_smem);  // [(g - 1) * 64 + e][j]
-    if (g > 0 && g < G)
-#pragma unroll
-      for (int e = 0; e < 64; ++e) sums[((g - 1) * 64 + e) * T + j] = acc[e];
-    __syncthreads();
-    if (g == 0)
-      for (int gg = 1; gg < G; ++gg)
-#pragma unroll
-        for (int e = 0; e < 64; ++e) acc[e] += sums[((gg - 1) * 64 + e) * T + j];
-  }
-  float* rec = partial + ((long long)b * nchunks + c) * stats_record_len(S);
-  if (t == 0) rec[0] = (float)n_run;
-  if (t < S) rec[1 + t] = sc.mean[t];
-  if (g == 0)
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int a = 8 * mi + r, bb = 8 * mk + q;
-        if (a < S && bb <= a) rec[1 + S + tri_index(a, bb)] = acc[8 * r + q];
-      }
+  fold_rank1(coef, sc.delta, sr, acc);
+  write_scatter_record(partial + ((long long)b * nchunks + c) * stats_record_len(S),
+                       reinterpret_cast<float*>(stats_smem), n_run, sc.mean, sr, S, acc);
 }
 
 // ---------------------------------------------------------------------------
-// init_stats_bsp / init_stats_stream, pass 1: the statistics of the blocked
-// stream (nb, R, P) over its first S rows, in tiles of kSub pixels
-// (mag1c_common.cuh). Row s of a tile is 32 contiguous pixels of band row s,
-// so a warp's load is one coalesced span. One read of the stream.
-//   bf16 (init_stats_bsp): the raw second moment sum xs xs^T of the centred
-//     stream, which is zero wherever a pixel does not count (f32 products and
-//     sums, no re-centring, as :1814-1824). The records carry zero means, so
-//     the reduce adds their scatters alone.
-//   float (init_stats_stream, _init_stats_kernel :1164): the mean and the
-//     centred covariance of the raw f32 stream, every pixel valid, by the
-//     Chan fold (a plain f32 covariance of a 69,120-pixel block drifts the
-//     30-iteration filter away from its f64 twin; see PERF.md).
+// init_stats_bsp / init_stats_stream, pass 1: stream_stats_chunk
+// (mag1c_common.cuh) on the blocked stream (nb, R, P) over its first S rows.
+//   bf16 (init_stats_bsp): kSecondMoment, the raw second moment of the
+//     centred, masked stream (the XLA statistics :1814-1824).
+//   float (init_stats_stream, _init_stats_kernel :1164): kMeanFold, the mean
+//     and centred scatter of the raw f32 stream, every pixel valid.
 // ---------------------------------------------------------------------------
-template <int TS, typename T>
-__global__ void __launch_bounds__(kThreads)
-init_stats_bsp_partial_kernel(const T* __restrict__ xs, float* __restrict__ partial, int S,
-                              int R, int P, int chunk, int nchunks) {
-  constexpr bool MEAN = sizeof(T) == 4;
-  constexpr int SP = 16 * TS;
-  __shared__ float tile[kSub][SP + 1];
-  __shared__ float mean[SP], delta[SP];  // mean stays zero without MEAN
-
-  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int p_beg = c * chunk;
-  const int p_end = min(P, p_beg + chunk);
-  const T* xb = xs + (long long)b * R * P;
-
-  float acc[TS][TS];
-#pragma unroll
-  for (int i = 0; i < TS; ++i)
-#pragma unroll
-    for (int k = 0; k < TS; ++k) acc[i][k] = 0.f;
-
-  for (int e = tid; e < kSub * (SP + 1); e += kThreads) (&tile[0][0])[e] = 0.f;
-  if (tid < SP) mean[tid] = delta[tid] = 0.f;
-  __syncthreads();
-
-  int n_run = 0;
-  for (int p0 = p_beg; p0 < p_end; p0 += kSub) {
-    const int n_span = min(kSub, p_end - p0);
-    for (int e = tid; e < kSub * S; e += kThreads) {
-      const int s = e / kSub, pl = e - s * kSub;
-      if (pl < n_span) tile[pl][s] = to_f32(xb[(long long)s * P + p0 + pl]);
-    }
-    __syncthreads();
-    if constexpr (MEAN)
-      fold_tile<TS>(tile, nullptr, n_span, n_span, n_run, mean, delta, acc, S);
-    else
-      scatter_tile<TS>(tile, n_span, acc);
-    __syncthreads();
-  }
-  write_stats_record<TS>(partial + ((long long)b * nchunks + c) * stats_record_len(S),
-                         p_end - p_beg, mean, acc, S);
+template <typename T, bool VEC16>
+__global__ void __launch_bounds__(kThreads, kStatsCtasPerSm)
+stream_stats_partial_kernel(const T* __restrict__ xs, float* __restrict__ partial, int S, int R,
+                            int P, RoundGeom geom, int nchunks) {
+  stream_stats_chunk<T, sizeof(T) == 2 ? kSecondMoment : kMeanFold, VEC16>(
+      xs, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, partial, false, S, R, P, geom,
+      nchunks, 0.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -669,12 +560,8 @@ template <bool MASKED, bool VEC16>
 cudaError_t launch_init_partial(const float* x, const unsigned char* valid, float* partial,
                                 int H, int W, int S, int step, const RoundGeom& g, int nchunks,
                                 int nb, cudaStream_t st) {
-  const auto kernel = init_stats_partial_kernel<MASKED, VEC16>;
-  const cudaError_t err = allow_smem(kernel, (size_t)g.smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(nchunks, nb), kThreads, g.smem, st>>>(x, valid, partial, H, W, S, step, g,
-                                                      nchunks);
-  return cudaGetLastError();
+  return launch_round_kernel<kThreads>(init_stats_partial_kernel<MASKED, VEC16>, dim3(nchunks, nb),
+                                       g, st, x, valid, partial, H, W, S, step, g, nchunks);
 }
 
 template <bool MASKED, bool VEC16>
@@ -693,28 +580,20 @@ cudaError_t launch_round_mode(int mode, dim3 grid, const RoundGeom& g, cudaStrea
 #undef STARCOP_ROUND
 }
 
-template <int TS, typename T>
-cudaError_t launch_init_bsp(const void* xs, float* partial, int S, int R, int P, int chunk,
-                            int nchunks, int nb, cudaStream_t st) {
-  init_stats_bsp_partial_kernel<TS, T><<<dim3(nchunks, nb), kThreads, 0, st>>>(
-      static_cast<const T*>(xs), partial, S, R, P, chunk, nchunks);
-  return cudaGetLastError();
-}
-
+// Pass 1 of init_stats_bsp (bf16) or init_stats_stream (f32) with the
+// geometry of stream_stats_geometry.
 template <typename T>
-cudaError_t launch_init_bsp_ts(const void* xs, float* partial, int S, int R, int P, int chunk,
-                               int nchunks, int nb, cudaStream_t st) {
-  switch ((S + 15) / 16) {
-    case 1: return launch_init_bsp<1, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
-    case 2: return launch_init_bsp<2, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
-    case 3: return launch_init_bsp<3, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
-    case 4: return launch_init_bsp<4, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
-    case 5: return launch_init_bsp<5, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
-    case 6: return launch_init_bsp<6, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
-    case 7: return launch_init_bsp<7, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
-    case 8: return launch_init_bsp<8, T>(xs, partial, S, R, P, chunk, nchunks, nb, st);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t launch_stream_stats(const void* xs_raw, float* partial, int S, int R, int P,
+                                const RoundGeom& g, int nchunks, int nb, cudaStream_t st) {
+  const T* xs = static_cast<const T*>(xs_raw);
+  if (S < 1 || S > kMaxBands || S > R || !stream_stats_geom_ok<T>(g, xs, S, P, nchunks, false))
+    return cudaErrorInvalidValue;
+  const dim3 grid(nchunks, nb);
+  if (g.aligned)
+    return launch_round_kernel<kThreads>(stream_stats_partial_kernel<T, true>, grid, g, st, xs,
+                                         partial, S, R, P, g, nchunks);
+  return launch_round_kernel<kThreads>(stream_stats_partial_kernel<T, false>, grid, g, st, xs,
+                                       partial, S, R, P, g, nchunks);
 }
 
 template <typename T, bool MASKED, bool BF16_DOTS, bool CENTER, bool VEC16>
@@ -807,24 +686,27 @@ int starcop_blocked_transpose(const float* x, const float* m0, const unsigned ch
   return (int)cudaGetLastError();
 }
 
-// C0 (nb, R, R) = sum xs xs^T / n_given[b] of the centred bf16 stream
-// (nb, R, P).
+// C0 (nb, S, S) = sum xs xs^T / n_given[b] over the first S rows of the
+// centred bf16 stream (nb, R, P). geom: the six RoundGeom fields of
+// stream_stats_geometry; partial has nchunks records per block.
 int starcop_init_stats_bsp(const void* xs, const float* n_given, float* partial, float* c0,
-                           int nb, int R, int P, int chunk, int nchunks, void* stream) {
+                           int nb, int S, int R, int P, const int* geom, int nchunks,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = launch_init_bsp_ts<__nv_bfloat16>(xs, partial, R, R, P, chunk, nchunks,
-                                                            nb, st);
+  const cudaError_t err = launch_stream_stats<__nv_bfloat16>(xs, partial, S, R, P,
+                                                             round_geom_from(geom), nchunks, nb,
+                                                             st);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_stats_reduce(partial, n_given, nullptr, c0, R, nchunks, nb, st);
+  return (int)launch_stats_reduce(partial, n_given, nullptr, c0, S, nchunks, nb, st);
 }
 
 // m0 (nb, S), C0 (nb, S, S) of the raw f32 stream (nb, R, P) over its first S
-// rows, every pixel valid.
+// rows, every pixel valid. geom, partial: as starcop_init_stats_bsp.
 int starcop_init_stats_stream(const float* xs, float* partial, float* m0, float* c0, int nb,
-                              int S, int R, int P, int chunk, int nchunks, void* stream) {
+                              int S, int R, int P, const int* geom, int nchunks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S < 1 || S > R) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = launch_init_bsp_ts<float>(xs, partial, S, R, P, chunk, nchunks, nb, st);
+  const cudaError_t err = launch_stream_stats<float>(xs, partial, S, R, P, round_geom_from(geom),
+                                                     nchunks, nb, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_stats_reduce(partial, nullptr, m0, c0, S, nchunks, nb, st);
 }

@@ -15,7 +15,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSub = 32;       // pixels per shared-memory tile in the S x S statistics (one warp)
 constexpr int kMaxBands = 128;
 constexpr float kEpsilon = 1e-9f;
 constexpr float kScaling = 1e5f;
@@ -39,96 +38,131 @@ __device__ __forceinline__ float bf16_round(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Tile statistics. Every statistics kernel (init_stats[_masked],
-// init_stats_bsp / init_stats_stream, fused_iter CHOLESKY) writes one partial
-// record per (block b, chunk c) in one format,
+// Tile statistics. Every statistics kernel (init_stats[_masked] on the cube,
+// mag1c.cu; init_stats_bsp / init_stats_stream and fused_iter CHOLESKY on the
+// blocked stream, stream_stats_chunk below) writes one partial record per
+// (block b, chunk c) in one format,
 //   [n | mean(S) | tri(S (S + 1) / 2)],
 // tri holding the centred scatter's lower triangle row by row: entry (a, bb),
 // bb <= a, at a (a + 1) / 2 + bb (tri_index). init_stats_reduce_kernel
 // combines the records in f64 and mirrors the triangle into the full S x S.
 //
-// The kernels of init_stats_bsp, init_stats_stream and fused_iter CHOLESKY
-// walk their chunk in tiles of kSub pixels x S bands; thread (ty, tx) of a
-// 16 x 16 grid owns scatter entries (ty + 16 i, tx + 16 k) with k <= i < TS
-// (the blocks on or below the diagonal), over SP = 16 * TS >= S bands
-// (padding bands stay zero). init_stats[_masked] has its own tiles (mag1c.cu).
+// All five share one scatter. A CTA of kThreads threads (kStatsCtasPerSm
+// per SM) restages each tile centred, pixel-major: band s of pixel pl at
+// pl * pitch + spos(s), where the first and the last four bands of each
+// 8-band group lie in the pixel's two halves (nr = ceil(S / 8) float4 each),
+// so a quarter-warp's float4 reads of 8 groups hit 8 distinct bank groups.
+// The lower triangle is covered by T = nr (nr + 1) / 2 register micro-tiles
+// of 8 x 8; G = kThreads / T groups of threads split the tile's pixels
+// (thread t: micro-tile t % T, pixels t / T, + G, ...), 64 FMAs per pixel
+// for four float4 reads, and the group sums are added in group order at the
+// chunk's end. Chan's update of the running (n, mean, M) by a tile of n_t
+// pixels with mean m_t, d = m_t - mean, n' = n + n_t, is
+//   M += sum (x - mean)(x - mean)^T - (n_t^2 / n') d d^T,
+// so the tile is centred on the running mean, known before it arrives, in
+// the same pass that sums it; the rank-1 term waits for the next tile.
 // ---------------------------------------------------------------------------
+constexpr int kStatsCtasPerSm = 2;
 
 __host__ __device__ __forceinline__ int tri_index(int a, int bb) { return a * (a + 1) / 2 + bb; }
 __host__ __device__ __forceinline__ int stats_record_len(int S) {
   return 1 + S + S * (S + 1) / 2;
 }
 
-// acc[i][k] += sum over the tile's first n_span rows of
-// tile[pl][ty + 16 i] * tile[pl][tx + 16 k], for k <= i.
-template <int TS>
-__device__ __forceinline__ void scatter_tile(const float (*tile)[16 * TS + 1], int n_span,
-                                             float (&acc)[TS][TS]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  for (int pl = 0; pl < n_span; ++pl) {
-    float av[TS], bv[TS];
+// Micro-tiles of the triangle at S bands, and the thread groups over pixels.
+__host__ __device__ inline int stats_microtiles(int S) {
+  const int nr = (S + 7) / 8;
+  return nr * (nr + 1) / 2;
+}
+__host__ __device__ inline int stats_groups(int S) { return kThreads / stats_microtiles(S); }
+// Bytes of the group sums added at a chunk's end (they reuse the ring).
+__host__ __device__ inline size_t stats_group_bytes(int S) {
+  return (size_t)256 * stats_microtiles(S) * (stats_groups(S) - 1);
+}
+
+// Position of band s in a restaged pixel of ceil(S / 8) 8-band groups: the
+// group's first four bands in the first half, its last four in the second.
+__device__ __forceinline__ int stats_spos(int s, int nr) {
+  return (s % 8 / 4) * (4 * nr) + 4 * (s / 8) + s % 4;
+}
+
+// This thread's part of the scatter: micro-tile j = t % T, the (row, column)
+// groups (mi, mk) of 8 bands it covers, over the pixels of group g = t / T
+// (g >= G: idle in the scatter; group 0 writes the record).
+struct ScatterRole {
+  int g, j, mi, mk;
+};
+
+__device__ __forceinline__ ScatterRole scatter_role(int S) {
+  const int T = stats_microtiles(S);
+  ScatterRole sr;
+  sr.g = threadIdx.x / T;
+  sr.j = threadIdx.x % T;
+  sr.mi = 0;
+  while (tri_index(sr.mi + 1, 0) <= sr.j) ++sr.mi;
+  sr.mk = sr.j - tri_index(sr.mi, 0);
+  return sr;
+}
+
+// acc += the scatter of the restaged pixels 0 .. npx - 1 (float4 pitch
+// pitch4, halves nr float4 apart) of this thread's group.
+__device__ __forceinline__ void scatter_pixels(const float4* ctile4, int pitch4, int nr, int npx,
+                                               int G, const ScatterRole& sr, float (&acc)[64]) {
+  if (sr.g >= G) return;
+#pragma unroll 2
+  for (int pl = sr.g; pl < npx; pl += G) {
+    const float4* px = ctile4 + pl * pitch4;
+    const float4 a0 = px[sr.mi], a1 = px[nr + sr.mi], v0 = px[sr.mk], v1 = px[nr + sr.mk];
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
-    for (int i = 0; i < TS; ++i) av[i] = tile[pl][ty + 16 * i];
+    for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int k = 0; k < TS; ++k) bv[k] = tile[pl][tx + 16 * k];
-#pragma unroll
-    for (int i = 0; i < TS; ++i)
-#pragma unroll
-      for (int k = 0; k <= i; ++k) acc[i][k] = fmaf(av[i], bv[k], acc[i][k]);
+      for (int q = 0; q < 8; ++q) acc[8 * r + q] = fmaf(av[r], bv[q], acc[8 * r + q]);
   }
 }
 
-// Chan et al.'s pairwise update of the running mean and centred scatter by
-// one tile: the tile is centred on the mean of its n_tile valid rows, then
-//   M += M_tile + (n_run n_tile / n) d d^T,  mean += d n_tile / n,
-// with d = mean_tile - mean, so every sum accumulates centred values. With
-// tile_ok, rows not marked hold 0 and stay 0 after centring. n_tile >= 1;
-// the caller syncs before (the tile is staged) and after.
-template <int TS>
-__device__ __forceinline__ void fold_tile(float (*tile)[16 * TS + 1],
-                                          const unsigned char* tile_ok, int n_span, int n_tile,
-                                          int& n_run, float* mean, float* delta,
-                                          float (&acc)[TS][TS], int S) {
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const float n_new = (float)(n_run + n_tile);
-  if (tid < S) {
-    float m = 0.f;
-    for (int pl = 0; pl < n_span; ++pl) m += tile[pl][tid];
-    m /= (float)n_tile;
-    for (int pl = 0; pl < n_span; ++pl) {
-      if (tile_ok != nullptr)
-        tile[pl][tid] = tile_ok[pl] ? tile[pl][tid] - m : 0.f;
-      else
-        tile[pl][tid] -= m;
-    }
-    delta[tid] = m - mean[tid];
-    mean[tid] += delta[tid] * ((float)n_tile / n_new);
+// The rank-1 term coef d d^T of the last folded tile (group 0 only); delta
+// is zero past S.
+__device__ __forceinline__ void fold_rank1(float coef, const float* delta, const ScatterRole& sr,
+                                           float (&acc)[64]) {
+  if (coef == 0.f || sr.g != 0) return;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float dr = coef * delta[8 * sr.mi + r];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[8 * r + q] = fmaf(dr, delta[8 * sr.mk + q], acc[8 * r + q]);
   }
-  __syncthreads();
-  const float coef = (float)n_run * ((float)n_tile / n_new);
-#pragma unroll
-  for (int i = 0; i < TS; ++i)
-#pragma unroll
-    for (int k = 0; k <= i; ++k)
-      acc[i][k] = fmaf(coef * delta[ty + 16 * i], delta[tx + 16 * k], acc[i][k]);
-  scatter_tile<TS>(tile, n_span, acc);
-  n_run += n_tile;
 }
 
-// The partial record [n | mean(S) | tri] of (b, c) from the 16 x 16 grid.
-template <int TS>
-__device__ __forceinline__ void write_stats_record(float* rec, int n, const float* mean,
-                                                   const float (&acc)[TS][TS], int S) {
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  if (tid == 0) rec[0] = (float)n;
-  if (tid < S) rec[1 + tid] = mean[tid];
+// The chunk's record [n | mean | tri] at rec: the groups' sums added into
+// group 0 in group order through `sums` (stats_group_bytes(S) of shared
+// memory no longer in use), then group 0 writes the triangle. Every thread
+// calls it (it holds a barrier).
+__device__ __forceinline__ void write_scatter_record(float* rec, float* sums, int n_run,
+                                                     const float* mean, const ScatterRole& sr,
+                                                     int S, float (&acc)[64]) {
+  const int T = stats_microtiles(S), G = stats_groups(S), t = threadIdx.x;
+  if (G > 1) {  // [(g - 1) * 64 + e][j]
+    if (sr.g > 0 && sr.g < G)
 #pragma unroll
-  for (int i = 0; i < TS; ++i)
+      for (int e = 0; e < 64; ++e) sums[((sr.g - 1) * 64 + e) * T + sr.j] = acc[e];
+    __syncthreads();
+    if (sr.g == 0)
+      for (int gg = 1; gg < G; ++gg)
 #pragma unroll
-    for (int k = 0; k <= i; ++k) {
-      const int a = ty + 16 * i, bb = tx + 16 * k;
-      if (a < S && bb <= a) rec[1 + S + tri_index(a, bb)] = acc[i][k];
-    }
+        for (int e = 0; e < 64; ++e) acc[e] += sums[((gg - 1) * 64 + e) * T + sr.j];
+  }
+  if (t == 0) rec[0] = (float)n_run;
+  if (t < S) rec[1 + t] = mean[t];
+  if (sr.g == 0)
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int a = 8 * sr.mi + r, bb = 8 * sr.mk + q;
+        if (a < S && bb <= a) rec[1 + S + tri_index(a, bb)] = acc[8 * r + q];
+      }
 }
 
 // ---------------------------------------------------------------------------
@@ -543,6 +577,53 @@ __host__ __device__ inline int stream_tile_bytes(int S) {
   return S * stream_row_pitch<T>() * (int)sizeof(T);
 }
 
+// The half-word at which the staged copy of the stream row that starts at
+// src begins: 1 where a bf16 row starts mid-word and is copied in the words
+// that cover it, else 0.
+template <typename T, bool VEC16>
+__device__ __forceinline__ int stream_row_off(const T* src) {
+  if constexpr (!VEC16 && sizeof(T) == 2) return (int)((reinterpret_cast<size_t>(src) >> 1) & 1);
+  return 0;
+}
+
+// The NT threads' copies of one stream tile, pixels p0 .. p0 + n_t - 1 of the
+// first S band rows of block xb, into dst (row s at s * stream_row_pitch<T>()
+// elements): 16-byte pieces with VEC16, else 4-byte copies (f32: one per
+// value; bf16: the aligned words that cover the row). The caller commits.
+template <typename T, bool VEC16, int NT>
+__device__ __forceinline__ void issue_stream_tile(unsigned char* dst, const T* xb, int S, int P,
+                                                  int p0, int n_t) {
+  constexpr int TP = kRoundThreads;
+  constexpr int LD = stream_row_pitch<T>();
+  const int t = threadIdx.x;
+  if constexpr (VEC16) {
+    constexpr int kPieces = TP * (int)sizeof(T) / 16;  // per row
+    const int nbytes = n_t * (int)sizeof(T);
+    for (int e = t; e < S * kPieces; e += NT) {
+      const int s = e / kPieces, k = e % kPieces;
+      if (16 * k < nbytes)
+        cp_async16(dst + (size_t)s * LD * sizeof(T) + 16 * k,
+                   reinterpret_cast<const unsigned char*>(xb + (long long)s * P + p0) + 16 * k);
+    }
+  } else if constexpr (sizeof(T) == 4) {
+    for (int e = t; e < S * TP; e += NT) {
+      const int s = e / TP, pl = e % TP;
+      if (pl < n_t)
+        cp_async4(reinterpret_cast<T*>(dst) + s * LD + pl, xb + (long long)s * P + p0 + pl);
+    }
+  } else {
+    constexpr int kWords = TP / 2 + 1;  // covering words of one bf16 row
+    for (int e = t; e < S * kWords; e += NT) {
+      const int s = e / kWords, w = e % kWords;
+      const size_t a = reinterpret_cast<size_t>(xb + (long long)s * P + p0);
+      const int off = (int)((a >> 1) & 1);
+      if (w < (off + n_t + 1) / 2)
+        cp_async4(dst + (size_t)s * LD * sizeof(T) + 4 * w,
+                  reinterpret_cast<const void*>((a & ~(size_t)3) + 4 * w));
+    }
+  }
+}
+
 template <typename T, int MODE, bool MASKED, bool BF16_DOTS, bool CENTER, bool VEC16>
 __device__ __forceinline__ void round_bsp_chunk(
     const T* __restrict__ xs, const unsigned char* __restrict__ valid,
@@ -568,42 +649,14 @@ __device__ __forceinline__ void round_bsp_chunk(
 
   // The staged value of band s, pixel pl of the tile at p0 in stage `tile`.
   auto value = [&](const T* tile, int s, int p0, int pl) -> float {
-    int off = 0;
-    if constexpr (!VEC16 && sizeof(T) == 2)
-      off = (int)((reinterpret_cast<size_t>(xb + (long long)s * P + p0) >> 1) & 1);
-    return to_f32(tile[s * LD + off + pl]);
+    return to_f32(tile[s * LD + stream_row_off<T, VEC16>(xb + (long long)s * P + p0) + pl]);
   };
 
   auto issue = [&](int i) {
     if (i < ntile) {
       const int slot = i % geom.stages, p0 = (t_beg + i) * TP, n_t = min(TP, P - p0);
-      unsigned char* dst = sm.tiles + (size_t)slot * tile_bytes;
-      if constexpr (VEC16) {
-        constexpr int kPieces = TP * (int)sizeof(T) / 16;  // per row
-        const int nbytes = n_t * (int)sizeof(T);
-        for (int e = t; e < S * kPieces; e += kRoundThreads) {
-          const int s = e / kPieces, k = e % kPieces;
-          if (16 * k < nbytes)
-            cp_async16(dst + (size_t)s * LD * sizeof(T) + 16 * k,
-                       reinterpret_cast<const unsigned char*>(xb + (long long)s * P + p0) + 16 * k);
-        }
-      } else if constexpr (sizeof(T) == 4) {
-        for (int e = t; e < S * TP; e += kRoundThreads) {
-          const int s = e / TP, pl = e % TP;
-          if (pl < n_t)
-            cp_async4(reinterpret_cast<T*>(dst) + s * LD + pl, xb + (long long)s * P + p0 + pl);
-        }
-      } else {
-        constexpr int kWords = TP / 2 + 1;  // covering words of one bf16 row
-        for (int e = t; e < S * kWords; e += kRoundThreads) {
-          const int s = e / kWords, w = e % kWords;
-          const size_t a = reinterpret_cast<size_t>(xb + (long long)s * P + p0);
-          const int off = (int)((a >> 1) & 1);
-          if (w < (off + n_t + 1) / 2)
-            cp_async4(dst + (size_t)s * LD * sizeof(T) + 4 * w,
-                      reinterpret_cast<const void*>((a & ~(size_t)3) + 4 * w));
-        }
-      }
+      issue_stream_tile<T, VEC16, kRoundThreads>(sm.tiles + (size_t)slot * tile_bytes, xb, S, P,
+                                                 p0, n_t);
       if (t < n_t) {
         const int p = p0 + t;
         const unsigned char* mask = nullptr;
@@ -657,6 +710,298 @@ __device__ __forceinline__ void round_bsp_chunk(
   cp_async_wait_pending(0);
   if (MODE == kFinal) return;
   write_round_record(sm, partial + ((long long)b * nchunks + c) * (S + 2), u, gsum, gsq, S);
+}
+
+// ---------------------------------------------------------------------------
+// The statistics of the blocked stream (nb, R, P) over its first S rows: the
+// chunk of block b = blockIdx.y that CTA blockIdx.x owns, written as one
+// record [n | mean | tri] ("Tile statistics" above), in three kinds:
+//   kSecondMoment (init_stats_bsp; the XLA second moment of the masked bf16
+//     stream, mag1c_pallas.py:1814-1824): sum xs xs^T of the centred stream,
+//     which is zero wherever a pixel does not count; not re-centred, so the
+//     record's mean stays 0 and the reduce divides by the given valid count.
+//   kMeanFold (init_stats_stream; _init_stats_kernel :1164 on the raw f32
+//     stream): the mean and the centred scatter by the running-mean Chan
+//     fold, every pixel valid.
+//   kCholesky (fused_iter CHOLESKY; _fused_iter_kernel :458-474): per pixel
+//     the mf update, then the Chan fold of modx = x - m0c - g target,
+//     g = cov_scale R mf, over the pixels whose valid byte is set.
+//
+// What bounds it: one read of the live rows (4 or 2 bytes per pixel and
+// band) against the triangle's S (S + 1) / 2 FMAs per pixel. At S = 50 the
+// two take about the same time on the H100 and the on-chip work (sweep,
+// scatter, barriers) sets it, as in init_stats, whose design this follows:
+//  * Tiles and the ring as round_bsp_chunk's: a tile is kRoundThreads
+//    contiguous pixels of each live band row, staged band-major by cp.async
+//    (issue_stream_tile) in a ring of 2-4 stages; rows S..R-1 are never
+//    copied. kCholesky's R and mf_prev rows (4-byte copies) and the aligned
+//    words that cover the tile's valid bytes ride in the tile's commit group.
+//    A chunk is tiles_per_chunk consecutive tiles, sized for full waves at
+//    kStatsCtasPerSm CTAs per SM (ops/mag1c_kernels.py:
+//    stream_stats_geometry); the kernel checks the geometry.
+//  * kCholesky's pixel stage: thread t < kRoundThreads takes pixel t of the
+//    tile (the lanes of a warp read consecutive words of each staged row):
+//    proj = cit.(x - m0c) - cit.mu, mf_new (mf_prev on the first call), g;
+//    mf is stored coalesced and g staged for the sweep. A pixel whose valid
+//    byte is 0 reads no value, gets mf = 0 and does not count. One barrier.
+//  * The sweep: warp w owns the band quads w, w + kWarps, ..., its lane l the
+//    pixels l + 32 j (again consecutive words of a staged row). It restages
+//    each quad centred on the running mean as one float4 per pixel (0 where
+//    the pixel does not count; bands past S 0) at stream_stats_pitch(S) =
+//    8 ceil(S / 8) + 4 floats a pixel, an odd number of float4, so the 8
+//    lanes of each quarter-warp store to 8 distinct bank groups. The quad's
+//    sums over the tile come from one transposing butterfly (6 shuffles for
+//    4 bands, a fixed order); __syncthreads_count counts the valid pixels.
+//  * Then threads t < S form d and the new mean while every thread runs the
+//    shared scatter; the rank-1 term waits for the next tile. A chunk's
+//    first tile with valid pixels is centred on its own mean.
+// f32 values and FMAs, no TF32 and no tensor cores; the records are
+// combined in f64 by init_stats_reduce_kernel. Every sum runs in a fixed
+// order, so a rerun is bitwise identical.
+// ---------------------------------------------------------------------------
+enum StreamStatsKind { kSecondMoment = 0, kMeanFold = 1, kCholesky = 2 };
+
+// kCholesky's per-pixel rows in each stage, after the tile: R and mf_prev
+// (kRoundThreads floats each), then the words that cover the valid bytes.
+constexpr int kStatsPixBytes = 2 * 4 * kRoundThreads + kRoundThreads + 16;
+
+// The static shared memory of a stream statistics CTA.
+struct StreamStatsScratch {
+  float bsum[kMaxBands];                     // the sweep's band sums of a tile
+  float delta[kMaxBands], mean[kMaxBands];   // zero past S
+  float m0c[kMaxBands], tgt[kMaxBands], cit[kMaxBands];  // kCholesky, zero past S
+  float g[kRoundThreads];                    // kCholesky: cov_scale R mf of the tile
+  float misc[4];                             // kCholesky: cit.mu, norm
+};
+static_assert(sizeof(StreamStatsScratch) == 3600, "ops/mag1c_kernels.py:STREAM_STATS_STATIC_SMEM");
+
+// Floats of one restaged pixel: ceil(S / 8) 8-band groups and one float4
+// more, an odd number of float4.
+__host__ __device__ inline int stream_stats_pitch(int S) { return (S + 7) / 8 * 8 + 4; }
+
+// Dynamic shared memory of a stream statistics CTA: the ring (stages x
+// [tile | kCholesky's pixel rows]) and the centred tile, or the group sums
+// at the chunk's end where those need more.
+inline size_t stream_stats_smem_bytes(int stages, int tile_bytes, int S, bool pixel_rows) {
+  const size_t ring = (size_t)stages * (tile_bytes + (pixel_rows ? kStatsPixBytes : 0)) +
+                      (size_t)4 * kRoundThreads * stream_stats_pitch(S);
+  const size_t groups = stats_group_bytes(S);
+  return ring > groups ? ring : groups;
+}
+
+template <typename T, int KIND, bool VEC16>
+__device__ __forceinline__ void stream_stats_chunk(
+    const T* __restrict__ xs, const unsigned char* __restrict__ valid,
+    const float* __restrict__ m0c, const float* __restrict__ carry, const float* __restrict__ r,
+    const float* __restrict__ mf_in, float* __restrict__ mf_out, float* __restrict__ partial,
+    bool first, int S, int R, int P, const RoundGeom& geom, int nchunks, float cov_scale) {
+  constexpr bool MEAN = KIND != kSecondMoment, CHOL = KIND == kCholesky;
+  constexpr int TP = kRoundThreads, LD = stream_row_pitch<T>(), J = TP / 32;
+  extern __shared__ __align__(16) unsigned char stats_smem[];
+  __shared__ StreamStatsScratch sc;
+  const int tile_bytes = stream_tile_bytes<T>(S);
+  const int stage_bytes = tile_bytes + (CHOL ? kStatsPixBytes : 0);
+  const int nr = (S + 7) / 8, nq = (S + 3) / 4, pitch = stream_stats_pitch(S);
+  float* ctile = reinterpret_cast<float*>(stats_smem + (size_t)geom.stages * stage_bytes);
+  const int c = blockIdx.x, b = blockIdx.y, t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const T* xb = xs + (long long)b * R * P;
+  const long long row0 = (long long)b * P;  // block b in the (nb, P) pixel rows
+  const int tiles_block = (P + TP - 1) / TP;
+  const int t_beg = c * geom.tiles_per_chunk;
+  const int ntile = min(tiles_block, t_beg + geom.tiles_per_chunk) - t_beg;
+  const int G = stats_groups(S);
+  const ScatterRole sr = scatter_role(S);
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+
+  if (t < kMaxBands) {
+    sc.mean[t] = sc.delta[t] = 0.f;
+    if constexpr (CHOL) {
+      const float* cb = carry + (long long)b * 4 * S;
+      const bool on = t < S;
+      sc.m0c[t] = on && m0c != nullptr ? m0c[(long long)b * S + t] : 0.f;
+      sc.tgt[t] = on ? cb[S + t] : 0.f;
+      sc.cit[t] = on ? cb[2 * S + t] : 0.f;
+      if (t == 0) {
+        float citmu = 0.f;  // in band order
+        for (int s = 0; s < S; ++s) citmu = fmaf(cb[2 * S + s], cb[s], citmu);
+        sc.misc[0] = citmu;
+        sc.misc[1] = cb[3 * S];
+      }
+    }
+  }
+  // The quads past ceil(S / 4) of every restaged pixel stay 0 (the sweeps
+  // never write them; the odd float4 at the pixel's end is never read).
+  const int npad = 2 * nr - nq;
+  for (int e = t; e < TP * npad; e += kThreads)
+    *reinterpret_cast<float4*>(ctile + (e / npad) * pitch + stats_spos(4 * (nq + e % npad), nr)) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // kCholesky's pixel rows of stage `slot`: R at [0, TP), mf_prev at
+  // [TP, 2 TP), the valid bytes' words from 2 TP on.
+  auto pix_rows = [&](int slot) {
+    return reinterpret_cast<float*>(stats_smem + (size_t)slot * stage_bytes + tile_bytes);
+  };
+
+  auto issue = [&](int i) {
+    if (i < ntile) {
+      const int slot = i % geom.stages, p0 = (t_beg + i) * TP, n_t = min(TP, P - p0);
+      issue_stream_tile<T, VEC16, kThreads>(stats_smem + (size_t)slot * stage_bytes, xb, S, P,
+                                            p0, n_t);
+      if constexpr (CHOL) {
+        float* pr = pix_rows(slot);
+        if (t < n_t) {
+          cp_async4(pr + t, r + row0 + p0 + t);
+          cp_async4(pr + TP + t, mf_in + row0 + p0 + t);
+        }
+        if (valid != nullptr) {
+          // The aligned words that hold the bytes lie in the row's allocation.
+          const size_t a = reinterpret_cast<size_t>(valid + row0 + p0);
+          if (t < ((int)(a & 3) + n_t + 3) / 4)
+            cp_async4(pr + 2 * TP + t, reinterpret_cast<const void*>((a & ~(size_t)3) + 4 * t));
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // Whether pixel pl of the tile at p0 (n_t pixels, stage `slot`) counts.
+  auto counts = [&](int slot, int p0, int n_t, int pl) -> bool {
+    if (pl >= n_t) return false;
+    if constexpr (CHOL) {
+      if (valid != nullptr) {
+        const int off = (int)(reinterpret_cast<size_t>(valid + row0 + p0) & 3);
+        return reinterpret_cast<const unsigned char*>(pix_rows(slot) + 2 * TP)[off + pl] != 0;
+      }
+    }
+    return true;
+  };
+
+  // kCholesky's pixel stage (above): mf of pixel t into mf_out, g into sc.g.
+  auto pixel_stage = [&](const T* tile, int slot, int p0, int n_t) {
+    if (t >= TP) return;
+    const float* pr = pix_rows(slot);
+    float mf = 0.f, g = 0.f;
+    if (counts(slot, p0, n_t, t)) {
+      const float ru = pr[t], mf_prev = pr[TP + t];
+      if (first) {
+        mf = mf_prev;
+      } else {
+        float proj = 0.f;
+        const T* src = xb + p0;  // row s of the tile's source
+        for (int s = 0; s < S; ++s, src += P) {
+          const float xv = to_f32(tile[s * LD + stream_row_off<T, VEC16>(src) + t]);
+          proj = fmaf(sc.cit[s], xv - sc.m0c[s], proj);
+        }
+        const float reg = 1.f / (ru * (mf_prev + kEpsilon));
+        mf = fmaxf((proj - sc.misc[0] - reg) / (ru * sc.misc[1]), 0.f);
+      }
+      g = cov_scale * (ru * mf);
+    }
+    if (t < n_t) mf_out[row0 + p0 + t] = mf;
+    sc.g[t] = g;
+  };
+
+  // The sweep (above): with `write`, the tile's quads restaged centred in
+  // ctile; their sums into sc.bsum (MEAN). Returns whether this thread's
+  // own pixel t counts.
+  auto sweep = [&](const T* tile, int slot, int p0, int n_t, bool write) {
+    unsigned cnt = 0;  // bit j: pixel lane + 32 j counts
+#pragma unroll
+    for (int j = 0; j < J; ++j) cnt |= (unsigned)counts(slot, p0, n_t, lane + 32 * j) << j;
+    for (int k = warp; k < nq; k += kWarps) {
+      float sh[4], m0v[4], tg[4], sum[4];
+      int off[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int s = 4 * k + q;
+        sh[q] = sc.mean[s];  // 0 past S, and without MEAN
+        m0v[q] = CHOL ? sc.m0c[s] : 0.f;
+        tg[q] = CHOL ? sc.tgt[s] : 0.f;
+        off[q] = stream_row_off<T, VEC16>(xb + (long long)min(s, S - 1) * P + p0);
+        sum[q] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int pl = lane + 32 * j;
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int s = 4 * k + q;
+          v[q] = 0.f;
+          if (((cnt >> j) & 1u) && s < S) {
+            float xv = to_f32(tile[s * LD + off[q] + pl]);
+            if constexpr (CHOL) xv = fmaf(-tg[q], sc.g[pl], xv - m0v[q]);
+            v[q] = xv - sh[q];
+          }
+          sum[q] += v[q];
+        }
+        if (write)
+          *reinterpret_cast<float4*>(ctile + pl * pitch + stats_spos(4 * k, nr)) =
+              make_float4(v[0], v[1], v[2], v[3]);
+      }
+      if constexpr (MEAN) {
+        // Lane l ends with the sum over all 32 lanes of band 4 k + (l >> 3) % 4.
+        const bool hi16 = lane & 16, hi8 = lane & 8;
+        float a0 = hi16 ? sum[2] : sum[0], a1 = hi16 ? sum[3] : sum[1];
+        a0 += __shfl_xor_sync(0xffffffffu, hi16 ? sum[0] : sum[2], 16);
+        a1 += __shfl_xor_sync(0xffffffffu, hi16 ? sum[1] : sum[3], 16);
+        float v = hi8 ? a1 : a0;
+        v += __shfl_xor_sync(0xffffffffu, hi8 ? a0 : a1, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        if ((lane & 7) == 0) sc.bsum[4 * k + (lane >> 3)] = v;
+      }
+    }
+    return t < TP && counts(slot, p0, n_t, t);
+  };
+
+  int n_run = 0;
+  float coef = 0.f;  // the rank-1 term still to fold
+  for (int i = 0; i < geom.stages - 1; ++i) issue(i);
+  for (int i = 0; i < ntile; ++i) {
+    cp_async_wait_pending(geom.stages - 2);
+    __syncthreads();  // tile i staged; tile i - 1's stage, ctile, g and bsum free; d, mean set
+    issue(i + geom.stages - 1);
+    fold_rank1(coef, sc.delta, sr, acc);
+    coef = 0.f;
+    const int slot = i % geom.stages, p0 = (t_beg + i) * TP, n_t = min(TP, P - p0);
+    const T* tile = reinterpret_cast<const T*>(stats_smem + (size_t)slot * stage_bytes);
+    if constexpr (CHOL) {
+      pixel_stage(tile, slot, p0, n_t);
+      __syncthreads();  // g of every pixel
+    }
+    int n_c = n_t;
+    if constexpr (MEAN) {
+      if (n_run == 0) {  // uniform: the first tile with valid pixels centres on its own mean
+        const int n0 = __syncthreads_count(sweep(tile, slot, p0, n_t, false));
+        if (t < S) sc.mean[t] = n0 > 0 ? sc.bsum[t] / (float)n0 : 0.f;
+        __syncthreads();
+        if (n0 == 0) continue;
+      }
+      n_c = __syncthreads_count(sweep(tile, slot, p0, n_t, true));
+      if (n_c == 0) continue;  // uniform across the CTA
+      const float n_new = (float)(n_run + n_c);
+      if (t < S) {
+        const float d = sc.bsum[t] / (float)n_c;
+        sc.delta[t] = d;
+        sc.mean[t] += d * ((float)n_c / n_new);
+      }
+      coef = -(float)n_c * ((float)n_c / n_new);
+    } else {
+      sweep(tile, slot, p0, n_t, true);
+      __syncthreads();  // the restaged tile
+    }
+    scatter_pixels(reinterpret_cast<const float4*>(ctile), pitch / 4, nr, n_t, G, sr, acc);
+    n_run += n_c;
+  }
+  cp_async_wait_pending(0);
+  __syncthreads();  // the last d is set; the ring is free
+  fold_rank1(coef, sc.delta, sr, acc);
+  write_scatter_record(partial + ((long long)b * nchunks + c) * stats_record_len(S),
+                       reinterpret_cast<float*>(stats_smem), n_run, sc.mean, sr, S, acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -913,22 +1258,43 @@ cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// A stream tile geometry's own fields against the stream: tiles of one row
+// of kRoundThreads pixels, 16-byte copies only where every row starts on 16
+// bytes.
+template <typename T>
+bool stream_tiles_ok(const RoundGeom& g, const void* xs, int P) {
+  if (g.tile_rows != 1 || g.tile_cols != kRoundThreads) return false;
+  return !g.aligned ||
+         ((size_t)P * sizeof(T) % 16 == 0 && reinterpret_cast<size_t>(xs) % 16 == 0);
+}
+
 template <typename T>
 bool stream_geom_ok(const RoundGeom& g, const void* xs, int S, int P, int nchunks) {
-  if (g.tile_rows != 1 || g.tile_cols != kRoundThreads) return false;
-  if (g.aligned && ((size_t)P * sizeof(T) % 16 != 0 || reinterpret_cast<size_t>(xs) % 16 != 0))
-    return false;
-  return round_geom_ok(g, (P + kRoundThreads - 1) / kRoundThreads, nchunks,
+  return stream_tiles_ok<T>(g, xs, P) &&
+         round_geom_ok(g, (P + kRoundThreads - 1) / kRoundThreads, nchunks,
                        stream_tile_bytes<T>(S));
 }
 
-// Launch a round kernel on its (nchunks, nb) grid with the geometry's ring.
-template <typename K, typename... Args>
+// A stream statistics geometry (ops/mag1c_kernels.py:stream_stats_geometry)
+// against the shapes; false refuses the launch.
+template <typename T>
+bool stream_stats_geom_ok(const RoundGeom& g, const void* xs, int S, int P, int nchunks,
+                          bool pixel_rows) {
+  return stream_tiles_ok<T>(g, xs, P) &&
+         tiling_ok(g, (P + kRoundThreads - 1) / kRoundThreads, nchunks) &&
+         (size_t)g.smem ==
+             stream_stats_smem_bytes(g.stages, stream_tile_bytes<T>(S), S, pixel_rows) &&
+         g.smem + sizeof(StreamStatsScratch) <= (size_t)kMaxRoundSmem;
+}
+
+// Launch a round kernel (NT = kRoundThreads) or a statistics kernel (NT =
+// kThreads) on its (nchunks, nb) grid with the geometry's ring.
+template <int NT = kRoundThreads, typename K, typename... Args>
 cudaError_t launch_round_kernel(K kernel, dim3 grid, const RoundGeom& g, cudaStream_t st,
                                 Args... args) {
   const cudaError_t err = allow_smem(kernel, (size_t)g.smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kRoundThreads, g.smem, st>>>(args...);
+  kernel<<<grid, NT, g.smem, st>>>(args...);
   return cudaGetLastError();
 }
 

@@ -8,8 +8,9 @@
 //   fused_iter            <- _fused_iter_kernel (:386, row 4): one streaming
 //                            pass per iteration, the glue between passes
 //                            (filter_glue or torch). WOODBURY: mf and the records
-//                            [u | sum g | sum g^2]; CHOLESKY: mf and the mean
-//                            and centred covariance of modx.
+//                            [u | sum g | sum g^2] (round_bsp_chunk); CHOLESKY:
+//                            mf and the mean and centred covariance of modx
+//                            (stream_stats_chunk).
 //   filter_round_mono     <- _mono_first_kernel (:880, row 7) in FIRST,
 //                            _mono_loop_kernel (:927, row 8) in LOOP / FINAL:
 //                            one launch per iteration does the round AND the
@@ -94,118 +95,25 @@ fused_iter_woodbury_kernel(const T* __restrict__ xs, const unsigned char* __rest
 }
 
 // ---------------------------------------------------------------------------
-// fused_iter, CHOLESKY, pass 1: per (chunk, block) the mf update and the
-// tile statistics of modx = x - cov_scale target R mf_new (:458-474) over
-// the valid pixels, in init_stats's tiles: a tile of kSub pixels x S bands is
-// staged (centred by m0 if the stream is raw), warp w forms proj = cit.(x -
-// mu) of pixels w, w + 8, ... and mf_new (or mf_prev on the first call),
-// the tile becomes modx in place, and the Chan fold adds it to the chunk's
-// mean and centred scatter. Pass 2 is init_stats_reduce_kernel: the block's
-// mean of modx and its centred covariance, combined in f64, i.e. JAX's s1 / n
-// and s2 / n - mu mu^T (:1966-1967) without the f32 cancellation. A pixel
-// whose valid byte is 0 loads nothing, gets mf = 0 and does not count.
-// The stream T is f32 or bf16 (storage only, as WOODBURY); m0c (nullable)
-// centres a raw f32 stream.
+// fused_iter, CHOLESKY, pass 1: stream_stats_chunk (mag1c_common.cuh,
+// kCholesky) per (chunk, block): the mf update of every pixel and the chunk
+// record of modx = x - m0c - cov_scale target R mf_new (:458-474) over the
+// valid pixels. Pass 2 is init_stats_reduce_kernel: the block's mean of modx
+// and its centred covariance, combined in f64, i.e. JAX's s1 / n and
+// s2 / n - mu mu^T (:1966-1967) without the f32 cancellation. The stream T
+// is f32 or bf16 (storage only, as WOODBURY); valid (nb, P) and m0c (which
+// centres a raw f32 stream) are nullable.
 // ---------------------------------------------------------------------------
-template <typename T, int TS>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, bool VEC16>
+__global__ void __launch_bounds__(kThreads, kStatsCtasPerSm)
 fused_iter_cholesky_partial_kernel(int first, const T* __restrict__ xs,
                                    const unsigned char* __restrict__ valid,
                                    const float* __restrict__ m0c, const float* __restrict__ carry,
                                    const float* __restrict__ r, const float* __restrict__ mf_in,
                                    float* __restrict__ mf_out, float* __restrict__ partial, int S,
-                                   int R, int P, int chunk, int nchunks, float cov_scale) {
-  constexpr int SP = 16 * TS;
-  __shared__ float tile[kSub][SP + 1];
-  __shared__ float mean[SP], delta[SP];
-  __shared__ float cit_s[SP], mu_s[SP], tgt_s[SP], m0_s[SP];
-  __shared__ float gmul[kSub];
-  __shared__ unsigned char tile_ok[kSub];
-  __shared__ int tile_n;
-
-  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int p_beg = c * chunk;
-  const int p_end = min(P, p_beg + chunk);
-  const long long row = (long long)b * P;
-  const float* cb = carry + (long long)b * 4 * S;
-  const T* xb = xs + (long long)b * R * P;
-
-  float acc[TS][TS];
-#pragma unroll
-  for (int i = 0; i < TS; ++i)
-#pragma unroll
-    for (int k = 0; k < TS; ++k) acc[i][k] = 0.f;
-
-  for (int e = tid; e < kSub * (SP + 1); e += kThreads) (&tile[0][0])[e] = 0.f;
-  if (tid < SP) {
-    const bool on = tid < S;
-    mean[tid] = delta[tid] = 0.f;
-    mu_s[tid] = on ? cb[tid] : 0.f;
-    tgt_s[tid] = on ? cb[S + tid] : 0.f;
-    cit_s[tid] = on ? cb[2 * S + tid] : 0.f;
-    m0_s[tid] = on && m0c != nullptr ? m0c[(long long)b * S + tid] : 0.f;
-  }
-  __syncthreads();
-  const float norm = cb[3 * S];
-
-  int n_run = 0;
-  for (int p0 = p_beg; p0 < p_end; p0 += kSub) {
-    const int n_span = min(kSub, p_end - p0);
-    if (tid < kSub) {  // warp 0 marks the tile's valid pixels
-      const bool ok = tid < n_span && (valid == nullptr || valid[row + p0 + tid] != 0);
-      const unsigned vote = __ballot_sync(0xffffffffu, ok);
-      tile_ok[tid] = ok;
-      if (tid == 0) tile_n = __popc(vote);
-    }
-    __syncthreads();
-    const int n_tile = tile_n;
-    for (int e = tid; e < kSub * S; e += kThreads) {
-      const int s = e / kSub, pl = e - s * kSub;
-      if (pl < n_span) {
-        float v = 0.f;
-        if (tile_ok[pl]) {
-          const long long i = (long long)s * P + p0 + pl;
-          v = to_f32(xb[i]) - m0_s[s];
-        }
-        tile[pl][s] = v;
-      }
-    }
-    __syncthreads();
-    for (int pl = warp; pl < n_span; pl += kWarps) {
-      float part = 0.f;
-      for (int s = lane; s < S; s += 32) part = fmaf(cit_s[s], tile[pl][s] - mu_s[s], part);
-      const float proj = warp_sum(part);
-      if (lane == 0) {
-        const long long i = row + p0 + pl;
-        float mf = 0.f, g = 0.f;
-        if (tile_ok[pl]) {
-          const float ru = r[i];
-          if (first) {
-            mf = mf_in[i];
-          } else {
-            const float reg = 1.f / (ru * (mf_in[i] + kEpsilon));
-            mf = fmaxf((proj - reg) / (ru * norm), 0.f);
-          }
-          g = cov_scale * (ru * mf);
-        }
-        mf_out[i] = mf;
-        gmul[pl] = g;
-      }
-    }
-    __syncthreads();
-    if (n_tile > 0) {  // uniform across the CTA
-      for (int e = tid; e < n_span * S; e += kThreads) {
-        const int pl = e / S, s = e - pl * S;
-        if (tile_ok[pl]) tile[pl][s] -= tgt_s[s] * gmul[pl];
-      }
-      __syncthreads();
-      fold_tile<TS>(tile, tile_ok, n_span, n_tile, n_run, mean, delta, acc, S);
-    }
-    __syncthreads();
-  }
-  write_stats_record<TS>(partial + ((long long)b * nchunks + c) * stats_record_len(S), n_run,
-                         mean, acc, S);
+                                   int R, int P, RoundGeom geom, int nchunks, float cov_scale) {
+  stream_stats_chunk<T, kCholesky, VEC16>(xs, valid, m0c, carry, r, mf_in, mf_out, partial,
+                                          first != 0, S, R, P, geom, nchunks, cov_scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -291,22 +199,22 @@ cudaError_t launch_woodbury_mode(int first, const void* xs_raw, const unsigned c
                                                        cov_scale, st);
 }
 
-template <int TS>
-cudaError_t launch_cholesky(int first, const void* xs, int f32, const unsigned char* valid,
+template <typename T>
+cudaError_t launch_cholesky(int first, const void* xs_raw, const unsigned char* valid,
                             const float* m0c, const float* carry, const float* r,
                             const float* mf_in, float* mf_out, float* partial, int S, int R,
-                            int P, int chunk, int nchunks, int nb, float cov_scale,
+                            int P, const RoundGeom& g, int nchunks, int nb, float cov_scale,
                             cudaStream_t st) {
+  const T* xs = static_cast<const T*>(xs_raw);
+  if (!stream_stats_geom_ok<T>(g, xs, S, P, nchunks, true)) return cudaErrorInvalidValue;
   const dim3 grid(nchunks, nb);
-  if (f32)
-    fused_iter_cholesky_partial_kernel<float, TS><<<grid, kThreads, 0, st>>>(
-        first, static_cast<const float*>(xs), valid, m0c, carry, r, mf_in, mf_out, partial, S, R,
-        P, chunk, nchunks, cov_scale);
-  else
-    fused_iter_cholesky_partial_kernel<__nv_bfloat16, TS><<<grid, kThreads, 0, st>>>(
-        first, static_cast<const __nv_bfloat16*>(xs), valid, m0c, carry, r, mf_in, mf_out,
-        partial, S, R, P, chunk, nchunks, cov_scale);
-  return cudaGetLastError();
+  if (g.aligned)
+    return launch_round_kernel<kThreads>(fused_iter_cholesky_partial_kernel<T, true>, grid, g, st,
+                                         first, xs, valid, m0c, carry, r, mf_in, mf_out, partial,
+                                         S, R, P, g, nchunks, cov_scale);
+  return launch_round_kernel<kThreads>(fused_iter_cholesky_partial_kernel<T, false>, grid, g, st,
+                                       first, xs, valid, m0c, carry, r, mf_in, mf_out, partial, S,
+                                       R, P, g, nchunks, cov_scale);
 }
 
 template <typename T, bool BF16_DOTS, bool CENTER, bool VEC16>
@@ -395,35 +303,23 @@ int starcop_fused_iter_woodbury(int first, const void* xs, int f32, const unsign
 #undef STARCOP_WOODBURY
 }
 
-// One fused_iter CHOLESKY pass: partial is (nb, nchunks, stats_record_len(S)) over
-// chunks of `chunk` pixels, then mean (nb, S), cov (nb, S, S) come from a
-// second launch.
+// One fused_iter CHOLESKY pass: partial is (nb, nchunks, stats_record_len(S))
+// with the geometry geom of stream_stats_geometry (the six RoundGeom fields),
+// then mean (nb, S), cov (nb, S, S) come from a second launch.
 int starcop_fused_iter_cholesky(int first, const void* xs, int f32, const unsigned char* valid,
                                 int center, const float* m0, const float* carry, const float* r,
                                 const float* mf_in, float* mf_out, float* partial, float* mean,
-                                float* cov, int nb, int S, int R, int P, int chunk, int nchunks,
-                                float cov_scale, void* stream) {
+                                float* cov, int nb, int S, int R, int P, const int* geom,
+                                int nchunks, float cov_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!fused_iter_args_ok(f32, valid, center, S, R)) return (int)cudaErrorInvalidValue;
+  const RoundGeom g = round_geom_from(geom);
   const float* m0c = center ? m0 : nullptr;
-  cudaError_t err;
-  switch ((S + 15) / 16) {
-#define STARCOP_CHOLESKY(TS)                                                                   \
-  case TS:                                                                                     \
-    err = launch_cholesky<TS>(first, xs, f32, valid, m0c, carry, r, mf_in, mf_out, partial,    \
-                              S, R, P, chunk, nchunks, nb, cov_scale, st);                     \
-    break
-    STARCOP_CHOLESKY(1);
-    STARCOP_CHOLESKY(2);
-    STARCOP_CHOLESKY(3);
-    STARCOP_CHOLESKY(4);
-    STARCOP_CHOLESKY(5);
-    STARCOP_CHOLESKY(6);
-    STARCOP_CHOLESKY(7);
-    STARCOP_CHOLESKY(8);
-#undef STARCOP_CHOLESKY
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const cudaError_t err =
+      f32 ? launch_cholesky<float>(first, xs, valid, m0c, carry, r, mf_in, mf_out, partial, S, R,
+                                   P, g, nchunks, nb, cov_scale, st)
+          : launch_cholesky<__nv_bfloat16>(first, xs, valid, m0c, carry, r, mf_in, mf_out,
+                                           partial, S, R, P, g, nchunks, nb, cov_scale, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_stats_reduce(partial, nullptr, mean, cov, S, nchunks, nb, st);
 }

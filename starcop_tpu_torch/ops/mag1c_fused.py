@@ -55,6 +55,7 @@ from starcop_tpu_torch.ops.mag1c_kernels import (
     mono_geometry,
     pack_carry,
     stream_geometry,
+    stream_stats_geometry_for,
     stream_rows,
 )
 
@@ -135,9 +136,11 @@ def _fused_iter_filter(xs, valid, m0, k0, tgt0, cit0, norm0, template, n, *, woo
     mf, r = _rmf_init(xs, m0, cit0, norm0, center)
     # The first pass reads only the target: mu = 0, cit = 0, norm = 1 as JAX.
     carry = pack_carry(tgt0, torch.zeros_like(cit0), torch.ones_like(norm0))
+    s = m0.shape[1]
+    geom = (stream_geometry(xs, s) if woodbury
+            else stream_stats_geometry_for(xs, s, pixel_rows=True))
     rnd = functools.partial(fused_iter, xs, valid, m0, r=r, woodbury=woodbury,
-                            cov_scale=cov_scale, center=center,
-                            geom=stream_geometry(xs, m0.shape[1]) if woodbury else None)
+                            cov_scale=cov_scale, center=center, geom=geom)
     if woodbury:
         glue = functools.partial(filter_glue, m0=m0, template=template, k0=k0, n=n, alpha=alpha)
     else:

@@ -104,9 +104,6 @@ from starcop_tpu_torch.ops.mag1c import (
 )
 
 FIRST, LOOP, FINAL = 0, 1, 2
-# Pixels of one block per CTA of init_stats_bsp, init_stats_stream and
-# fused_iter CHOLESKY (the cube statistics take stats_geometry's chunks).
-INIT_CHUNK = 2048
 
 # The streaming rounds' launch geometry (csrc/mag1c_common.cuh, "The
 # streaming rounds"): a CTA of ROUND_THREADS threads, one pixel each per tile,
@@ -134,6 +131,15 @@ STATS_CTAS_PER_SM = 2
 # StatsScratch: the sweep's sums (two a thread), delta / mean, the pixels'
 # offsets and columns.
 STATS_STATIC_SMEM = 4 * (2 * STATS_THREADS + 2 * MAX_BANDS + 2 * ROUND_THREADS)
+# The stream statistics (init_stats_bsp, init_stats_stream, fused_iter
+# CHOLESKY: stream_stats_chunk in csrc/mag1c_common.cuh): the same CTA, the
+# rounds' stream tiles in a ring of 2..MAX_STAGES; StreamStatsScratch holds
+# the band sums, delta, mean, CHOLESKY's m0, target and cit rows, g of a
+# tile and 4 scalars.
+STREAM_STATS_STATIC_SMEM = 4 * (6 * MAX_BANDS + ROUND_THREADS + 4)
+# CHOLESKY's per-pixel rows in each stage: R, mf_prev and the words that
+# cover the tile's valid bytes.
+STATS_PIX_BYTES = 2 * 4 * ROUND_THREADS + ROUND_THREADS + 16
 # filter_glue / mono's glue: GlueSmem, then K0 staged at glue_k0_pitch(S).
 GLUE_FIXED_BYTES = 6272
 
@@ -182,9 +188,32 @@ def stats_smem_bytes(stages: int, tile_bytes: int, s: int) -> int:
     kernel's ``stats_smem_bytes``): the ring (tile, mask word and position
     per pixel slot) and the centred tile at 8 ceil(s / 8) floats a pixel, or
     the scatter groups' sums where those need more."""
-    tiles = stats_microtiles(s)
     ring = stages * (tile_bytes + 5 * ROUND_THREADS) + 4 * ROUND_THREADS * (-(-s // 8) * 8)
-    return max(ring, 256 * tiles * (STATS_THREADS // tiles - 1))
+    return max(ring, _stats_group_bytes(s))
+
+
+def _stats_group_bytes(s: int) -> int:
+    """Bytes of the scatter groups' sums that a statistics CTA adds at a
+    chunk's end (the kernels' ``stats_group_bytes``)."""
+    tiles = stats_microtiles(s)
+    return 256 * tiles * (STATS_THREADS // tiles - 1)
+
+
+def stream_stats_pitch(s: int) -> int:
+    """Floats of one restaged pixel of the stream statistics: 8 ceil(s / 8)
+    and one float4 more (an odd number of float4: no bank conflicts in the
+    sweep's stores)."""
+    return -(-s // 8) * 8 + 4
+
+
+def stream_stats_smem_bytes(stages: int, tile_bytes: int, s: int, pixel_rows: bool = False) -> int:
+    """Dynamic shared memory of a stream statistics CTA (the kernel's
+    ``stream_stats_smem_bytes``): the ring (the tile and, with ``pixel_rows``,
+    CHOLESKY's R, mf_prev and valid words per stage) and the centred tile, or
+    the scatter groups' sums where those need more."""
+    stage = tile_bytes + (STATS_PIX_BYTES if pixel_rows else 0)
+    ring = stages * stage + 4 * ROUND_THREADS * stream_stats_pitch(s)
+    return max(ring, _stats_group_bytes(s))
 
 
 def glue_k0_pitch(s: int) -> int:
@@ -239,7 +268,7 @@ def round_geometry(layout: str, nb: int, p: int, s: int, *, step: int = 0, width
     elif layout == "bsp":
         tile_rows, tile_cols = 1, ROUND_THREADS
         tiles, unit = -(-p // ROUND_THREADS), 1
-        tile_bytes = s * (BF16_ROW_PITCH * 2 if elem_bytes == 2 else ROUND_THREADS * 4)
+        tile_bytes = _stream_tile_bytes(s, elem_bytes)
         aligned = aligned_ptr and (p * elem_bytes) % 16 == 0
     else:
         raise ValueError(f"layout must be 'hws' or 'bsp', got {layout!r}")
@@ -250,6 +279,17 @@ def round_geometry(layout: str, nb: int, p: int, s: int, *, step: int = 0, width
     k = _chunk_tiles(nb, tiles, unit, max(1, ctas) * sm_count, stages)
     return RoundGeometry(tile_rows, tile_cols, tiles, k, -(-tiles // k), stages, aligned, smem,
                          static_smem, ctas)
+
+
+def _stats_ring(smem_of: Callable[[int], int], static_smem: int):
+    """(stages, dynamic shared memory, CTAs per SM) of a statistics CTA: the
+    most ring stages whose shared memory ``smem_of(stages)`` leaves
+    STATS_CTAS_PER_SM CTAs on an SM, at least 2."""
+    per_cta = SMEM_PER_SM // STATS_CTAS_PER_SM - CTA_RESERVED_SMEM - static_smem
+    stages = max([2] + [k for k in range(2, MAX_STAGES + 1) if smem_of(k) <= per_cta])
+    smem = smem_of(stages)
+    return stages, smem, min(STATS_CTAS_PER_SM,
+                             SMEM_PER_SM // (smem + static_smem + CTA_RESERVED_SMEM))
 
 
 @functools.lru_cache(maxsize=256)
@@ -263,15 +303,41 @@ def stats_geometry(nb: int, h: int, step: int, s: int, *, width: int, aligned_pt
         raise ValueError(f"band count {s} outside [1, {MAX_BANDS}]")
     tile_rows, tile_cols, nseg, tile_bytes = _cube_tile(step, s)
     tiles = -(-h // tile_rows) * nseg
-    per_cta = SMEM_PER_SM // STATS_CTAS_PER_SM - CTA_RESERVED_SMEM - STATS_STATIC_SMEM
-    stages = max([2] + [k for k in range(2, MAX_STAGES + 1)
-                        if stats_smem_bytes(k, tile_bytes, s) <= per_cta])
-    smem = stats_smem_bytes(stages, tile_bytes, s)
-    ctas = min(STATS_CTAS_PER_SM, SMEM_PER_SM // (smem + STATS_STATIC_SMEM + CTA_RESERVED_SMEM))
+    stages, smem, ctas = _stats_ring(lambda k: stats_smem_bytes(k, tile_bytes, s),
+                                     STATS_STATIC_SMEM)
     k = _chunk_tiles(nb, tiles, nseg, max(1, ctas) * sm_count, stages)
     aligned = aligned_ptr and (width * s) % 4 == 0 and (step * s) % 4 == 0
     return RoundGeometry(tile_rows, tile_cols, tiles, k, -(-tiles // k), stages, aligned, smem,
                          STATS_STATIC_SMEM, ctas)
+
+
+def _stream_tile_bytes(s: int, elem_bytes: int) -> int:
+    """Bytes of one staged stream tile: ROUND_THREADS pixels of s band rows
+    (a bf16 row padded to BF16_ROW_PITCH)."""
+    return s * (BF16_ROW_PITCH * 2 if elem_bytes == 2 else ROUND_THREADS * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def stream_stats_geometry(nb: int, p: int, s: int, elem_bytes: int, *, pixel_rows: bool = False,
+                          aligned_ptr: bool = True,
+                          sm_count: int = DEFAULT_SM_COUNT) -> RoundGeometry:
+    """The geometry of the statistics of the blocked stream, ``nb`` blocks
+    of ``p`` pixels and ``s`` live band rows of ``elem_bytes`` bytes
+    (``init_stats_bsp``, ``init_stats_stream``; ``fused_iter`` CHOLESKY with
+    ``pixel_rows``): the rounds' stream tiles (one row of ROUND_THREADS
+    pixels), the most ring stages that leave STATS_CTAS_PER_SM CTAs on an SM
+    (at least 2), and the tiles per chunk that fill the last wave.
+    ``aligned_ptr``: the stream starts on 16 bytes."""
+    if not 1 <= s <= MAX_BANDS:
+        raise ValueError(f"band count {s} outside [1, {MAX_BANDS}]")
+    tile_bytes = _stream_tile_bytes(s, elem_bytes)
+    tiles = -(-p // ROUND_THREADS)
+    stages, smem, ctas = _stats_ring(
+        lambda k: stream_stats_smem_bytes(k, tile_bytes, s, pixel_rows), STREAM_STATS_STATIC_SMEM)
+    k = _chunk_tiles(nb, tiles, 1, max(1, ctas) * sm_count, stages)
+    aligned = aligned_ptr and (p * elem_bytes) % 16 == 0
+    return RoundGeometry(1, ROUND_THREADS, tiles, k, -(-tiles // k), stages, aligned, smem,
+                         STREAM_STATS_STATIC_SMEM, ctas)
 
 
 def _sm_count(dev: torch.device) -> int:
@@ -291,6 +357,15 @@ def stream_geometry(xs: torch.Tensor, s: int, *, static_smem: int = 0) -> RoundG
     return round_geometry("bsp", nb, p, s, elem_bytes=xs.element_size(),
                           aligned_ptr=_aligned16(xs), sm_count=_sm_count(xs.device),
                           static_smem=static_smem)
+
+
+def stream_stats_geometry_for(xs: torch.Tensor, s: int, *,
+                              pixel_rows: bool = False) -> RoundGeometry:
+    """``stream_stats_geometry`` of the statistics of the blocked stream xs
+    (nb, R, P) over its first s rows (``pixel_rows``: fused_iter CHOLESKY)."""
+    nb, _, p = xs.shape
+    return stream_stats_geometry(nb, p, s, xs.element_size(), pixel_rows=pixel_rows,
+                                 aligned_ptr=_aligned16(xs), sm_count=_sm_count(xs.device))
 
 
 def cube_geometry(x: torch.Tensor, nb: int, step: int) -> RoundGeometry:
@@ -512,11 +587,11 @@ def blocked_transpose_plain(x, nb, step, rows, m0, *, valid=None):
     return out.to(torch.bfloat16).contiguous()
 
 
-def init_stats_bsp_plain(xs: torch.Tensor, n):
-    """C0 = xs xs^T / n (nb, R, R) of the centred stream xs (nb, R, P), not
-    re-centred; ``n`` (nb,) the valid counts. In f32 for a bf16 stream,
-    else in the stream's dtype."""
-    x = xs.float() if xs.dtype == torch.bfloat16 else xs
+def init_stats_bsp_plain(xs: torch.Tensor, n, s: int):
+    """C0 = x x^T / n (nb, s, s) of the first s rows x of the centred stream
+    xs (nb, R, P), not re-centred; ``n`` (nb,) the valid counts. In f32 for
+    a bf16 stream, else in the stream's dtype."""
+    x = xs[:, :s].float() if xs.dtype == torch.bfloat16 else xs[:, :s]
     n = torch.as_tensor(n, dtype=x.dtype, device=x.device)
     return torch.einsum("bsp,btp->bst", x, x) / n[:, None, None]
 
@@ -790,17 +865,18 @@ def blocked_transpose(x, nb, step, rows, m0, *, valid=None):
     return out
 
 
-def init_stats_bsp(xs: torch.Tensor, n: torch.Tensor):
-    """C0 (nb, R, R) of the centred bf16 stream over the (nb,) f32 valid
-    counts ``n``; see ``init_stats_bsp_plain``. One call is two launches, as
-    ``init_stats``."""
+def init_stats_bsp(xs: torch.Tensor, n: torch.Tensor, s: int):
+    """C0 (nb, s, s) of the first s rows of the centred bf16 stream over the
+    (nb,) f32 valid counts ``n``; see ``init_stats_bsp_plain``. One call is
+    two launches, as ``init_stats``."""
     if xs.device.type == "cpu":
-        return init_stats_bsp_plain(xs, n)
-    nb, rows, p = xs.shape
-    partial = torch.empty((nb, -(-p // INIT_CHUNK), stats_record_len(rows)), dtype=torch.float32,
+        return init_stats_bsp_plain(xs, n, s)
+    nb = xs.shape[0]
+    geom = stream_stats_geometry_for(xs, s)
+    partial = torch.empty((nb, geom.nchunks, stats_record_len(s)), dtype=torch.float32,
                           device=xs.device)
-    c0 = torch.empty((nb, rows, rows), dtype=torch.float32, device=xs.device)
-    _kernels().init_stats_bsp(xs, n.contiguous(), partial, c0, INIT_CHUNK, _stream(xs))
+    c0 = torch.empty((nb, s, s), dtype=torch.float32, device=xs.device)
+    _kernels().init_stats_bsp(xs, n.contiguous(), partial, c0, geom.op_args(), _stream(xs))
     _count("init_stats_bsp")
     return c0
 
@@ -849,12 +925,13 @@ def init_stats_stream(xs: torch.Tensor, s: int):
     ``init_stats_stream_plain``. One call is two launches, as ``init_stats``."""
     if xs.device.type == "cpu":
         return init_stats_stream_plain(xs, s)
-    nb, _, p = xs.shape
-    partial = torch.empty((nb, -(-p // INIT_CHUNK), stats_record_len(s)), dtype=torch.float32,
+    nb = xs.shape[0]
+    geom = stream_stats_geometry_for(xs, s)
+    partial = torch.empty((nb, geom.nchunks, stats_record_len(s)), dtype=torch.float32,
                           device=xs.device)
     m0 = torch.empty((nb, s), dtype=torch.float32, device=xs.device)
     c0 = torch.empty((nb, s, s), dtype=torch.float32, device=xs.device)
-    _kernels().init_stats_stream(xs, partial, m0, c0, INIT_CHUNK, _stream(xs))
+    _kernels().init_stats_stream(xs, partial, m0, c0, geom.op_args(), _stream(xs))
     _count("init_stats_stream")
     return m0, c0
 
@@ -865,7 +942,9 @@ def fused_iter(xs, valid, m0, carry, r, mf_prev, *, first, woodbury, cov_scale=1
     bf16; see ``fused_iter_plain``. On CUDA the WOODBURY stats come back per
     pixel chunk, (nb, nchunks, S + 2), with ``geom`` as ``filter_round_bsp``'s;
     a CHOLESKY call is two launches (the chunk records, then their f64
-    combine), as ``init_stats``."""
+    combine), as ``init_stats``, with ``geom`` ``stream_stats_geometry_for(xs,
+    S, pixel_rows=True)``. A filter works ``geom`` out once for all its
+    passes; it is made here when None."""
     if xs.device.type == "cpu":
         return fused_iter_plain(xs, valid, m0, carry, r, mf_prev, first=first, woodbury=woodbury,
                                 cov_scale=cov_scale, center=center)
@@ -883,11 +962,13 @@ def fused_iter(xs, valid, m0, carry, r, mf_prev, *, first, woodbury, cov_scale=1
                                        _stream(xs))
         _count("fused_iter_woodbury")
         return mf, stats
-    partial = torch.empty((nb, -(-p // INIT_CHUNK), stats_record_len(s)), dtype=torch.float32,
+    if geom is None:
+        geom = stream_stats_geometry_for(xs, s, pixel_rows=True)
+    partial = torch.empty((nb, geom.nchunks, stats_record_len(s)), dtype=torch.float32,
                           device=dev)
     mean = torch.empty((nb, s), dtype=torch.float32, device=dev)
     cov = torch.empty((nb, s, s), dtype=torch.float32, device=dev)
-    _kernels().fused_iter_cholesky(*args, partial, mean, cov, INIT_CHUNK, float(cov_scale),
+    _kernels().fused_iter_cholesky(*args, partial, mean, cov, geom.op_args(), float(cov_scale),
                                    _stream(xs))
     _count("fused_iter_cholesky")
     return mf, (mean, cov)
@@ -1149,8 +1230,8 @@ def acrwl1mf_masked_bf16(
         n = block_valid_counts(valid, nb, step).clamp(min=1).to(torch.float32)
         m0 = masked_block_means(x, valid, nb, step, n)
         xs = blocked_transpose(x, nb, step, stream_rows(s), m0, valid=valid)
-        c0r = init_stats_bsp(xs, n)
-        k0, tgt0, cit0, norm0 = _woodbury_base(c0r[:, :s, :s], m0, tpl, alpha)
+        c0 = init_stats_bsp(xs, n, s)
+        k0, tgt0, cit0, norm0 = _woodbury_base(c0, m0, tpl, alpha)
         rnd = functools.partial(filter_round_bsp, xs, valid, step, m0,
                                 cov_scale=covariance_update_scaling, bf16_dots=True,
                                 geom=stream_geometry(xs, s))

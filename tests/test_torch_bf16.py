@@ -132,12 +132,14 @@ def test_init_stats_bsp_twin_matches_pallas():
 
     xs = tk.blocked_transpose_plain(xt, NB, STEP, ROWS, m0)
     n = torch.tensor([2048.0, 1500.0, 1.0])
-    c1 = tk.init_stats_bsp_plain(xs, n)
+    c1 = tk.init_stats_bsp_plain(xs, n, S)
     xs_j = jnp.asarray(xs.float().numpy()).astype(jnp.bfloat16)
     want = jnp.einsum("bsp,btp->bst", xs_j, xs_j, preferred_element_type=jnp.float32,
                       precision=jax.lax.Precision.HIGHEST) / jnp.asarray(n.numpy())[:, None, None]
-    assert c1.dtype == torch.float32 and _rel(c1, want) <= 1e-5
-    assert not c1[:, S:].any()
+    want = np.asarray(want)
+    assert c1.dtype == torch.float32 and c1.shape == (NB, S, S)
+    assert _rel(c1, want[:, :S, :S]) <= 1e-5
+    assert not want[:, S:].any()  # the zero pad rows add nothing: the twin keeps S rows
 
 
 def _masked_stream():
@@ -149,8 +151,8 @@ def _masked_stream():
     n = tk.block_valid_counts(vt, NB, STEP).clamp(min=1).float()
     m0 = tk.masked_block_means(xt, vt, NB, STEP, n)
     xs = tk.blocked_transpose_plain(xt, NB, STEP, ROWS, m0, valid=vt)
-    c0 = tk.init_stats_bsp_plain(xs, n)
-    base = tk._woodbury_base(c0[:, :S, :S], m0, tt, 1e-4)
+    c0 = tk.init_stats_bsp_plain(xs, n, S)
+    base = tk._woodbury_base(c0, m0, tt, 1e-4)
     wb = tk._keep_rows(vt, NB, STEP).float()
     return xs, vt, tt, n, m0, base, wb
 

@@ -214,7 +214,8 @@ def test_wrappers_hand_the_geometry_to_the_op(monkeypatch, masked):
 @pytest.mark.parametrize("op", ["bsp", "stream", "cholesky"])
 def test_other_statistics_take_the_triangle_record(monkeypatch, op):
     """init_stats_bsp, init_stats_stream and fused_iter CHOLESKY write the
-    same record format, over INIT_CHUNK-pixel chunks."""
+    same record format over S live rows, one record per chunk of
+    stream_stats_geometry, which the wrapper hands to the op."""
     fake = _RecordingKernels()
     monkeypatch.setattr(tk, "_kernels", lambda: fake)
     monkeypatch.setattr(tk, "_stream", lambda x: 0)
@@ -222,14 +223,17 @@ def test_other_statistics_take_the_triangle_record(monkeypatch, op):
     dtype = torch.bfloat16 if op == "bsp" else torch.float32
     xs = torch.empty((3, rows, p), dtype=dtype, device="meta")
     if op == "bsp":
-        tk.init_stats_bsp(xs, torch.empty(3, device="meta"))
-        partial, width = fake.calls[-1][1][2], rows
+        c0 = tk.init_stats_bsp(xs, torch.empty(3, device="meta"), s)
+        partial, geom_arg = fake.calls[-1][1][2], fake.calls[-1][1][4]
+        assert c0.shape == (3, s, s)  # the live rows only
     elif op == "stream":
         tk.init_stats_stream(xs, s)
-        partial, width = fake.calls[-1][1][1], s
+        partial, geom_arg = fake.calls[-1][1][1], fake.calls[-1][1][4]
     else:
         m0, carry = torch.empty((3, s), device="meta"), torch.empty((3, 4, s), device="meta")
         r = torch.empty((3, p), device="meta")
         tk.fused_iter(xs, None, m0, carry, r, r, first=False, woodbury=False)
-        partial, width = fake.calls[-1][1][9], s
-    assert partial.shape == (3, -(-p // tk.INIT_CHUNK), tk.stats_record_len(width))
+        partial, geom_arg = fake.calls[-1][1][9], fake.calls[-1][1][12]
+    geom = tk.stream_stats_geometry_for(xs, s, pixel_rows=op == "cholesky")
+    assert geom_arg == geom.op_args()
+    assert partial.shape == (3, geom.nchunks, tk.stats_record_len(s))
