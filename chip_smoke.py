@@ -39,6 +39,12 @@ every hand-written kernel against its plain torch twin on the card:
      empties block 1), m0 / C0 / mean / covariance within 1e-5 of the f64
      twin and CHOLESKY's mf, mean and covariance within 4x the f32 twin's
      error + 1e-6, the empty block at 0, reruns bitwise equal;
+     blocked_transpose, unmasked and masked (-9999 and NaN at invalid
+     pixels), at 99 x 45 x 37 step 15 (4-byte copies, odd P = 1,485), 99 x
+     47 x 37 (a ragged last block), 60 x 50 x 128 step 25 (block 1 wholly
+     invalid) and step 176 (row segments narrower than the step; 8 x 352
+     and, ragged, 8 x 290 x 128), each taking the geometry asserted, bitwise
+     equal to its twin and on a rerun;
   5. emit_granule_to_mask on a seeded U-Net whose output spreads over
      (0, 1) and follows the filter (Kaiming-normal convolutions, randomised
      batch-norm statistics, the first layer's mag1c weights x MF_GAIN),
@@ -138,7 +144,7 @@ every hand-written kernel against its plain torch twin on the card:
 
 Prints the card line, every kernel's registers, spills and static shared
 memory from the build ("ptxas:" lines; a spill in any of the statistics
-kernels' instantiations fails the build check), each timed kernel's share of
+kernels' or blocked_transpose's instantiations fails the build check), each timed kernel's share of
 its bound ("time ..."), "timings" and "profile" JSON lines and a "kernels"
 JSON line, and ends with {"ok": true, "device": {...}}. Any failed check exits non-zero
 without the ok line. Peak rates for the bounds are NVIDIA's H100 SXM data
@@ -174,6 +180,13 @@ def check(ok: bool, what: str) -> None:
     print(("PASS " if ok else "FAIL ") + what, flush=True)
     if not ok:
         raise CheckFailed(what)
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two bf16 tensors (+0 and -0 apart)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 def rel_err(a, ref) -> float:
@@ -280,9 +293,10 @@ def profile_granule(run, label: str = "granule_to_mask") -> None:
 
 
 # The statistics kernels, 4 instantiations each (T or MASKED x VEC16), whose
-# 64 accumulators must stay in registers.
+# 64 accumulators must stay in registers, and blocked_transpose (MASKED x
+# VEC16), whose 8 converted values a lane must keep there too.
 STATS_KERNELS = ("init_stats_partial_kernel", "stream_stats_partial_kernel",
-                 "fused_iter_cholesky_partial_kernel")
+                 "fused_iter_cholesky_partial_kernel", "blocked_transpose_kernel")
 
 
 def stats_spills(log: str) -> dict:
@@ -758,8 +772,10 @@ def bf16_phase(dev, x, tpl, mf_f32):
 
     m0, c0 = mk.init_stats(x, nb, STEP)
     xs = mk.blocked_transpose(x, nb, STEP, rows, m0)
-    check(torch.equal(xs, mk.blocked_transpose_plain(x, nb, STEP, rows, m0)),
-          "blocked_transpose (bf16, centred by m0) equals its twin bitwise, pad rows included")
+    check(same_bits(xs, mk.blocked_transpose_plain(x, nb, STEP, rows, m0))
+          and same_bits(mk.blocked_transpose(x, nb, STEP, rows, m0), xs),
+          "blocked_transpose (bf16, centred by m0) equals its twin bitwise, pad rows included; "
+          "rerun bitwise identical")
     fields["blocked_transpose"] = dict(rel_err=0.0, max_abs_err=0.0,
                                        check="bitwise equal to its twin")
 
@@ -813,7 +829,10 @@ def bf16_phase(dev, x, tpl, mf_f32):
     timings = {"bf16_filter_ms": cuda_ms(lambda: mk.acrwl1mf_resident_bsp(x, tpl, nb, STEP,
                                                                           device=dev, **kw)),
                "bf16_filter_plain_f32_ms": cuda_ms(lambda: mk.bsp_filter_plain(
-                   xs, None, STEP, m0, k0, tgt0, cit0, norm0, tpl, p, **kw), reps=5, warmup=1)}
+                   xs, None, STEP, m0, k0, tgt0, cit0, norm0, tpl, p, **kw), reps=5, warmup=1),
+               # A device-to-device copy of the cube: the rate HBM gives a plain read
+               # and write of this size, beside blocked_transpose's share of its bound.
+               "cube_copy_ms": cuda_ms(lambda: x.clone(), reps=7, inner=5)}
     return out, timings
 
 
@@ -842,8 +861,10 @@ def masked_bf16_phase(dev, template, granule):
 
     m0 = mk.masked_block_means(x, valid, nb, MSTEP, n)
     xs = mk.blocked_transpose(x, nb, MSTEP, rows, m0, valid=valid)
-    check(torch.equal(xs, mk.blocked_transpose_plain(x, nb, MSTEP, rows, m0, valid=valid)),
-          "blocked_transpose (bf16, centred, masked, ragged) equals its twin bitwise")
+    check(same_bits(xs, mk.blocked_transpose_plain(x, nb, MSTEP, rows, m0, valid=valid))
+          and same_bits(mk.blocked_transpose(x, nb, MSTEP, rows, m0, valid=valid), xs),
+          "blocked_transpose (bf16, centred, masked, ragged) equals its twin bitwise; rerun "
+          "bitwise identical")
     check(not bool(xs[20].any()), "blocked_transpose: the wholly invalid block 20 is all zero")
     fields["blocked_transpose_masked"] = dict(rel_err=0.0, max_abs_err=0.0,
                                               check="bitwise equal to its twin")
@@ -976,7 +997,10 @@ def masked_bf16_phase(dev, template, granule):
     }
     out = kernel_rows(plans, fields, "served granules, bf16 stream (ScenePipeline, f32 upload)")
     timings = {"bf16_masked_filter_ms": cuda_ms(
-        lambda: mag1c_column_blocks(x, tpl, valid, stream_dtype=torch.bfloat16, **kw), reps=7)}
+        lambda: mag1c_column_blocks(x, tpl, valid, stream_dtype=torch.bfloat16, **kw), reps=7),
+        # The route's second pass over the cube, plain torch (f64 sums).
+        "masked_block_means_ms": cuda_ms(lambda: mk.masked_block_means(x, valid, nb, MSTEP, n),
+                                         reps=7)}
     return out, timings
 
 
@@ -1558,6 +1582,58 @@ def odd_stats_phase(dev):
     return out
 
 
+def odd_transpose_phase(dev):
+    """Phase 4d, the redesigned blocked_transpose on odd geometries: 99 x 45
+    x 37 at step 15 (4-byte copies, odd P = 1,485: element-wise stores),
+    unmasked and masked; 99 x 47 x 37 with a ragged last block 2 columns
+    wide; 60 x 50 x 128 at step 25 (16-byte copies, 100-pixel tiles at P =
+    1,500: 4-byte pair stores), unmasked and masked with block 1 wholly
+    invalid; and a step of 176 columns wider than a tile (row segments of 96
+    columns, 16-byte stores), unmasked at 8 x 352 x 128 and masked with a
+    ragged last block at 8 x 290 x 128. Masked cubes hold -9999 and NaN at
+    their invalid pixels. Each asserts the geometry it took, equals
+    blocked_transpose_plain bitwise (pad rows included) and a rerun is
+    bitwise identical."""
+    import torch
+
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.ops.mag1c import block_columns
+
+    rng = np.random.default_rng(6)
+    cases = (  # h, w, s, step, mask, 16-byte copies, row segments
+        (99, 45, 37, 15, None, False, False), (99, 45, 37, 15, "scattered", False, False),
+        (99, 47, 37, 15, "ragged", False, False), (60, 50, 128, 25, None, True, False),
+        (60, 50, 128, 25, "block 1 empty", True, False), (8, 352, 128, 176, None, True, True),
+        (8, 290, 128, 176, "ragged", True, True))
+    for h, w, s, step, mask, aligned, segments in cases:
+        nb, rows = -(-w // step), mk.stream_rows(s)
+        base = rng.uniform(2.0, 6.0, (1, 1, s))
+        x = rng.uniform(0.5, 2.0, (h, w, 1)) * base * (1 + 0.02 * rng.normal(size=(h, w, s)))
+        x = torch.as_tensor(x.astype(np.float32), device=dev)
+        valid = None
+        if mask is None:
+            m0 = block_columns(x, nb, step).mean(1)
+        else:
+            valid = torch.as_tensor(rng.random((h, w)) > 0.1, device=dev)
+            if mask == "block 1 empty":
+                valid[:, step:2 * step] = False
+            fill = np.where(rng.random((h, w, s)) > 0.5, np.nan, FILL).astype(np.float32)
+            x = torch.where(valid[..., None], x, torch.as_tensor(fill, device=dev))
+            n = mk.block_valid_counts(valid, nb, step).clamp(min=1).float()
+            m0 = mk.masked_block_means(x, valid, nb, step, n)
+        geom = mk.cube_transpose_geometry(x, nb, step)
+        name = f"blocked_transpose {h}x{w}x{s} step {step} ({mask or 'unmasked'})"
+        check(geom.aligned == aligned and (geom.tile_cols < step) == segments,
+              f"odd geometry {name}: {'16' if aligned else '4'}-byte copies, "
+              f"{'row segments' if segments else 'whole rows'} ({geom._asdict()})")
+        got = mk.blocked_transpose(x, nb, step, rows, m0, valid=valid)
+        want = mk.blocked_transpose_plain(x, nb, step, rows, m0, valid=valid)
+        check(same_bits(got, want) and bool(torch.isfinite(got.float()).all())
+              and same_bits(mk.blocked_transpose(x, nb, step, rows, m0, valid=valid), got),
+              f"odd geometry {name}: equals its twin bitwise, pad rows included, finite; "
+              f"rerun bitwise identical")
+
+
 def odd_stream_stats(dev, x, nb, step, valid):
     """The three stream statistics kernels on the blocked streams of the
     (H, nb * step, S) cube x: init_stats_stream on the raw f32 stream (m0, C0
@@ -1897,10 +1973,11 @@ def main() -> int:
               f"{gh}x{gw}x{len(g['template'])} step {gstep}: init rel err {e_init:.2e}, "
               f"5-iteration mf correlation with f32 twin {corr(gmf, gmf32):.7f}")
 
-    # 4d. the redesigned rounds' narrow-copy paths, the statistics kernel and the
-    # glue on odd shapes ------------------------------------------------------------
+    # 4d. the redesigned rounds' narrow-copy paths, the statistics kernels, the glue
+    # and blocked_transpose on odd shapes -------------------------------------------
     odd_geometry_phase(dev)
     odd_stats_phase(dev)
+    odd_transpose_phase(dev)
     for what, geom in (("filter_round (bench cube)", mk.cube_geometry(x, nb, STEP)),
                        ("filter_round_masked (served cube)",
                         mk.cube_geometry(x, -(-W // MSTEP), MSTEP)),

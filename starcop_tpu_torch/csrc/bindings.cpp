@@ -28,7 +28,7 @@ int starcop_filter_glue(const float* partial, const float* carry_in, float* carr
                         int S, int nb, int nchunks, float alpha, void* stream);
 int starcop_blocked_transpose(const float* x, const float* m0, const unsigned char* valid,
                               void* out, int H, int W, int S, int R, int nb, int step,
-                              void* stream);
+                              const int* geom, void* stream);
 int starcop_init_stats_bsp(const void* xs, const float* n_given, float* partial, float* c0,
                            int nb, int S, int R, int P, const int* geom, int nchunks,
                            void* stream);
@@ -96,10 +96,10 @@ Cube check_cube(const at::Tensor& x, int64_t nb, int64_t step, const at::Tensor*
   return c;
 }
 
-// The launch geometry of a round or of the statistics (cube or stream)
-// (ops/mag1c_kernels.py:RoundGeometry.op_args): tile rows, tile columns,
-// tiles per chunk, stages, 16-byte copies, shared memory bytes. The kernels
-// check it against the shapes.
+// The launch geometry of a round, of the statistics (cube or stream) or of
+// blocked_transpose (ops/mag1c_kernels.py:RoundGeometry.op_args): tile
+// rows, tile columns, tiles per chunk, stages, 16-byte copies, shared
+// memory bytes. The kernels check it against the shapes.
 struct Geom {
   int v[6];
 };
@@ -234,8 +234,9 @@ void check_rows(const at::Tensor& like, int64_t nb, int64_t p,
 
 void blocked_transpose(const at::Tensor& x, const at::Tensor& m0,
                        const std::optional<at::Tensor>& valid, const at::Tensor& out,
-                       int64_t nb, int64_t step, int64_t stream) {
+                       int64_t nb, int64_t step, c10::IntArrayRef geom, int64_t stream) {
   const Cube c = check_cube(x, nb, step, valid ? &*valid : nullptr);
+  const Geom g = round_geom(geom);
   TORCH_CHECK(out.dim() == 3, "out must be (nb, R, H*step)");
   const int64_t rows = out.size(1);
   TORCH_CHECK(rows >= c.s, "out has ", rows, " band rows for ", c.s, " bands");
@@ -243,7 +244,7 @@ void blocked_transpose(const at::Tensor& x, const at::Tensor& m0,
   check(m0, x, "m0", {nb, c.s});
   check_launch(starcop_blocked_transpose(x.data_ptr<float>(), m0.data_ptr<float>(),
                                          valid ? valid->data_ptr<uint8_t>() : nullptr,
-                                         out.data_ptr(), c.h, c.w, c.s, rows, nb, step,
+                                         out.data_ptr(), c.h, c.w, c.s, rows, nb, step, g.v,
                                          reinterpret_cast<void*>(stream)),
                "blocked_transpose");
 }
@@ -454,7 +455,7 @@ TORCH_LIBRARY(starcop_mag1c, m) {
         "Tensor tmpl, Tensor k0, Tensor nin, float alpha, int stream) -> ()",
         &filter_glue);
   m.def("blocked_transpose(Tensor x, Tensor m0, Tensor? valid, Tensor(a!) out, int nb, "
-        "int step, int stream) -> ()",
+        "int step, int[] geom, int stream) -> ()",
         &blocked_transpose);
   m.def("init_stats_bsp(Tensor xs, Tensor n, Tensor(a!) partial, Tensor(b!) c0, int[] geom, "
         "int stream) -> ()",

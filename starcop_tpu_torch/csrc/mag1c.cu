@@ -477,41 +477,194 @@ filter_round_kernel(const float* __restrict__ x, const unsigned char* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// blocked_transpose: the (H, W, S) f32 cube -> the centred bf16 stream
-// (nb, R, P), out[b, s, h*step + j] = bf16(x[h, b*step + j, s] - m0[b, s])
-// (round to nearest even), rows S..R-1 zero. Optionally masked by the
-// (H, W) uint8 valid mask (0 where the mask is unset or the column is >= W,
-// selected, never multiplied). A CTA stages TP pixels x S
-// bands in shared memory: it reads them pixel-major, as the cube lies (runs
-// of step * S contiguous floats), and writes them band-major, TP contiguous
-// pixels per band row. Bound by HBM bytes (one read, one write).
+// blocked_transpose / its masked form: the (H, W, S) f32 cube -> the centred
+// bf16 stream (nb, R, P), out[b, s, h*step + j] = bf16_rn(x[h, b*step + j, s]
+// - m0[b, s]) (an f32 subtract, then round to nearest even), rows S..R-1 +0.
+// MASKED: +0 wherever the (H, W) uint8 mask is unset or the column is >= W,
+// selected, never multiplied (the fill -9999 and NaN never reach the stream).
+//
+// What bounds it: one read of the cube and one write of the stream (4 + 2
+// bytes per live value), no arithmetic to speak of. The design keeps the
+// bytes in flight and every on-chip step cheap:
+//  * Tiles of whole block rows (tile_rows x step pixels, or one segment of
+//    tile_cols pixels of a row wider than a tile): a tile is one contiguous
+//    p-range of the output, p0 .. p0 + npx, and each of its rows one run of
+//    tile_cols * S contiguous floats of the cube, staged pixel-major at S
+//    floats a pixel, so tile pixel q sits at q * S and no element needs a
+//    divide. The rows per tile make the pixel span a multiple of 16 (whole
+//    32-byte sectors of the output) where such a tile fits, else of 8 (16
+//    bytes; step 54), P a multiple of 8; at least 128 pixels where they fit.
+//  * A CTA owns tiles_per_chunk consecutive tiles of one block in a ring of
+//    2-4 stages filled by cp.async (16-byte copies where every tile row
+//    starts and ends on 16 bytes, else 4-byte ones; masked, each pixel's
+//    mask word in the same commit group), so the next tiles' bytes are in
+//    flight while the CTA converts and writes the current one. Columns past
+//    W are neither copied nor read. Geometry: ops/mag1c_kernels.py:
+//    transpose_geometry, checked here against the shapes.
+//  * m0 of block b staged once per CTA in shared memory.
+//  * Wide stores: a warp task is G groups of 8 consecutive pixels x BS =
+//    32 / G bands; each lane converts its group of one band and stores 16
+//    bytes (4-byte pairs or 2 bytes at a ragged or unaligned edge), the
+//    task's G groups on 16 G bytes of the output, so a warp store fills
+//    whole 32-byte sectors even in a tile that starts mid-sector (step 54).
+//    Lane (gi, si) reads bank 8 gi S + si (mod 32): conflict-free with BS =
+//    16 where S = 2 mod 4 (S = 50) and BS = 8 where S is odd, 2-way where
+//    S = 0 mod 4. Pad rows are lanes that store zeros. Masked, the group's 8
+//    keep bits come from one ballot of lanes si < 8 over their pixels' mask
+//    words.
 // ---------------------------------------------------------------------------
-constexpr int kTransposePixels = 64;
+// Two values rounded to bf16 (nearest even), lo at the lower address.
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
 
-__global__ void __launch_bounds__(kThreads)
+// Dynamic shared memory of one ring stage: the tile (16-byte rounded), then
+// each pixel's mask word and the byte's position in it (4: not copied).
+__host__ __device__ inline int transpose_tile_bytes(int pixels, int S) {
+  return (pixels * S + 3) / 4 * 16;
+}
+__host__ __device__ inline int transpose_stage_bytes(int pixels, int S) {
+  return transpose_tile_bytes(pixels, S) + (5 * pixels + 15) / 16 * 16;
+}
+
+template <bool MASKED, bool VEC16>
+__global__ void __launch_bounds__(kThreads, kStatsCtasPerSm)
 blocked_transpose_kernel(const float* __restrict__ x, const float* __restrict__ m0,
                          const unsigned char* __restrict__ valid, __nv_bfloat16* __restrict__ out,
-                         int W, int S, int R, int step, int P) {
-  constexpr int TP = kTransposePixels;
-  extern __shared__ float staged[];  // [TP][S + 1]
-  const int b = blockIdx.y, p0 = blockIdx.x * TP, tid = threadIdx.x;
-  const int n_span = min(TP, P - p0);
-  for (int e = tid; e < n_span * S; e += kThreads) {
-    const int pl = e / S, s = e - pl * S;
-    const int p = p0 + pl, h = p / step;
-    const int col = b * step + (p - h * step);
-    const long long hw = (long long)h * W + col;
-    float v = 0.f;
-    if (col < W && (valid == nullptr || valid[hw] != 0)) v = x[hw * S + s] - m0[(long long)b * S + s];
-    staged[pl * (S + 1) + s] = v;
+                         int H, int W, int S, int R, int step, RoundGeom geom) {
+  extern __shared__ __align__(16) unsigned char tr_smem[];
+  __shared__ float m0s[kMaxBands];
+  const int TR = geom.tile_rows, CW = geom.tile_cols, TP = TR * CW;
+  const int stage_bytes = transpose_stage_bytes(TP, S), tile_bytes = transpose_tile_bytes(TP, S);
+  const int c = blockIdx.x, b = blockIdx.y, t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const long long P = (long long)H * step;
+  const int nseg = (step + CW - 1) / CW;
+  const int tiles_block = (H + TR - 1) / TR * nseg;
+  const int t_beg = c * geom.tiles_per_chunk;
+  const int ntile = min(tiles_block, t_beg + geom.tiles_per_chunk) - t_beg;
+  const int ncols_b = MASKED ? min(step, W - b * step) : step;  // columns below W
+  for (int s = t; s < S; s += kThreads) m0s[s] = m0[(long long)b * S + s];
+
+  struct Tile {
+    int h0, nrows, col0, ncols, nload;  // rows, columns in the block, columns read
+  };
+  auto tile_at = [&](int i) {
+    const int tile = t_beg + i, grp = tile / nseg, seg = tile - grp * nseg;
+    Tile tl;
+    tl.h0 = grp * TR;
+    tl.nrows = min(TR, H - tl.h0);
+    tl.col0 = seg * CW;
+    tl.ncols = min(CW, step - tl.col0);
+    tl.nload = max(0, min(tl.ncols, ncols_b - tl.col0));
+    return tl;
+  };
+  auto issue = [&](int i) {
+    if (i < ntile) {
+      const Tile tl = tile_at(i);
+      unsigned char* st = tr_smem + (size_t)(i % geom.stages) * stage_bytes;
+      const int n = tl.nload * S;
+      for (int rr = 0; rr < tl.nrows; ++rr) {
+        const float* src = x + ((long long)(tl.h0 + rr) * W + b * step + tl.col0) * S;
+        float* d = reinterpret_cast<float*>(st) + rr * CW * S;
+        if constexpr (VEC16) {
+          for (int e = t; 4 * e < n; e += kThreads) cp_async16(d + 4 * e, src + 4 * e);
+        } else {
+          for (int e = t; e < n; e += kThreads) cp_async4(d + e, src + e);
+        }
+      }
+      if constexpr (MASKED) {
+        unsigned* mword = reinterpret_cast<unsigned*>(st + tile_bytes);
+        unsigned char* mpos = reinterpret_cast<unsigned char*>(mword + TP);
+        for (int q = t; q < TP; q += kThreads) {
+          const int rr = q / CW, cq = q - rr * CW;
+          unsigned char pos = 4;
+          if (rr < tl.nrows && cq < tl.nload) {
+            // The aligned word that holds the byte lies in the mask's allocation.
+            const size_t a = reinterpret_cast<size_t>(
+                valid + (long long)(tl.h0 + rr) * W + b * step + tl.col0 + cq);
+            pos = (unsigned char)(a & 3);
+            cp_async4(mword + q, reinterpret_cast<const void*>(a & ~(size_t)3));
+          }
+          mpos[q] = pos;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int BS = (S & 1) ? 8 : 16, G = 32 / BS;  // bands and 8-pixel groups of a warp task
+  const int si = lane % BS, gi = lane / BS;
+  const int nbb = (R + BS - 1) / BS;
+  const bool out16 = reinterpret_cast<size_t>(out) % 16 == 0 && P % 8 == 0;
+
+  for (int i = 0; i < geom.stages - 1; ++i) issue(i);
+  for (int i = 0; i < ntile; ++i) {
+    cp_async_wait_pending(geom.stages - 2);
+    __syncthreads();  // tile i staged by every thread; tile i - 1's stage free; m0s set
+    issue(i + geom.stages - 1);
+    const Tile tl = tile_at(i);
+    const unsigned char* st = tr_smem + (size_t)(i % geom.stages) * stage_bytes;
+    const float* tile = reinterpret_cast<const float*>(st);
+    const unsigned* mword = reinterpret_cast<const unsigned*>(st + tile_bytes);
+    const unsigned char* mpos = reinterpret_cast<const unsigned char*>(mword + TP);
+    const int npx = tl.nrows * tl.ncols;
+    const long long p0 = (long long)tl.h0 * step + tl.col0;
+    const bool vec = out16 && p0 % 8 == 0;  // every full group's 8 values on 16 bytes
+    // A task's G groups start on 16 G bytes of the output where vec: the
+    // first task of the tile leaves its first (p0 / 8) % G lanes' groups out,
+    // so no warp store splits a 32-byte sector that another task completes.
+    const int gshift = vec ? (int)(p0 / 8 % G) : 0;
+    const int ntask = nbb * ((npx + 8 * (G + gshift) - 1) / (8 * G));
+    int sb = warp, gb = 0;  // task = gb * nbb + sb, advanced by kWarps
+    while (sb >= nbb) sb -= nbb, ++gb;
+    for (int task = warp; task < ntask; task += kWarps) {
+      const int s = sb * BS + si, q = (gb * G + gi - gshift) * 8;
+      sb += kWarps;
+      while (sb >= nbb) sb -= nbb, ++gb;
+      unsigned keep = 0xffu;
+      if constexpr (MASKED) {
+        bool k = false;
+        if (si < 8 && q >= 0 && q + si < npx) {
+          const unsigned pos = mpos[q + si];
+          k = pos < 4 && ((mword[q + si] >> (8 * pos)) & 0xffu) != 0;
+        }
+        keep = (__ballot_sync(0xffffffffu, k) >> (gi * BS)) & 0xffu;
+      }
+      if (s >= R || q < 0 || q >= npx) continue;
+      const int n = min(8, npx - q);
+      float v[8];
+      if (s < S) {
+        const float m = m0s[s];
+        const float* px = tile + q * S + s;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float xv = e < n ? px[e * S] : 0.f;
+          v[e] = (keep >> e) & 1u ? __fsub_rn(xv, m) : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = 0.f;
+      }
+      __nv_bfloat16* dst = out + ((long long)b * R + s) * P + p0 + q;
+      if (vec && n == 8) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]),
+                                                    bf16x2_bits(v[4], v[5]), bf16x2_bits(v[6], v[7]));
+      } else {  // a ragged or unaligned group: 4-byte pairs where aligned, else 2 bytes
+        const bool pairs = reinterpret_cast<size_t>(dst) % 4 == 0;
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          if (pairs && e + 1 < n) {
+            *reinterpret_cast<unsigned*>(dst + e) = bf16x2_bits(v[e], v[e + 1]);
+          } else {
+            if (e < n) dst[e] = __float2bfloat16_rn(v[e]);
+            if (e + 1 < n) dst[e + 1] = __float2bfloat16_rn(v[e + 1]);
+          }
+        }
+      }
+    }
   }
-  __syncthreads();
-  __nv_bfloat16* ob = out + (long long)b * R * P + p0;
-  for (int e = tid; e < R * TP; e += kThreads) {
-    const int s = e / TP, pl = e - s * TP;
-    if (pl < n_span)
-      ob[(long long)s * P + pl] = __float2bfloat16_rn(s < S ? staged[pl * (S + 1) + s] : 0.f);
-  }
+  cp_async_wait_pending(0);
 }
 
 // ---------------------------------------------------------------------------
@@ -672,18 +825,41 @@ int starcop_init_stats(const float* x, const unsigned char* valid, float* partia
 }
 
 // The (H, W, S) f32 cube -> the bf16 stream (nb, R, P) centred by m0
-// (nb, S); valid (H, W) masks when given.
+// (nb, S); valid (H, W) masks when given. geom: the six RoundGeom fields of
+// transpose_geometry (tiles of tile_rows whole block rows, or one segment of
+// tile_cols columns of a row wider than a tile; the chunk count follows).
 int starcop_blocked_transpose(const float* x, const float* m0, const unsigned char* valid,
                               void* out, int H, int W, int S, int R, int nb, int step,
-                              void* stream) {
+                              const int* geom, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S < 1 || S > kMaxBands || R < S) return (int)cudaErrorInvalidValue;
-  const int P = H * step;
-  const dim3 grid((P + kTransposePixels - 1) / kTransposePixels, nb);
-  const size_t smem = (size_t)kTransposePixels * (S + 1) * sizeof(float);
-  blocked_transpose_kernel<<<grid, kThreads, smem, st>>>(
-      x, m0, valid, static_cast<__nv_bfloat16*>(out), W, S, R, step, P);
-  return (int)cudaGetLastError();
+  const RoundGeom g = round_geom_from(geom);
+  if (S < 1 || S > kMaxBands || R < S || nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
+  const bool shape_ok = g.tile_rows >= 1 && g.tile_cols >= 1 && g.tile_cols <= step &&
+                        (g.tile_rows == 1 || g.tile_cols == step) && g.stages >= 2 &&
+                        g.stages <= kMaxStages && g.tiles_per_chunk >= 1;
+  if (!shape_ok) return (int)cudaErrorInvalidValue;
+  const long long tiles_block =
+      (long long)(H + g.tile_rows - 1) / g.tile_rows * ((step + g.tile_cols - 1) / g.tile_cols);
+  const long long nchunks = (tiles_block + g.tiles_per_chunk - 1) / g.tiles_per_chunk;
+  const long long stage = transpose_stage_bytes(g.tile_rows * g.tile_cols, S);
+  if (H < 1 || nchunks > 0x7fffffffLL || (long long)g.smem != g.stages * stage ||
+      (long long)g.smem + 4LL * kMaxBands > kMaxRoundSmem)
+    return (int)cudaErrorInvalidValue;
+  if (g.aligned && ((long long)W * S % 4 != 0 || (long long)step * S % 4 != 0 ||
+                    (long long)g.tile_cols * S % 4 != 0 || reinterpret_cast<size_t>(x) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)nchunks, nb);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+#define STARCOP_TRANSPOSE(MASKED, VEC16)                                                      \
+  launch_round_kernel<kThreads>(blocked_transpose_kernel<MASKED, VEC16>, grid, g, st, x, m0, \
+                                valid, o, H, W, S, R, step, g)
+  cudaError_t err;
+  if (valid != nullptr)
+    err = g.aligned ? STARCOP_TRANSPOSE(true, true) : STARCOP_TRANSPOSE(true, false);
+  else
+    err = g.aligned ? STARCOP_TRANSPOSE(false, true) : STARCOP_TRANSPOSE(false, false);
+#undef STARCOP_TRANSPOSE
+  return (int)err;
 }
 
 // C0 (nb, S, S) = sum xs xs^T / n_given[b] over the first S rows of the

@@ -88,6 +88,7 @@ norm in every entry of row 3].
 from __future__ import annotations
 
 import functools
+import math
 import threading
 from typing import Callable, Dict, NamedTuple, Tuple
 
@@ -142,6 +143,13 @@ STREAM_STATS_STATIC_SMEM = 4 * (6 * MAX_BANDS + ROUND_THREADS + 4)
 STATS_PIX_BYTES = 2 * 4 * ROUND_THREADS + ROUND_THREADS + 16
 # filter_glue / mono's glue: GlueSmem, then K0 staged at glue_k0_pitch(S).
 GLUE_FIXED_BYTES = 6272
+# blocked_transpose (csrc/mag1c.cu): the statistics' CTA shape,
+# __launch_bounds__(256, 2), tiles of whole block rows of at least
+# TRANSPOSE_MIN_PIXELS pixels where two ring stages leave two CTAs on an SM
+# (at S = 50: 216 pixels at step 54, 128 at step 32), m0 of the block in
+# static shared memory.
+TRANSPOSE_MIN_PIXELS = 128
+TRANSPOSE_STATIC_SMEM = 4 * MAX_BANDS
 
 
 class RoundGeometry(NamedTuple):
@@ -282,9 +290,10 @@ def round_geometry(layout: str, nb: int, p: int, s: int, *, step: int = 0, width
 
 
 def _stats_ring(smem_of: Callable[[int], int], static_smem: int):
-    """(stages, dynamic shared memory, CTAs per SM) of a statistics CTA: the
-    most ring stages whose shared memory ``smem_of(stages)`` leaves
-    STATS_CTAS_PER_SM CTAs on an SM, at least 2."""
+    """(stages, dynamic shared memory, CTAs per SM) of a statistics CTA (or
+    of ``blocked_transpose``'s, the same CTA shape): the most ring stages
+    whose shared memory ``smem_of(stages)`` leaves STATS_CTAS_PER_SM CTAs on
+    an SM, at least 2."""
     per_cta = SMEM_PER_SM // STATS_CTAS_PER_SM - CTA_RESERVED_SMEM - static_smem
     stages = max([2] + [k for k in range(2, MAX_STAGES + 1) if smem_of(k) <= per_cta])
     smem = smem_of(stages)
@@ -340,6 +349,57 @@ def stream_stats_geometry(nb: int, p: int, s: int, elem_bytes: int, *, pixel_row
                          STREAM_STATS_STATIC_SMEM, ctas)
 
 
+def transpose_stage_bytes(pixels: int, s: int) -> int:
+    """Dynamic shared memory of one ``blocked_transpose`` ring stage (the
+    kernel's ``transpose_stage_bytes``): the staged tile, 16-byte rounded,
+    then each pixel's mask word and the byte's position in it."""
+    return -(-pixels * s // 4) * 16 + -(-5 * pixels // 16) * 16
+
+
+def _transpose_tile(h: int, step: int, s: int):
+    """The ``blocked_transpose`` tile: (rows, columns, segments per block
+    row), each shape such that two ring stages leave STATS_CTAS_PER_SM CTAs
+    on an SM. Whole block rows, at least TRANSPOSE_MIN_PIXELS pixels where
+    they fit, in a multiple of the rows that make the pixel span a multiple
+    of 16 (each band row of a tile on whole 32-byte sectors of the output)
+    where such a unit fits, else of 8 (16 bytes); else segments of a row
+    wider than a tile, a multiple of 16 columns where one fits."""
+    per_cta = SMEM_PER_SM // STATS_CTAS_PER_SM - CTA_RESERVED_SMEM - TRANSPOSE_STATIC_SMEM
+    fits = lambda px: 2 * transpose_stage_bytes(px, s) <= per_cta  # noqa: E731
+    if fits(step):
+        unit = next(u for u in (16 // math.gcd(step, 16), 8 // math.gcd(step, 8), 1)
+                    if fits(u * step))
+        rows = -(-TRANSPOSE_MIN_PIXELS // (unit * step)) * unit
+        while not fits(rows * step):
+            rows -= unit
+        return min(rows, -(-h // unit) * unit), step, 1
+    cols = max(c for c in range(1, step) if fits(c))
+    cols = cols // 16 * 16 or cols
+    return 1, cols, -(-step // cols)
+
+
+@functools.lru_cache(maxsize=256)
+def transpose_geometry(nb: int, h: int, step: int, s: int, *, width: int,
+                       aligned_ptr: bool = True,
+                       sm_count: int = DEFAULT_SM_COUNT) -> RoundGeometry:
+    """The geometry of ``blocked_transpose`` on the (h, width, s) cube in
+    ``nb`` blocks of ``step`` columns: ``_transpose_tile``'s tiles, the most
+    ring stages that leave STATS_CTAS_PER_SM CTAs on an SM (at least 2), and
+    the tiles per chunk that fill the last wave. ``aligned``: 16-byte copies
+    (every tile row starts and ends on 16 bytes of the cube)."""
+    if not 1 <= s <= MAX_BANDS:
+        raise ValueError(f"band count {s} outside [1, {MAX_BANDS}]")
+    rows, cols, nseg = _transpose_tile(h, step, s)
+    tiles = -(-h // rows) * nseg
+    stages, smem, ctas = _stats_ring(lambda k: k * transpose_stage_bytes(rows * cols, s),
+                                     TRANSPOSE_STATIC_SMEM)
+    k = _chunk_tiles(nb, tiles, nseg, max(1, ctas) * sm_count, stages)
+    aligned = (aligned_ptr and (width * s) % 4 == 0 and (step * s) % 4 == 0
+               and (cols * s) % 4 == 0)
+    return RoundGeometry(rows, cols, tiles, k, -(-tiles // k), stages, aligned, smem,
+                         TRANSPOSE_STATIC_SMEM, ctas)
+
+
 def _sm_count(dev: torch.device) -> int:
     if dev.type == "cuda":
         return torch.cuda.get_device_properties(dev).multi_processor_count
@@ -380,6 +440,13 @@ def cube_stats_geometry(x: torch.Tensor, nb: int, step: int) -> RoundGeometry:
     h, w, s = x.shape
     return stats_geometry(nb, h, step, s, width=w, aligned_ptr=_aligned16(x),
                           sm_count=_sm_count(x.device))
+
+
+def cube_transpose_geometry(x: torch.Tensor, nb: int, step: int) -> RoundGeometry:
+    """``transpose_geometry`` of ``blocked_transpose`` on the (H, W, S) cube x."""
+    h, w, s = x.shape
+    return transpose_geometry(nb, h, step, s, width=w, aligned_ptr=_aligned16(x),
+                              sm_count=_sm_count(x.device))
 
 
 # The masked rounds count their FIRST launches (row 5 of the TPU kernel
@@ -860,7 +927,8 @@ def blocked_transpose(x, nb, step, rows, m0, *, valid=None):
         return blocked_transpose_plain(x, nb, step, rows, m0, valid=valid)
     out = torch.empty((nb, rows, x.shape[0] * step), dtype=torch.bfloat16, device=x.device)
     _kernels().blocked_transpose(x, m0, None if valid is None else _mask_u8(valid), out, nb,
-                                 step, _stream(x))
+                                 step, cube_transpose_geometry(x, nb, step).op_args(),
+                                 _stream(x))
     _count("blocked_transpose")
     return out
 
