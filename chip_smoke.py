@@ -140,7 +140,20 @@ every hand-written kernel against its plain torch twin on the card:
      (no kernel launched), held against reference_oracle_acrwl1mf(num_iter=0)
      in float64 (per block, over the valid pixels of the served granule):
      finite, the fill value exactly at invalid pixels, threshold-500
-     agreement >= 0.999 with detections.
+     agreement >= 0.999 with detections;
+ 15. the evaluation path (TPU rows 11-12 through it, launch counts zeroed
+     just before and read just after each run, checked as 1 / 31 / 30 per
+     filter and nothing else): synthetic_detection_f1 at the JAX test's
+     pinned geometry (2 x 256 x 216, seed 42) in its bands [0.955, 0.985]
+     and [0.94, 0.975]; at the bench geometry (2 x 1280 x 1242, step 54) the
+     kernel's and the f32 plain twin's mf (rounds and glue in f32 on the
+     f64 twin's statistics) through Mag1cBaseline and run_validation, F1
+     within 2e-3 at every threshold with label positives; a 16-tile 512 x
+     512 dataset written with the filter on the card and cli/evaluate.py on
+     it (--baseline mag1c at batch 32 and 3, equal results; a seeded
+     checkpoint at bf16 and f32), results_agg.json's keys checked; eval
+     tiles/s of batch_with_preds + _batch_eval_stats on 32 x 4 x 512 x 512
+     bf16-resident batches (median of 12 CUDA-event samples, one traced).
 
 Prints the card line, every kernel's registers, spills and static shared
 memory from the build ("ptxas:" lines; a spill in any of the statistics
@@ -1784,6 +1797,174 @@ def num_iter0_phase(dev, x, template, granule):
               f"{corr(got[okn], ref[okn]):.7f}")
 
 
+FILTER_LAUNCHES = {"init_stats": 1, "filter_round": NUM_ITER + 1, "filter_glue": NUM_ITER}
+EVAL_TILES, EVAL_SIZE, EVAL_BATCH = 16, 512, 32  # the eval phase's dataset and batch
+
+
+def eval_launches(what: str, n_filters: int) -> dict:
+    """The launch counts since the last reset, checked to be ``n_filters``
+    unmasked f32 filters' (TPU rows 11-12) and nothing else."""
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+
+    got = dict(mk.LAUNCH_COUNTS)
+    want = {k: n_filters * FILTER_LAUNCHES.get(k, 0) for k in got}
+    check(got == want, f"{what}: launches {dict((k, v) for k, v in got.items() if v)} "
+                       f"(want {n_filters} filters' {FILTER_LAUNCHES}, nothing else)")
+    return {k: got[k] for k in FILTER_LAUNCHES}
+
+
+def eval_phase(dev, card: str):
+    """15. the evaluation path (TPU rows 11-12 through it): the synthetic F1
+    probe at the JAX test's pinned geometry, the kernel's and the f32 plain
+    twin's threshold sweeps at the bench geometry, a 16-tile dataset written
+    with the filter on the card and evaluated by ``cli/evaluate.py`` (the
+    mag1c baseline, a seeded checkpoint at bf16 and f32), and eval tiles/s
+    of ``batch_with_preds`` + ``_batch_eval_stats`` on 32 x 4 x 512 x 512
+    bf16-resident batches. Returns (launches by run, timings)."""
+    import tempfile
+
+    import torch
+
+    from starcop_tpu_torch.cli.evaluate import main as evaluate_main
+    from starcop_tpu_torch.data.datamodule import BatchLoader, prefetch_to_device
+    from starcop_tpu_torch.data.dataset import ChipDataset, read_index_csv
+    from starcop_tpu_torch.data.synthetic import synthetic_scene, write_synthetic_chip_dataset
+    from starcop_tpu_torch.eval import synthetic_eval as se
+    from starcop_tpu_torch.eval.validation import (
+        DEFAULT_THRESHOLDS,
+        _batch_eval_stats,
+        run_validation,
+    )
+    from starcop_tpu_torch.models.baselines import Mag1cBaseline
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.ops.mag1c import mag1c_column_blocks, unblock_columns
+
+    t_phase = time.perf_counter()
+    timings, launches = {}, {}
+
+    # 15a. the probe at the JAX test's pinned geometry, kernels on the card.
+    t0 = time.perf_counter()
+    mk.reset_launch_counts()
+    pinned = se.synthetic_detection_f1(n_tiles=2, height=256, width=216, device=dev)
+    launches["f1_pinned"] = eval_launches("synthetic_detection_f1 (2 x 256 x 216)", 2)
+    timings["eval_f1_pinned_s"] = time.perf_counter() - t0
+    check(0.955 <= pinned["synthetic_f1"] <= 0.985
+          and 0.94 <= pinned["synthetic_f1_at_500"] <= 0.975,
+          f"synthetic F1 at the pinned geometry {pinned} (bands [0.955, 0.985], [0.94, 0.975])")
+
+    # 15b. the bench geometry: the kernel's mf and the f32 plain twin's (rounds
+    # and glue in f32 on the f64 twin's statistics rounded to f32) of the same
+    # scenes through the same baseline and harness.
+    t0 = time.perf_counter()
+    template = se.default_template()
+    tpl = torch.as_tensor(template, dtype=torch.float32, device=dev)
+    nb = W // STEP
+    rng = np.random.default_rng(42)
+    kernel_batches, twin_batches = [], []
+    mk.reset_launch_counts()
+    for i in range(2):
+        scene = synthetic_scene(rng, H, W, n_plumes=3, template=template)
+        x = torch.as_tensor(scene["radiance"], device=dev)
+        with torch.inference_mode():
+            mf_k, _ = mag1c_column_blocks(x, tpl, None, column_step=STEP, num_iter=NUM_ITER,
+                                          alpha=ALPHA, device=dev)
+            m0, c0 = (t.float() for t in mk.init_stats_plain(x.double(), nb, STEP))
+            mf_t, _ = mk.resident_filter_plain(x, nb, STEP, m0,
+                                               *mk._woodbury_base(c0, m0, tpl, ALPHA), tpl,
+                                               num_iter=NUM_ITER, alpha=ALPHA)
+        kernel_batches.append(se.synthetic_eval_batch(mf_k, scene, i))
+        twin_batches.append(se.synthetic_eval_batch(unblock_columns(mf_t, H, STEP), scene, i))
+    launches["f1_bench"] = eval_launches("bench-geometry eval set (2 x 1280 x 1242)", 2)
+    bl = Mag1cBaseline(list(se.PRODUCTS)).to(dev)
+    f1 = {}
+    for name, batches in (("kernel", kernel_batches), ("twin", twin_batches)):
+        with torch.inference_mode():
+            _, metrics = run_validation(bl.batch_with_preds, iter(batches),
+                                        thresholds=list(se.MAG1C_THRESHOLDS),
+                                        apply_threshold=bl.apply_threshold)
+        f1[name] = se.f1_by_threshold(metrics)  # raises without label positives
+        positives = int(np.asarray(metrics["thresholded"][0]["confusion_matrix"])[1].sum())
+    print("eval F1 by threshold, bench geometry: " + json.dumps(
+        {"label_positives": positives, **{k: {str(t): v for t, v in d.items()}
+                                          for k, d in f1.items()}}), flush=True)
+    worst = max(abs(f1["kernel"][t] - f1["twin"][t]) for t in se.MAG1C_THRESHOLDS)
+    check(positives > 0 and worst <= 2e-3,
+          f"bench-geometry F1, kernel vs f32 twin: worst |diff| {worst:.2e} over "
+          f"{len(se.MAG1C_THRESHOLDS)} thresholds (<= 2e-3), {positives} label positives; "
+          f"best F1 {max(f1['kernel'].values()):.4f} / {max(f1['twin'].values()):.4f}, at 500 "
+          f"{f1['kernel'][500.0]:.4f} / {f1['twin'][500.0]:.4f}")
+    timings["eval_f1_bench_s"] = time.perf_counter() - t0
+    timings.update(eval_f1_bench_kernel=max(f1["kernel"].values()),
+                   eval_f1_bench_twin=max(f1["twin"].values()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 15c. a 16-tile 512 x 512 dataset, mag1c by the kernels, evaluated by the CLI.
+        t0 = time.perf_counter()
+        mk.reset_launch_counts()
+        index = write_synthetic_chip_dataset(os.path.join(tmp, "chips"),
+                                             np.random.default_rng(0), n_tiles=EVAL_TILES,
+                                             size=EVAL_SIZE, run_matched_filter=True, device=dev)
+        launches["dataset"] = eval_launches(
+            f"write_synthetic_chip_dataset ({EVAL_TILES} x {EVAL_SIZE} x {EVAL_SIZE})", EVAL_TILES)
+        timings["eval_dataset_s"] = time.perf_counter() - t0
+        ckpt = os.path.join(tmp, "seeded.pt")
+        torch.save({k: v.cpu() for k, v in seeded_model(dev).network.state_dict().items()}, ckpt)
+        want_keys = {"precision", "recall", "f1score", "iou", "accuracy", "cohen_kappa",
+                     "balanced_accuracy", "confusion_matrix", "classification_f1score",
+                     "classification_confusion_matrix", "thresholded"}
+        aggs = {}
+        for name, extra in (("baseline_mag1c", ["--baseline", "mag1c"]),
+                            ("baseline_mag1c_b3", ["--baseline", "mag1c", "--batch-size", "3"]),
+                            ("checkpoint_bf16", ["--checkpoint", ckpt]),
+                            ("checkpoint_f32", ["--checkpoint", ckpt, "--model-dtype", "f32"])):
+            t0 = time.perf_counter()
+            out = os.path.join(tmp, name)
+            check(evaluate_main(["--test-csv", index, "--output", out, "--device", dev.type]
+                                + extra) == 0, f"cli/evaluate.py {' '.join(extra[:2])} exits 0")
+            timings[f"eval_cli_{name}_s"] = time.perf_counter() - t0
+            with open(os.path.join(out, "results_agg.json")) as fh:
+                agg = aggs[name] = json.load(fh)
+            with open(os.path.join(out, "results.csv")) as fh:
+                n_rows = len(fh.readlines()) - 1
+            cm = np.asarray(agg.get("confusion_matrix", 0))
+            check(want_keys <= set(agg) and len(agg["thresholded"]) == 16
+                  and n_rows == EVAL_TILES and int(cm.sum()) == EVAL_TILES * EVAL_SIZE ** 2,
+                  f"cli/evaluate.py {name}: results_agg.json holds {sorted(want_keys)} "
+                  f"(missing {sorted(want_keys - set(agg))}), 16 thresholds, {n_rows} rows in "
+                  f"results.csv ({EVAL_TILES}), every pixel counted; f1 {agg.get('f1score')}, "
+                  f"classification f1 {agg.get('classification_f1score')}")
+        # Six prefetched batches through four pinned buffers a key: a buffer
+        # refilled before its copy ran would change the counts.
+        check(aggs["baseline_mag1c_b3"] == aggs["baseline_mag1c"],
+              "cli/evaluate.py --baseline mag1c: results_agg.json at --batch-size 3 (6 batches "
+              "through the pinned ring, a ragged last one) equal to one batch of 16's")
+
+        # 15d. eval tiles/s: batch_with_preds + _batch_eval_stats on 32 x 4 x 512 x 512
+        # (the 16 tiles twice), already on the card.
+        reps = -(-EVAL_BATCH // EVAL_TILES)
+        loader = BatchLoader(ChipDataset(read_index_csv(index) * reps, list(se.PRODUCTS),
+                                         ["labelbinary"], "weight_mag1c"), batch_size=EVAL_BATCH)
+        batch = next(prefetch_to_device(iter(loader), device=dev))
+    want_shape = (EVAL_BATCH, 4, EVAL_SIZE, EVAL_SIZE)
+    check(tuple(batch["input"].shape) == want_shape and batch["input"].device.type == dev.type,
+          f"eval batch {tuple(batch['input'].shape)} on {dev}")
+    model = seeded_model(dev, bf16=True)
+
+    def eval_step():
+        out = model.batch_with_preds(batch)
+        return _batch_eval_stats(out["pred_binary"], out["prediction"], out["output_norm"],
+                                 None, DEFAULT_THRESHOLDS)
+
+    with torch.inference_mode():
+        ms = cuda_ms(eval_step, reps=12, warmup=2)
+        profile_granule(eval_step, "eval_batch")
+    timings.update(eval_batch_ms=ms, eval_tiles_per_s=EVAL_BATCH / (ms / 1e3),
+                   eval_phase_s=time.perf_counter() - t_phase)
+    print(f"eval tiles/s {EVAL_BATCH / (ms / 1e3):.1f} (batches of {want_shape}, bf16-resident "
+          f"U-Net, {ms:.3f} ms median of 12 CUDA-event samples) on {card}", flush=True)
+    return launches, timings
+
+
 def seeded_model(dev, seed: int = 0, bf16: bool = False):
     """A full-width SegmentationModel whose output spreads over (0, 1) and
     follows the filter: Kaiming-normal (fan-out) convolutions, zero conv
@@ -2241,9 +2422,16 @@ def main() -> int:
 
     # 14. num_iter=0: JAX's plain route, on the bench scene and a served granule ------
     num_iter0_phase(dev, x, template, granules[0])
+
+    # 15. the evaluation path: the F1 probe, the dataset and the evaluate CLI --------
+    eval_counts, eval_timings = eval_phase(dev, card)
+    for row in kernels:
+        if row["name"] in FILTER_LAUNCHES:
+            row["eval_launches"] = eval_counts
     print("timings " + json.dumps({"card": card, **timings, **masked_timings,
                                    **serving_timings, **bf16_timings, **masked_bf16_timings,
-                                   **served_bf16_timings, **route_timings}), flush=True)
+                                   **served_bf16_timings, **route_timings, **eval_timings}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,7 @@ yoff) with x = a*col + b*row + xoff; y = d*col + e*row + yoff.
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 from dataclasses import dataclass, field
@@ -700,3 +701,53 @@ def read_geotiff(
         return reader.read(band=band, window=window), reader.meta
     finally:
         reader.close()
+
+
+# ---------------------------------------------------------------------------
+# Product IO by extension (.tif carries geo metadata; .npy is the fast
+# synthetic and test format)
+# ---------------------------------------------------------------------------
+
+
+def save_raster(path: str, array: np.ndarray, **geo_kwargs) -> str:
+    """Save by extension: .tif through ``write_geotiff`` (geo keywords
+    honoured), .npy through numpy (geo keywords dropped)."""
+    if path.endswith((".tif", ".tiff")):
+        return write_geotiff(path, array, **geo_kwargs)
+    np.save(path, np.asarray(array))
+    return path
+
+
+def load_raster(path: str, window: Optional[Tuple[int, int, int, int]] = None) -> np.ndarray:
+    """Load by extension; a single-band raster comes back as (H, W), so .tif
+    and .npy products interchange. ``window`` is (col_off, row_off, w, h);
+    its offsets may be negative and it may overhang the raster (padded
+    plume windows), the area outside the raster zero-filled."""
+    if path.endswith((".tif", ".tiff")):
+        reader = GeoTIFFReader(path)
+        try:
+            arr = reader.read(window=window)
+        finally:
+            reader.close()
+        return arr[0] if arr.shape[0] == 1 else arr
+    arr = np.load(path, mmap_mode="r")
+    if window is None:
+        return np.asarray(arr)
+    c, r, w, h = window
+    hh, ww = arr.shape[-2:]
+    ry0, ry1 = max(r, 0), min(r + h, hh)
+    rx0, rx1 = max(c, 0), min(c + w, ww)
+    out = np.zeros(arr.shape[:-2] + (h, w), arr.dtype)
+    if ry1 > ry0 and rx1 > rx0:
+        out[..., ry0 - r:ry1 - r, rx0 - c:rx1 - c] = arr[..., ry0:ry1, rx0:rx1]
+    return out
+
+
+def find_raster(folder: str, name: str) -> Optional[str]:
+    """The product file ``name`` in ``folder`` (.tif, .tiff, then .npy), or
+    None."""
+    for ext in (".tif", ".tiff", ".npy"):
+        p = os.path.join(folder, name + ext)
+        if os.path.exists(p):
+            return p
+    return None

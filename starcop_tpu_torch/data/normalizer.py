@@ -1,9 +1,9 @@
 """Per-product band normalisation (counterpart of starcop_tpu/data/normalizer.py).
 
-Each product maps to {offset, factor, clip}; inputs are normalised as
-``clip((x - offset) / factor, lo, hi)``. The constants are the published
-reference values and are load-bearing for checkpoint parity (e.g. mag1c
-factor 1750, AVIRIS RGB factor 60).
+Each product maps to {offset, factor, clip}; inputs (and outputs with an
+entry) are normalised as ``clip((x - offset) / factor, lo, hi)``. The
+constants are the published reference values and are load-bearing for
+checkpoint parity (e.g. mag1c factor 1750, AVIRIS RGB factor 60).
 """
 
 from __future__ import annotations
@@ -56,14 +56,18 @@ BAND_NORMALIZATION.update(
 
 
 class DataNormalizer(nn.Module):
-    """Frozen per-channel input normalisation, held as (C, 1, 1) buffers so it
-    moves with ``.to(device)`` and broadcasts over (B, C, H, W). The buffers
-    are not persistent: a network state_dict carries weights only. Unknown
-    products warn and fall back to identity with clip [-10, 10]."""
+    """Frozen per-channel normalisation of the input and output products,
+    held as (C, 1, 1) buffers so it moves with ``.to(device)`` and
+    broadcasts over (B, C, H, W). The buffers are not persistent: a network
+    state_dict carries weights only. Unknown input products warn and fall
+    back to identity with clip [-10, 10]; outputs with no entry (the default
+    ``labelbinary``) pass through ``normalize_y`` unchanged."""
 
-    def __init__(self, input_products: Sequence[str]):
+    def __init__(self, input_products: Sequence[str],
+                 output_products: Sequence[str] = ("labelbinary",)):
         super().__init__()
         self.input_products = list(input_products)
+        self.output_products = list(output_products)
         rows = []
         for p in self.input_products:
             if p not in BAND_NORMALIZATION:
@@ -73,11 +77,42 @@ class DataNormalizer(nn.Module):
                 )
                 rows.append((0.0, 1.0, -10.0, 10.0))
             else:
-                e = BAND_NORMALIZATION[p]
-                rows.append((e["offset"], e["factor"], e["clip"][0], e["clip"][1]))
-        table = torch.tensor(rows, dtype=torch.float32).T[..., None, None]  # (4, C, 1, 1)
-        for name, col in zip(("offsets", "factors", "clip_min", "clip_max"), table):
-            self.register_buffer(name, col.clone(), persistent=False)
+                rows.append(_row(BAND_NORMALIZATION[p]))
+        for name, col in zip(_NAMES, _table(rows)):
+            self.register_buffer(name, col, persistent=False)
+
+        out = [BAND_NORMALIZATION[p] for p in self.output_products if p in BAND_NORMALIZATION]
+        if out and len(out) != len(self.output_products):
+            raise ValueError("Some output products don't have normalization. CHECK!")
+        cols = _table([_row(e) for e in out]) if out else (None,) * 4
+        for name, col in zip(_NAMES, cols):
+            self.register_buffer(name + "_output", col, persistent=False)
 
     def normalize_x(self, x: torch.Tensor) -> torch.Tensor:
         return torch.clamp((x - self.offsets) / self.factors, self.clip_min, self.clip_max)
+
+    def denormalize_x(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.factors + self.offsets
+
+    def normalize_y(self, y: torch.Tensor) -> torch.Tensor:
+        if self.factors_output is None:
+            return y
+        return torch.clamp((y - self.offsets_output) / self.factors_output,
+                           self.clip_min_output, self.clip_max_output)
+
+    def denormalize_y(self, y: torch.Tensor) -> torch.Tensor:
+        if self.factors_output is None:
+            return y
+        return y * self.factors_output + self.offsets_output
+
+
+_NAMES = ("offsets", "factors", "clip_min", "clip_max")
+
+
+def _row(entry: Dict) -> tuple:
+    return entry["offset"], entry["factor"], entry["clip"][0], entry["clip"][1]
+
+
+def _table(rows) -> torch.Tensor:
+    """(offset, factor, lo, hi) rows -> (4, C, 1, 1) float32 columns."""
+    return torch.tensor(rows, dtype=torch.float32).T[..., None, None].clone()
