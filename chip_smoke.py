@@ -153,7 +153,32 @@ every hand-written kernel against its plain torch twin on the card:
      it (--baseline mag1c at batch 32 and 3, equal results; a seeded
      checkpoint at bf16 and f32), results_agg.json's keys checked; eval
      tiles/s of batch_with_preds + _batch_eval_stats on 32 x 4 x 512 x 512
-     bf16-resident batches (median of 12 CUDA-event samples, one traced).
+     bf16-resident batches (median of 12 CUDA-event samples, one traced);
+ 16. the training path on phase 15's dataset (whose mag1c rows 11-12
+     filtered; ``train_data_launches`` in the kernels line): cli/train.py
+     (run through its ``run``, which ``main`` wraps) at the JAX config's
+     defaults, full-width unet_semseg, batch 32 of 128^2 windows, one epoch
+     of 24 steps, validation at 0.5, no image logging, in a temporary
+     working directory, with launch counts zeroed just before and read just
+     after (no kernel: the path is convolutions, batch norm and Adam);
+     every train and val loss finite, 2 validations, the experiment files,
+     16 rows in test/results.csv, the final checkpoint reloaded through
+     load_pretrained_state_dict giving the trained model's logits bitwise;
+     one f32 step on the card (TF32 off) against the same step of the port
+     on the CPU from one seeded state and batch: loss within rel 1e-5; held
+     against the CPU step in float64, the card's gradients (relative L2) and
+     running statistics no farther than 4x the CPU f32 step's (+ 1e-6,
+     1e-7): the step is ill-conditioned at initialisation, so f32 itself
+     parts from f64 by ~2 % there; the same step in float64 on the card
+     against the CPU's: loss within rel 1e-12, every gradient leaf within
+     rel 1e-6 (L2; a zero-gradient leaf against 1e-9 of the largest leaf),
+     running statistics within 1e-10; a bf16 (autocast) step's loss within
+     rel 2e-2 of the f32 step's and not equal to it (JAX's bf16 parts by ~1 %
+     too), every convolution's output bf16, parameters f32; train step ms at
+     f32 and bf16 (median of 12 CUDA-event samples after 3 warm-ups), train
+     tiles/s, the loader's host ms per batch, the CLI's tiles/s over its
+     whole run and over its loop's window (validation inside), one traced
+     step of each.
 
 Prints the card line, every kernel's registers, spills and static shared
 memory from the build ("ptxas:" lines; a spill in any of the statistics
@@ -1813,16 +1838,15 @@ def eval_launches(what: str, n_filters: int) -> dict:
     return {k: got[k] for k in FILTER_LAUNCHES}
 
 
-def eval_phase(dev, card: str):
+def eval_phase(dev, card: str, tmp: str):
     """15. the evaluation path (TPU rows 11-12 through it): the synthetic F1
     probe at the JAX test's pinned geometry, the kernel's and the f32 plain
     twin's threshold sweeps at the bench geometry, a 16-tile dataset written
-    with the filter on the card and evaluated by ``cli/evaluate.py`` (the
-    mag1c baseline, a seeded checkpoint at bf16 and f32), and eval tiles/s
-    of ``batch_with_preds`` + ``_batch_eval_stats`` on 32 x 4 x 512 x 512
-    bf16-resident batches. Returns (launches by run, timings)."""
-    import tempfile
-
+    under ``tmp`` with the filter on the card and evaluated by
+    ``cli/evaluate.py`` (the mag1c baseline, a seeded checkpoint at bf16 and
+    f32), and eval tiles/s of ``batch_with_preds`` + ``_batch_eval_stats``
+    on 32 x 4 x 512 x 512 bf16-resident batches. Returns (launches by run,
+    timings, the dataset's index CSV)."""
     import torch
 
     from starcop_tpu_torch.cli.evaluate import main as evaluate_main
@@ -1897,54 +1921,53 @@ def eval_phase(dev, card: str):
     timings.update(eval_f1_bench_kernel=max(f1["kernel"].values()),
                    eval_f1_bench_twin=max(f1["twin"].values()))
 
-    with tempfile.TemporaryDirectory() as tmp:
-        # 15c. a 16-tile 512 x 512 dataset, mag1c by the kernels, evaluated by the CLI.
+    # 15c. a 16-tile 512 x 512 dataset, mag1c by the kernels, evaluated by the CLI.
+    t0 = time.perf_counter()
+    mk.reset_launch_counts()
+    index = write_synthetic_chip_dataset(os.path.join(tmp, "chips"),
+                                         np.random.default_rng(0), n_tiles=EVAL_TILES,
+                                         size=EVAL_SIZE, run_matched_filter=True, device=dev)
+    launches["dataset"] = eval_launches(
+        f"write_synthetic_chip_dataset ({EVAL_TILES} x {EVAL_SIZE} x {EVAL_SIZE})", EVAL_TILES)
+    timings["eval_dataset_s"] = time.perf_counter() - t0
+    ckpt = os.path.join(tmp, "seeded.pt")
+    torch.save({k: v.cpu() for k, v in seeded_model(dev).network.state_dict().items()}, ckpt)
+    want_keys = {"precision", "recall", "f1score", "iou", "accuracy", "cohen_kappa",
+                 "balanced_accuracy", "confusion_matrix", "classification_f1score",
+                 "classification_confusion_matrix", "thresholded"}
+    aggs = {}
+    for name, extra in (("baseline_mag1c", ["--baseline", "mag1c"]),
+                        ("baseline_mag1c_b3", ["--baseline", "mag1c", "--batch-size", "3"]),
+                        ("checkpoint_bf16", ["--checkpoint", ckpt]),
+                        ("checkpoint_f32", ["--checkpoint", ckpt, "--model-dtype", "f32"])):
         t0 = time.perf_counter()
-        mk.reset_launch_counts()
-        index = write_synthetic_chip_dataset(os.path.join(tmp, "chips"),
-                                             np.random.default_rng(0), n_tiles=EVAL_TILES,
-                                             size=EVAL_SIZE, run_matched_filter=True, device=dev)
-        launches["dataset"] = eval_launches(
-            f"write_synthetic_chip_dataset ({EVAL_TILES} x {EVAL_SIZE} x {EVAL_SIZE})", EVAL_TILES)
-        timings["eval_dataset_s"] = time.perf_counter() - t0
-        ckpt = os.path.join(tmp, "seeded.pt")
-        torch.save({k: v.cpu() for k, v in seeded_model(dev).network.state_dict().items()}, ckpt)
-        want_keys = {"precision", "recall", "f1score", "iou", "accuracy", "cohen_kappa",
-                     "balanced_accuracy", "confusion_matrix", "classification_f1score",
-                     "classification_confusion_matrix", "thresholded"}
-        aggs = {}
-        for name, extra in (("baseline_mag1c", ["--baseline", "mag1c"]),
-                            ("baseline_mag1c_b3", ["--baseline", "mag1c", "--batch-size", "3"]),
-                            ("checkpoint_bf16", ["--checkpoint", ckpt]),
-                            ("checkpoint_f32", ["--checkpoint", ckpt, "--model-dtype", "f32"])):
-            t0 = time.perf_counter()
-            out = os.path.join(tmp, name)
-            check(evaluate_main(["--test-csv", index, "--output", out, "--device", dev.type]
-                                + extra) == 0, f"cli/evaluate.py {' '.join(extra[:2])} exits 0")
-            timings[f"eval_cli_{name}_s"] = time.perf_counter() - t0
-            with open(os.path.join(out, "results_agg.json")) as fh:
-                agg = aggs[name] = json.load(fh)
-            with open(os.path.join(out, "results.csv")) as fh:
-                n_rows = len(fh.readlines()) - 1
-            cm = np.asarray(agg.get("confusion_matrix", 0))
-            check(want_keys <= set(agg) and len(agg["thresholded"]) == 16
-                  and n_rows == EVAL_TILES and int(cm.sum()) == EVAL_TILES * EVAL_SIZE ** 2,
-                  f"cli/evaluate.py {name}: results_agg.json holds {sorted(want_keys)} "
-                  f"(missing {sorted(want_keys - set(agg))}), 16 thresholds, {n_rows} rows in "
-                  f"results.csv ({EVAL_TILES}), every pixel counted; f1 {agg.get('f1score')}, "
-                  f"classification f1 {agg.get('classification_f1score')}")
-        # Six prefetched batches through four pinned buffers a key: a buffer
-        # refilled before its copy ran would change the counts.
-        check(aggs["baseline_mag1c_b3"] == aggs["baseline_mag1c"],
-              "cli/evaluate.py --baseline mag1c: results_agg.json at --batch-size 3 (6 batches "
-              "through the pinned ring, a ragged last one) equal to one batch of 16's")
+        out = os.path.join(tmp, name)
+        check(evaluate_main(["--test-csv", index, "--output", out, "--device", dev.type]
+                            + extra) == 0, f"cli/evaluate.py {' '.join(extra[:2])} exits 0")
+        timings[f"eval_cli_{name}_s"] = time.perf_counter() - t0
+        with open(os.path.join(out, "results_agg.json")) as fh:
+            agg = aggs[name] = json.load(fh)
+        with open(os.path.join(out, "results.csv")) as fh:
+            n_rows = len(fh.readlines()) - 1
+        cm = np.asarray(agg.get("confusion_matrix", 0))
+        check(want_keys <= set(agg) and len(agg["thresholded"]) == 16
+              and n_rows == EVAL_TILES and int(cm.sum()) == EVAL_TILES * EVAL_SIZE ** 2,
+              f"cli/evaluate.py {name}: results_agg.json holds {sorted(want_keys)} "
+              f"(missing {sorted(want_keys - set(agg))}), 16 thresholds, {n_rows} rows in "
+              f"results.csv ({EVAL_TILES}), every pixel counted; f1 {agg.get('f1score')}, "
+              f"classification f1 {agg.get('classification_f1score')}")
+    # Six prefetched batches through four pinned buffers a key: a buffer
+    # refilled before its copy ran would change the counts.
+    check(aggs["baseline_mag1c_b3"] == aggs["baseline_mag1c"],
+          "cli/evaluate.py --baseline mag1c: results_agg.json at --batch-size 3 (6 batches "
+          "through the pinned ring, a ragged last one) equal to one batch of 16's")
 
-        # 15d. eval tiles/s: batch_with_preds + _batch_eval_stats on 32 x 4 x 512 x 512
-        # (the 16 tiles twice), already on the card.
-        reps = -(-EVAL_BATCH // EVAL_TILES)
-        loader = BatchLoader(ChipDataset(read_index_csv(index) * reps, list(se.PRODUCTS),
-                                         ["labelbinary"], "weight_mag1c"), batch_size=EVAL_BATCH)
-        batch = next(prefetch_to_device(iter(loader), device=dev))
+    # 15d. eval tiles/s: batch_with_preds + _batch_eval_stats on 32 x 4 x 512 x 512
+    # (the 16 tiles twice), already on the card.
+    reps = -(-EVAL_BATCH // EVAL_TILES)
+    loader = BatchLoader(ChipDataset(read_index_csv(index) * reps, list(se.PRODUCTS),
+                                     ["labelbinary"], "weight_mag1c"), batch_size=EVAL_BATCH)
+    batch = next(prefetch_to_device(iter(loader), device=dev))
     want_shape = (EVAL_BATCH, 4, EVAL_SIZE, EVAL_SIZE)
     check(tuple(batch["input"].shape) == want_shape and batch["input"].device.type == dev.type,
           f"eval batch {tuple(batch['input'].shape)} on {dev}")
@@ -1962,7 +1985,243 @@ def eval_phase(dev, card: str):
                    eval_phase_s=time.perf_counter() - t_phase)
     print(f"eval tiles/s {EVAL_BATCH / (ms / 1e3):.1f} (batches of {want_shape}, bf16-resident "
           f"U-Net, {ms:.3f} ms median of 12 CUDA-event samples) on {card}", flush=True)
-    return launches, timings
+    return launches, timings, index
+
+
+TRAIN_BATCH, TRAIN_STEPS = 32, 24  # the JAX defaults; 16 tiles x 49 windows // 32
+ACCELERATOR = {"cuda": "gpu", "cpu": "cpu"}  # training.accelerator of a device
+
+
+def grad_err(model, ref) -> float:
+    """||g - g_ref|| / ||g_ref|| over all of the network's gradients, in
+    float64 (``ref`` holds the float64 gradients on the host)."""
+    num = den = 0.0
+    for p, q in zip(model.network.parameters(), ref.network.parameters()):
+        num += float(((p.grad.double().cpu() - q.grad) ** 2).sum())
+        den += float((q.grad ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def leaf_grad_err(model, ref) -> tuple:
+    """The worst leaf's ||g - g_ref|| / ||g_ref|| over the network's
+    gradients and its name. A leaf whose gradient is zero in exact
+    arithmetic (a batch-norm bias that the next normalisation cancels; its
+    f64 gradient is rounding, ~1e-17) is measured against 1e-9 of the
+    largest leaf's norm instead of its own."""
+    refs = dict(ref.network.named_parameters())
+    floor = 1e-9 * max(float(q.grad.norm()) for q in refs.values())
+    errs = {n: float((p.grad.cpu().to(refs[n].grad.dtype) - refs[n].grad).norm())
+            / max(float(refs[n].grad.norm()), floor)
+            for n, p in model.network.named_parameters()}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def stats_err(model, ref) -> float:
+    """max over the running means and variances of |model - ref| / max(max
+    |ref|, 1): relative for the variances (~1), absolute for the means
+    (the normalised activations' scale)."""
+    worst = 0.0
+    for (n, a), b in zip(ref.network.named_buffers(), model.network.buffers()):
+        if n.endswith(("running_mean", "running_var")):
+            worst = max(worst, float((b.double().cpu() - a.double()).abs().max())
+                        / max(float(a.abs().max()), 1.0))
+    return worst
+
+
+def train_phase(dev, card: str, index: str):
+    """16. the training path on phase 15's dataset (its mag1c filtered on the
+    card by TPU rows 11-12): ``cli/train.py`` at the JAX config's defaults
+    (full-width unet_semseg, 4 products, batch 32 of 128^2 windows with
+    overlap 64, pos_weight 15, weight_mag1c, Adam 1e-4, weighted sampling,
+    continuous rotation) for one epoch (24 steps, validations at 0.5 and
+    1.0), its files and final checkpoint checked; one f32 step and one f64
+    step on the card against the same steps of the port on the CPU; a bf16
+    step against the f32 one; the train step's times. Returns timings."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from starcop_tpu_torch.cli.train import run as train_run
+    from starcop_tpu_torch.config import Config
+    from starcop_tpu_torch.data.datamodule import DataModule, prefetch_to_device
+    from starcop_tpu_torch.models.weights import load_pretrained_state_dict
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.setup_shims import get_model
+    from starcop_tpu_torch.train import loop as tl
+
+    t_phase = time.perf_counter()
+    timings = {}
+    root, name = os.path.split(index)
+
+    # 16a. the CLI, in a temporary working directory.
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as run_dir:
+        os.chdir(run_dir)
+        try:
+            mk.reset_launch_counts()
+            t0 = time.perf_counter()
+            exp, state = train_run([f"dataset.root_folder={root}", f"dataset.train_csv={name}",
+                                    f"dataset.test_csv={name}", "training.max_epochs=1",
+                                    "training.val_check_interval=0.5",
+                                    "training.train_log_every_n_steps=1",
+                                    "wandb.images_logging=false",
+                                    f"training.accelerator={ACCELERATOR[dev.type]}"])
+            timings["train_cli_s"] = time.perf_counter() - t0
+            # What the whole run pays: set-up, the steps, both validations, the
+            # checkpoints and the test and train evaluations.
+            timings["train_cli_tiles_per_s"] = TRAIN_STEPS * TRAIN_BATCH / timings["train_cli_s"]
+            launched = {k: v for k, v in mk.LAUNCH_COUNTS.items() if v}
+            check(not launched, f"cli/train.py launches no filter kernel ({launched}): its "
+                                f"data were filtered once, in phase 15c")
+            files = {os.path.relpath(os.path.join(d, f), exp)
+                     for d, _, fs in os.walk(exp) for f in fs}
+            want = {"config.json", "best.npz", "final_checkpoint_model.npz", "history.json",
+                    "metrics.jsonl", "test/results.csv", "test/results_agg.json",
+                    "train/results.csv", "train/results_agg.json"}
+            check(want <= files, f"cli/train.py experiment files {sorted(files)} hold "
+                                 f"{sorted(want)}")
+            with open(os.path.join(exp, "metrics.jsonl")) as fh:
+                records = [json.loads(line) for line in fh]
+            losses = [r["train_loss"] for r in records if "train_loss" in r]
+            # The loop's own pace: one record a step (host clock, loader waits included).
+            # The rate is all steps' tiles over the window from the first step's
+            # record to the last: the validation at 0.5 and every loader wait
+            # inside it count. The median gap is the steady step alone.
+            ts = [r["ts"] for r in records if "train_loss" in r]
+            window_s = ts[-1] - ts[0]
+            timings.update(train_loop_window_s=float(window_s),
+                           train_loop_tiles_per_s=float(TRAIN_BATCH * (len(ts) - 1) / window_s),
+                           train_loop_median_step_ms=float(statistics.median(np.diff(ts)) * 1e3))
+            vals = [r["val_loss"] for r in records if "val_loss" in r]
+            with open(os.path.join(exp, "history.json")) as fh:
+                history = json.load(fh)
+            with open(os.path.join(exp, "test", "results.csv")) as fh:
+                n_test = len(fh.readlines()) - 1
+            check(len(losses) == TRAIN_STEPS and state.step == TRAIN_STEPS
+                  and all(np.isfinite(losses + vals)) and len(history) == 2 and len(vals) == 2
+                  and n_test == EVAL_TILES,
+                  f"cli/train.py: {state.step} steps ({TRAIN_STEPS}), {len(losses)} finite "
+                  f"train losses {losses[0]:.4f} -> {losses[-1]:.4f}, {len(history)} "
+                  f"validations (2), val_loss {vals}, {n_test} rows in test/results.csv "
+                  f"({EVAL_TILES})")
+            # The final checkpoint, reloaded, gives the trained model's logits bitwise.
+            dm = DataModule(index, index, batch_size=TRAIN_BATCH,
+                            num_workers=Config().dataloader.num_workers)
+            batch = next(prefetch_to_device(iter(dm.test_loader(batch_size=4)), device=dev))
+            trained = state.model.eval()
+            fresh = get_model(Config()).to(dev).eval()
+            fresh.network.load_state_dict(load_pretrained_state_dict(
+                os.path.join(exp, "final_checkpoint_model.npz")), strict=True)
+            with torch.no_grad():
+                want_logits, got_logits = trained(batch["input"]), fresh(batch["input"])
+            check(bool(torch.equal(got_logits, want_logits)),
+                  "final_checkpoint_model.npz through load_pretrained_state_dict: logits "
+                  "bitwise equal to the trained model's (4 x 4 x 512 x 512)")
+        finally:
+            os.chdir(cwd)
+
+    # 16b. one f32 step on the card against the same step on the CPU, both held
+    # against the step in float64 on the CPU: at the default initialisation the
+    # step is ill-conditioned (the CPU's own f32 gradients part from its f64 ones
+    # by ~2 % in L2 and ~16 % on the worst leaf, its running statistics by ~7e-6,
+    # in a CPU rehearsal), so the card's are held to the CPU f32's distance.
+    train_np = next(iter(dm.train_loader()))
+    on = lambda d: next(prefetch_to_device(iter([train_np]), device=d))  # noqa: E731
+    batch_dev, batch_cpu = on(dev), on("cpu")
+    cpu_state = tl.create_train_state(get_model(Config()), 0, 1e-4, "cpu")
+    start = copy.deepcopy(cpu_state.model)
+    card_model = copy.deepcopy(start).to(dev)
+    card_state = tl.TrainState(card_model, tl.make_adam(card_model, 1e-4))
+    t0 = time.perf_counter()
+    _, loss_cpu = tl.make_train_step(cpu_state.model)(cpu_state, batch_cpu, 1e-4)
+    timings["train_step_cpu_s"] = time.perf_counter() - t0
+    ref = copy.deepcopy(start).double().train()
+    b64 = {k: batch_cpu[k].double() for k in ("input", "output", "weight_loss")}
+    ref_loss64 = ref.loss_fn(ref(b64["input"]), b64["output"], b64["weight_loss"])
+    ref_loss64.backward()
+    step_f32 = tl.make_train_step(card_model)
+    _, loss_card = step_f32(card_state, batch_dev, 1e-4)
+    e_loss = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    g_card, g_cpu = grad_err(card_model, ref), grad_err(cpu_state.model, ref)
+    s_card, s_cpu = stats_err(card_model, ref), stats_err(cpu_state.model, ref)
+    s_direct = stats_err(card_model, cpu_state.model)
+    timings.update(train_step_loss_rel_err=e_loss, train_step_grad_l2_err_card=g_card,
+                   train_step_grad_l2_err_cpu=g_cpu, train_step_stats_err_card=s_card,
+                   train_step_stats_err_cpu=s_cpu, train_step_stats_card_vs_cpu=s_direct)
+    check(e_loss <= 1e-5 and g_card <= 4 * g_cpu + 1e-6 and s_card <= 4 * s_cpu + 1e-7,
+          f"one f32 train step (32 x 4 x 128 x 128, TF32 off), card vs CPU: loss "
+          f"{float(loss_card):.6f} / {float(loss_cpu):.6f} rel err {e_loss:.2e} (<= 1e-5); "
+          f"against the CPU's f64 step, gradients (L2) {g_card:.3e} (CPU f32 {g_cpu:.3e}, "
+          f"<= 4x + 1e-6), running statistics {s_card:.2e} (CPU f32 {s_cpu:.2e}, <= 4x + "
+          f"1e-7; card vs CPU f32 {s_direct:.2e})")
+    # The same step in float64 on the card, held leaf by leaf against the
+    # CPU's float64 step: rounding only (a CPU rehearsal at 4 and 8 x 128^2,
+    # the f64 step in two memory layouts, parted by ~1e-11 a leaf, 2e-8 at
+    # the zero-gradient leaves' floor, 3e-14 in the running statistics), so a
+    # wrong backward in any leaf shows. The bars are the CPU tests' unet_semseg
+    # f64 bar (1e-6) per leaf, 1e-12 for the loss, 1e-10 for the statistics.
+    card64 = copy.deepcopy(start).double().to(dev).train()
+    d64 = {k: v.to(dev) for k, v in b64.items()}
+    loss64 = card64.loss_fn(card64(d64["input"]), d64["output"], d64["weight_loss"])
+    loss64.backward()
+    e_loss64 = abs(float(loss64) - float(ref_loss64)) / abs(float(ref_loss64))
+    g_leaf64, g_leaf64_name = leaf_grad_err(card64, ref)
+    s64 = stats_err(card64, ref)
+    timings.update(train_step_f64_loss_rel_err=e_loss64, train_step_f64_leaf_grad_err=g_leaf64,
+                   train_step_f64_stats_err=s64)
+    check(e_loss64 <= 1e-12 and g_leaf64 <= 1e-6 and s64 <= 1e-10,
+          f"one f64 train step, card vs CPU: loss rel err {e_loss64:.2e} (<= 1e-12); worst "
+          f"leaf's gradient {g_leaf64:.2e} ({g_leaf64_name}; <= 1e-6, a zero-gradient leaf "
+          f"against 1e-9 of the largest); running statistics {s64:.2e} (<= 1e-10)")
+    del card64, d64, loss64
+
+    # 16c. a bf16 step from the same start.
+    bf16_model = copy.deepcopy(start)
+    bf16_model.model_dtype = torch.bfloat16
+    bf16_model.to(dev)
+    bf16_state = tl.TrainState(bf16_model, tl.make_adam(bf16_model, 1e-4))
+    step_bf16 = tl.make_train_step(bf16_model)
+    convs = [m for m in bf16_model.network.modules() if isinstance(m, torch.nn.Conv2d)]
+    seen = []
+    hooks = [m.register_forward_hook(lambda _m, _i, out: seen.append(out.dtype)) for m in convs]
+    _, loss_bf16 = step_bf16(bf16_state, batch_dev, 1e-4)
+    for h in hooks:
+        h.remove()
+    d_bf16 = abs(float(loss_bf16) - float(loss_card)) / abs(float(loss_card))
+    dtypes = {p.dtype for p in bf16_model.parameters()}
+    timings["train_step_bf16_loss_rel_diff"] = d_bf16
+    # At these initial weights bf16 moves the loss by 0.4-1.0 % in JAX's own
+    # bf16 route and 0.2-1.9 % in the port's, on the CPU; the route must move
+    # it (d > 0) and every convolution must return bf16, so a step that lost
+    # its autocast fails.
+    check(0 < d_bf16 <= 2e-2 and dtypes == {torch.float32} and len(seen) == len(convs)
+          and set(seen) == {torch.bfloat16},
+          f"bf16 train step: loss {float(loss_bf16):.6f}, {d_bf16:.2e} of the f32 step's "
+          f"(> 0, <= 2e-2); {len(seen)} conv outputs of {len(convs)} convolutions, dtypes "
+          f"{sorted(map(str, set(seen)))} (bf16); parameters {sorted(map(str, dtypes))}")
+
+    # 16d. times: the step (batch on the card), the loader on the host, a trace.
+    for label, step, st in (("f32", step_f32, card_state), ("bf16", step_bf16, bf16_state)):
+        ms = cuda_ms(lambda: step(st, batch_dev, 1e-4), reps=12, warmup=3)
+        timings[f"train_step_{label}_ms"] = ms
+        timings[f"train_tiles_per_s_{label}"] = TRAIN_BATCH / (ms / 1e3)
+        print(f"train step {label}: {ms:.3f} ms (median of 12 CUDA-event samples after 3 "
+              f"warm-ups), {TRAIN_BATCH / (ms / 1e3):.1f} train tiles/s of 128 x 128 on {card}",
+              flush=True)
+        profile_granule(lambda: step(st, batch_dev, 1e-4), f"train_step_{label}")
+    t0 = time.perf_counter()
+    n = sum(1 for _ in dm.train_loader())
+    timings["train_loader_host_ms_per_batch"] = (time.perf_counter() - t0) / n * 1e3
+    timings["train_phase_s"] = time.perf_counter() - t_phase
+    print(f"train loader: {timings['train_loader_host_ms_per_batch']:.2f} ms a batch of "
+          f"{TRAIN_BATCH} on the host ({n} batches, {dm.num_workers} reader threads); the CLI's "
+          f"loop {timings['train_loop_tiles_per_s']:.1f} tiles/s over its window "
+          f"({len(losses) - 1} steps after the first in {timings['train_loop_window_s']:.3f} s, "
+          f"the validation at 0.5 inside; host clock), the median step "
+          f"{timings['train_loop_median_step_ms']:.2f} ms", flush=True)
+    return timings
 
 
 def seeded_model(dev, seed: int = 0, bf16: bool = False):
@@ -2423,15 +2682,21 @@ def main() -> int:
     # 14. num_iter=0: JAX's plain route, on the bench scene and a served granule ------
     num_iter0_phase(dev, x, template, granules[0])
 
-    # 15. the evaluation path: the F1 probe, the dataset and the evaluate CLI --------
-    eval_counts, eval_timings = eval_phase(dev, card)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 15. the evaluation path: the F1 probe, the dataset and the evaluate CLI ------
+        eval_counts, eval_timings, index = eval_phase(dev, card, tmp)
+        # 16. the training path on that dataset: the train CLI, card vs CPU, bf16 -----
+        train_timings = train_phase(dev, card, index)
     for row in kernels:
         if row["name"] in FILTER_LAUNCHES:
             row["eval_launches"] = eval_counts
+            row["train_data_launches"] = eval_counts["dataset"][row["name"]]
     print("timings " + json.dumps({"card": card, **timings, **masked_timings,
                                    **serving_timings, **bf16_timings, **masked_bf16_timings,
-                                   **served_bf16_timings, **route_timings, **eval_timings}),
-          flush=True)
+                                   **served_bf16_timings, **route_timings, **eval_timings,
+                                   **train_timings}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@
   * ``BatchLoader``: batches of the (B, C, H, W) dict protocol, sequential,
     shuffled or weighted with replacement, chip reads on a thread pool;
   * ``prefetch_to_device``: pinned host buffers and a side stream, so the
-    next batches' copies overlap the current batch's compute.
+    next batches' copies overlap the current batch's compute;
+  * ``DataModule``: an index CSV -> the five dataset views and the train /
+    test loaders, with the tiled training rows cached next to the CSV.
 
 Everything but ``prefetch_to_device`` is numpy and gives the JAX package's
 rows, weights and batches for the same seed.
@@ -17,12 +19,14 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
-from typing import Dict, Iterator, List, Sequence
+import csv
+import os
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from starcop_tpu_torch.data.dataset import ChipDataset, _read_product
+from starcop_tpu_torch.data.dataset import ChipDataset, _read_product, read_index_csv
 from starcop_tpu_torch.device import DeviceLike, resolve_device
 
 
@@ -255,3 +259,118 @@ def _prefetch_cuda(iterator, dev: torch.device, size: int) -> Iterator[Dict]:
             yield hand_over(queue.popleft())
     while queue:
         yield hand_over(queue.popleft())
+
+
+class DataModule:
+    """Dataset assembly from an index CSV (starcop_tpu/data/datamodule.py:214-330):
+    the five views of the reference datamodule, tiled train, non-tiled
+    train, train-plot, test and test-plot (sorted by (has_plume, qplume),
+    descending), and the loaders over them."""
+
+    def __init__(
+        self,
+        train_csv: str,
+        test_csv: Optional[str] = None,
+        input_products: Sequence[str] = (
+            "mag1c",
+            "TOA_AVIRIS_640nm",
+            "TOA_AVIRIS_550nm",
+            "TOA_AVIRIS_460nm",
+        ),
+        output_products: Sequence[str] = ("labelbinary",),
+        weight_loss_product: Optional[str] = "weight_mag1c",
+        training_size: int = 128,
+        training_overlap: int = 64,
+        batch_size: int = 32,
+        weight_sampling: bool = True,
+        num_workers: int = 0,
+        seed: int = 42,
+        augment_rotation: str = "continuous",
+    ):
+        self.train_csv_path = train_csv
+        self.train_rows = read_index_csv(train_csv)
+        self.test_rows = read_index_csv(test_csv) if test_csv else []
+        self.input_products = list(input_products)
+        self.output_products = list(output_products)
+        self.weight_loss_product = weight_loss_product
+        self.training_size = training_size
+        self.training_overlap = training_overlap
+        self.batch_size = batch_size
+        self.weight_sampling = weight_sampling
+        self.num_workers = num_workers
+        self.seed = seed
+        self.augment_rotation = augment_rotation
+        self._tiled_train_rows: Optional[List[Dict]] = None
+
+    @property
+    def tiled_train_rows(self) -> List[Dict]:
+        """Training windows, written to ``{train}_tiled_{size}_{overlap}.csv``
+        beside the train CSV and read from there on later runs (the label
+        statistics pass is skipped)."""
+        if self._tiled_train_rows is None:
+            cache = self._tiled_cache_path()
+            if cache and os.path.exists(cache):
+                rows = read_index_csv(cache)
+                for r in rows:
+                    if "frac_positives" in r and r["frac_positives"] != "":
+                        r["frac_positives"] = float(r["frac_positives"])
+                self._tiled_train_rows = rows
+            else:
+                self._tiled_train_rows = tile_rows(
+                    self.train_rows, self.training_size, self.training_overlap,
+                    label_product=self.output_products[0],
+                )
+                if cache:
+                    self._write_rows_csv(cache, self._tiled_train_rows)
+        return self._tiled_train_rows
+
+    def _tiled_cache_path(self) -> Optional[str]:
+        if not self.train_csv_path:
+            return None
+        base, ext = os.path.splitext(self.train_csv_path)
+        return f"{base}_tiled_{self.training_size}_{self.training_overlap}{ext or '.csv'}"
+
+    @staticmethod
+    def _write_rows_csv(path: str, rows: List[Dict]):
+        if not rows:
+            return
+        keys = sorted({k for r in rows for k in r}, key=lambda k: (k != "id", k))
+        with open(path, "w", newline="") as fh:
+            writer = csv.DictWriter(fh, fieldnames=keys)
+            writer.writeheader()
+            writer.writerows(rows)
+
+    def train_dataset(self, augment: bool = True) -> ChipDataset:
+        return ChipDataset(
+            self.tiled_train_rows,
+            self.input_products,
+            self.output_products,
+            self.weight_loss_product,
+            augment=augment,
+            augment_rotation=self.augment_rotation,
+            seed=self.seed,
+        )
+
+    def test_dataset(self, sort_plot: bool = False, **kw) -> ChipDataset:
+        rows = list(self.test_rows)
+        if sort_plot:
+            rows.sort(key=lambda r: (bool(r.get("has_plume")), r.get("qplume", 0.0)), reverse=True)
+        return ChipDataset(
+            rows, self.input_products, self.output_products, self.weight_loss_product, **kw
+        )
+
+    def train_loader(self) -> BatchLoader:
+        """Weighted sampling with replacement (or a shuffle), whole batches
+        only; a new loader from ``seed`` on each call, as in JAX."""
+        return BatchLoader(
+            self.train_dataset(),
+            batch_size=self.batch_size,
+            weighted=self.weight_sampling,
+            shuffle=not self.weight_sampling,
+            drop_last=True,
+            seed=self.seed,
+            num_workers=self.num_workers,
+        )
+
+    def test_loader(self, batch_size: int = 1, **kw) -> BatchLoader:
+        return BatchLoader(self.test_dataset(**kw), batch_size=batch_size)

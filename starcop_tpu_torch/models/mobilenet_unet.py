@@ -13,7 +13,9 @@ activation=None)``:
 Module names follow smp's state_dict (``encoder.features.*``,
 ``decoder.blocks.*``, ``segmentation_head.0``), so a released Lightning
 checkpoint loads after ``models.weights.load_lightning_state_dict``.
-H and W must be multiples of 32 (``ops.padding.padded_apply``).
+H and W must be multiples of 32 (``ops.padding.padded_apply``). Batch norm
+is ``models.layers.BatchNorm2d``: torch's normalisation, Flax's update of
+the running statistics in training.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from starcop_tpu_torch.models.layers import BatchNorm2d
 
 # (expansion t, out channels c, repeats n, stride s): MobileNetV2's table.
 INVERTED_RESIDUAL_CFG = (
@@ -42,7 +46,7 @@ DECODER_CHANNELS = (256, 128, 64, 32, 16)
 def conv_bn_relu6(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1):
     return nn.Sequential(
         nn.Conv2d(cin, cout, kernel, stride, kernel // 2, groups=groups, bias=False),
-        nn.BatchNorm2d(cout, eps=1e-5),
+        BatchNorm2d(cout, eps=1e-5),
         nn.ReLU6(inplace=True),
     )
 
@@ -58,7 +62,7 @@ class InvertedResidual(nn.Module):
         layers += [
             conv_bn_relu6(hidden, hidden, 3, stride, groups=hidden),
             nn.Conv2d(hidden, cout, 1, bias=False),
-            nn.BatchNorm2d(cout, eps=1e-5),
+            BatchNorm2d(cout, eps=1e-5),
         ]
         self.conv = nn.Sequential(*layers)
 
@@ -94,7 +98,7 @@ class MobileNetV2Encoder(nn.Module):
 def conv_bn_relu(cin: int, cout: int):
     return nn.Sequential(
         nn.Conv2d(cin, cout, 3, padding=1, bias=False),
-        nn.BatchNorm2d(cout, eps=1e-5),
+        BatchNorm2d(cout, eps=1e-5),
         nn.ReLU(inplace=True),
     )
 

@@ -5,20 +5,29 @@
 constants and runs the network, returning (B, K, H, W) logits.
 ``batch_with_preds`` enriches a batch dict with the predictions the
 validation harness reads (eval/validation.py), and ``loss_fn`` is the
-weighted BCE of training.
+weighted BCE of training. Every segmentation ``model_type`` of the JAX
+package builds (``ARCHITECTURES``).
 
 Batch protocol: a dict with input (B, C, H, W), output (B, 1, H, W),
 optionally weight_loss (B, 1, H, W), has_plume (B,) and id (list of str).
 
-bf16-resident inference (the serving CLI's default, as in the JAX package):
-call ``cast_for_inference`` on the model once. The input is normalised in
-f32, cast to the network's parameter dtype, runs through bf16 weights and
-batch-norm statistics (cuDNN on the card), and the logits come back f32.
+Precision, two routes:
+
+  * mixed-precision training (``model_dtype=torch.bfloat16``, the config's
+    ``model.dtype=bfloat16``; ``unet_semseg`` only, as in JAX): the
+    network computes under ``torch.autocast`` in bf16 while its parameters,
+    the batch-norm statistics and the loss stay f32, and the logits come
+    back f32 (starcop_tpu/models/mobilenet_unet.py:171-185);
+  * bf16-resident inference (the serving CLI's default): call
+    ``cast_for_inference`` once. The input is normalised in f32, cast to
+    the network's parameter dtype, runs through bf16 weights and batch-norm
+    statistics (cuDNN on the card), and the logits come back f32.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+import warnings
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,7 +35,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from starcop_tpu_torch.data.normalizer import DataNormalizer
+from starcop_tpu_torch.models.layers import init_like_flax
 from starcop_tpu_torch.models.mobilenet_unet import MobileNetV2UNet
+from starcop_tpu_torch.models.simple import SimpleCNN, SimpleCNNRegression, SingleConv
+from starcop_tpu_torch.models.unet import UNet, UNetDropout
 
 EMIT_INPUT_PRODUCTS = ("mag1c", "TOA_AVIRIS_640nm", "TOA_AVIRIS_550nm", "TOA_AVIRIS_460nm")
 
@@ -54,25 +66,66 @@ def weighted_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
              + (1.0 - targets) * F.logsigmoid(-logits))
 
 
-class SegmentationModel(nn.Module):
-    """Normaliser + MobileNetV2 U-Net (the ``unet_semseg`` architecture) +
-    weighted BCE. Its state_dict holds ``network.*`` only, as a Lightning
-    checkpoint does once its normaliser buffers are dropped.
+# model_type -> network class, each built as cls(in_channels, num_classes).
+ARCHITECTURES: Dict[str, Callable[[int, int], nn.Module]] = {
+    "unet_semseg": MobileNetV2UNet,
+    "unet": UNet,
+    "unet_dropout": UNetDropout,
+    "cnn": SimpleCNN,
+    "single": SingleConv,
+    "cnn_regression": SimpleCNNRegression,
+}
 
-    The network computes in the dtype of its parameters (f32, or bf16 after
-    ``cast_for_inference``); the logits are at least f32 either way
-    (starcop_tpu/models/mobilenet_unet.py:175-185). The JAX package's other
-    architectures are not ported yet (ROADMAP queue 1, item 9)."""
+
+def configure_architecture(architecture: str, in_channels: int, num_classes: int) -> nn.Module:
+    """The network of ``architecture`` (segmenter.py:59-90): 'unet_semseg'
+    is the flagship MobileNetV2-encoder U-Net."""
+    if architecture not in ARCHITECTURES:
+        raise ValueError(f"No model implemented for model_type: {architecture}")
+    return ARCHITECTURES[architecture](in_channels, num_classes)
+
+
+def find_imagenet_mobilenet_v2() -> Optional[str]:
+    """A torchvision mobilenet_v2 ImageNet checkpoint on disk:
+    ``$STARCOP_TPU_IMAGENET_MOBILENETV2``, then the torch hub cache
+    (``$TORCH_HOME`` or ~/.cache/torch). None when absent: nothing is
+    downloaded (a copy of starcop_tpu/models/torch_port.py:181)."""
+    import glob
+    import os
+
+    explicit = os.environ.get("STARCOP_TPU_IMAGENET_MOBILENETV2")
+    if explicit and os.path.exists(explicit):
+        return explicit
+    hub = os.environ.get("TORCH_HOME", os.path.join(os.path.expanduser("~"), ".cache", "torch"))
+    hits = sorted(glob.glob(os.path.join(hub, "hub", "checkpoints", "mobilenet_v2*.pth")))
+    return hits[0] if hits else None
+
+
+class SegmentationModel(nn.Module):
+    """Normaliser + network + weighted BCE. Its state_dict holds
+    ``network.*`` only, as a Lightning checkpoint does once its normaliser
+    buffers are dropped.
+
+    Construction builds the network with torch's default initialisation;
+    ``init`` re-draws it as Flax would (training from scratch). The network
+    computes in the dtype of its parameters (f32, or bf16 after
+    ``cast_for_inference``), under bf16 autocast when ``model_dtype`` is
+    ``torch.bfloat16``; the logits are at least f32 either way."""
 
     def __init__(self, input_products: Sequence[str] = EMIT_INPUT_PRODUCTS,
                  output_products: Sequence[str] = ("labelbinary",),
                  model_type: str = "unet_semseg", num_classes: int = 1,
                  pos_weight: float = 1.0, use_weight_loss: bool = True,
-                 loss_name: str = "BCEWithLogitsLoss"):
+                 loss_name: str = "BCEWithLogitsLoss",
+                 model_dtype: Optional[torch.dtype] = None,
+                 encoder_weights: Optional[str] = "auto"):
         super().__init__()
-        if model_type != "unet_semseg":
-            raise ValueError(f"model_type {model_type!r} is not ported: only 'unet_semseg' "
-                             "is (the other networks are ROADMAP queue 1, item 9)")
+        if model_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"model_dtype must be None, float32 or bfloat16, got {model_dtype}")
+        if model_dtype == torch.bfloat16 and model_type != "unet_semseg":
+            warnings.warn(f"model dtype={model_dtype} is only plumbed through 'unet_semseg'; "
+                          f"'{model_type}' will compute in float32")
+            model_dtype = None
         self.input_products = list(input_products)
         self.output_products = list(output_products)
         self.model_type = model_type
@@ -80,12 +133,46 @@ class SegmentationModel(nn.Module):
         self.pos_weight = float(pos_weight)
         self.use_weight_loss = bool(use_weight_loss)
         self.loss_name = loss_name
+        self.model_dtype = None if model_dtype == torch.float32 else model_dtype
+        self.encoder_weights = encoder_weights
         self.normalizer = DataNormalizer(self.input_products, self.output_products)
-        self.network = MobileNetV2UNet(len(self.input_products), num_classes)
+        self.network = configure_architecture(model_type, len(self.input_products), num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def init(self, generator: Optional[torch.Generator] = None) -> "SegmentationModel":
+        """Re-initialise the network as Flax does (``init_like_flax``, drawn
+        from ``generator``), then the ImageNet encoder rule of
+        segmenter.py:144-177: with ``encoder_weights='auto'`` a 3-product
+        ``unet_semseg`` takes its encoder from a torchvision mobilenet_v2
+        checkpoint when ``find_imagenet_mobilenet_v2`` finds one;
+        ``'imagenet'`` makes a missing checkpoint an error; None or 'none'
+        never loads one."""
+        init_like_flax(self.network, generator)
+        if (self.encoder_weights in ("auto", "imagenet") and self.model_type == "unet_semseg"
+                and len(self.input_products) == 3):
+            ckpt = find_imagenet_mobilenet_v2()
+            if ckpt is not None:
+                from starcop_tpu_torch.models.weights import load_torchvision_encoder
+
+                load_torchvision_encoder(self.network, torch.load(
+                    ckpt, map_location="cpu", weights_only=True))
+            elif self.encoder_weights == "imagenet":
+                raise FileNotFoundError(
+                    "encoder_weights='imagenet' but no torchvision mobilenet_v2 checkpoint "
+                    "found (set $STARCOP_TPU_IMAGENET_MOBILENETV2 or populate the torch hub "
+                    "cache)")
+        return self
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Normalised input -> network -> logits (f32 at least). ``generator``
+        draws the dropout masks of a training forward (``unet_dropout``)."""
         xn = self.normalizer.normalize_x(x)
-        out = self.network(xn.to(next(self.network.parameters()).dtype))
+        kw = {} if generator is None else {"generator": generator}
+        if self.model_dtype is not None:
+            with torch.autocast(xn.device.type, dtype=self.model_dtype):
+                out = self.network(xn, **kw)
+        else:
+            out = self.network(xn.to(next(self.network.parameters()).dtype), **kw)
         return out.to(torch.promote_types(out.dtype, torch.float32))
 
     def loss_fn(self, logits: torch.Tensor, y: torch.Tensor,

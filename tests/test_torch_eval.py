@@ -189,9 +189,16 @@ def test_loss_fn_matches_jax(loss_name, use_weight_loss):
 
 
 def test_other_model_types_are_refused():
-    for model_type in ("unet", "cnn", "single"):
-        with pytest.raises(ValueError, match="item 9"):
+    """Every segmentation model_type of the JAX package builds (the other
+    networks, ROADMAP queue 1 item 9, are ported); a name outside its table
+    is refused, as JAX refuses it."""
+    for model_type in jseg.ARCHITECTURES:
+        assert tseg.SegmentationModel(PRODUCTS, model_type=model_type).model_type == model_type
+    for model_type in ("unet_plus", "regression"):
+        with pytest.raises(ValueError, match="No model implemented"):
             tseg.SegmentationModel(PRODUCTS, model_type=model_type)
+        with pytest.raises(ValueError, match="No model implemented"):
+            jseg.configure_architecture(model_type, 1)
 
 
 # ---------------------------------------------------------------------------
