@@ -178,7 +178,37 @@ every hand-written kernel against its plain torch twin on the card:
      f32 and bf16 (median of 12 CUDA-event samples after 3 warm-ups), train
      tiles/s, the loader's host ms per batch, the CLI's tiles/s over its
      whole run and over its loop's window (validation inside), one traced
-     step of each.
+     step of each;
+ 17. the AVIRIS scene path at full width (``aviris_phase``): 2,000 lines x
+     598 detector columns of 74 bands through run_mag1c_scene (73 kept),
+     a ragged GLT (a wedge of fill values at each edge: five or more
+     buckets of the 1.3x ladder, a last chunk of fewer than 64 groups, one
+     group of 8 pixels), with launch counts zeroed just before and read
+     just after: one acrwl1mf_fused(glue="fused") per chunk (1 / 30 / 30
+     launches of filter_round_bsp FIRST and LOOP on the masked f32 stream
+     and of filter_glue, nothing else); fill_value at invalid pixels and
+     across the 8-pixel group; threshold-500 agreement >= 0.999 with the
+     float64 run (detections > 0), albedo within 1e-4; two chunks held
+     against their twins at covariance_update_scaling 1.0 and 0.7 (rounds
+     and glue within 4x the f32 twin's error + 1e-6, the whole chunk at mf
+     correlation > 0.9999 with the f32 twin and agreement >= 0.999 with
+     the f64 twin); every bucket on the 16-byte copies; scene ms by CUDA
+     events and wall, busy and idle share, _woodbury_base's share of the
+     wall; ``aviris_launches`` and two rows (the masked f32 stream rounds
+     at a full chunk of the largest bucket) in the kernels line;
+ 18. cli/mag1c in a subprocess on a 256 x 128 x 74 .npy scene, with --glt
+     and without: each .tif equal to the in-process result on the card;
+ 19. the multispectral products on a 512 x 512 WV3-like chip: ratio_mlr_local
+     in four modes, lr_bands and all 16 extract_features products on the
+     card against the CPU (the card's error against the CPU's f64 at most
+     4x the CPU f32 error + 1e-6 of the range), the learned ratio from a
+     seeded RegressionModel checkpoint; CloudDetector.predict_scene on 13 x
+     509 x 511 with classes equal to the CPU's on >= 0.999 of pixels; a
+     RegressionModel within rtol 1e-3 / atol 2e-4 of the CPU;
+ 20. the native codecs (starcop_tpu_torch/csrc/starcop_io.cpp, built with
+     g++) on the card's host: valid_band_minmax, quantize_pack12 and
+     quantize_pack10 byte-identical to their numpy twins on the four served
+     granules; encode ms a granule (u12, u10) beside the twins' ms.
 
 Prints the card line, every kernel's registers, spills and static shared
 memory from the build ("ptxas:" lines; a spill in any of the statistics
@@ -198,6 +228,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -253,24 +284,29 @@ def cuda_ms(fn, *, reps: int = 12, inner: int = 1, warmup: int = 2) -> float:
 
 
 def device_ms(fn, kernel: str, reps: int = 30) -> float:
-    """Device time in ms per call of ``fn`` of the kernels whose name holds
-    ``kernel``, from torch.profiler over ``reps`` calls after a warm-up: the
-    kernel's own time. A CUDA-event timing of a few-microsecond kernel
-    measures the host's launch gaps instead."""
+    """Device time in ms per launch of the kernels whose name holds
+    ``kernel`` (one a call of ``fn``), from torch.profiler over ``reps`` + 1
+    calls after a warm-up: the kernel's own time. A CUDA-event timing of a
+    few-microsecond kernel measures the host's launch gaps instead."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    # The tracer drops records (a session's first launch; late in this
+    # script, up to a quarter of them): the time is the mean over the
+    # launches it traced, and at least half of them must be traced.
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(reps + 1):
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and kernel in e.key]
-    check(sum(e.count for e in events) == reps, f"{kernel}: {reps} launches traced")
-    return sum(e.self_device_time_total for e in events) / reps / 1e3
+    traced = sum(e.count for e in events)
+    check(reps // 2 <= traced <= reps + 1, f"{kernel}: {traced} launches traced "
+                                           f"({reps + 1} made, >= {reps // 2})")
+    return sum(e.self_device_time_total for e in events) / traced / 1e3
 
 
 def host_us(fn, n: int = 200) -> float:
@@ -294,10 +330,11 @@ def bound_ms(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def profile_granule(run, label: str = "granule_to_mask") -> None:
+def profile_granule(run, label: str = "granule_to_mask") -> Optional[dict]:
     """Information, not a check: one traced run (``label``) with
-    torch.profiler; prints the device's busy share of the traced window and
-    the kernels that took the most device time."""
+    torch.profiler; prints (and returns) the device's busy share of the
+    traced window and the kernels that took the most device time, or None
+    when no tracer is available."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -308,7 +345,7 @@ def profile_granule(run, label: str = "granule_to_mask") -> None:
         prof.start()
     except Exception as err:  # noqa: BLE001 -- information only; a tracer may be missing
         print(f"profile: unavailable ({type(err).__name__}: {err})", flush=True)
-        return
+        return None
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     try:
@@ -323,11 +360,12 @@ def profile_granule(run, label: str = "granule_to_mask") -> None:
     wall_us = start.elapsed_time(end) * 1e3
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    print("profile " + json.dumps({
-        "run": label, "window_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-        "idle_share": (1 - busy_us / wall_us) if wall_us > 0 else None,
-        "top": [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
-                for e in top]}), flush=True)
+    out = {"run": label, "window_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+           "idle_share": (1 - busy_us / wall_us) if wall_us > 0 else None,
+           "top": [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
+                   for e in top]}
+    print("profile " + json.dumps(out), flush=True)
+    return out
 
 
 # The statistics kernels, 4 instantiations each (T or MASKED x VEC16), whose
@@ -2224,6 +2262,505 @@ def train_phase(dev, card: str, index: str):
     return timings
 
 
+# ---------------------------------------------------------------------------
+# 17-20. The AVIRIS scene path, cli/mag1c, the multispectral products and the
+# native codecs
+# ---------------------------------------------------------------------------
+
+AV_H, AV_W = 2000, 598  # lines x detector columns (AVIRIS-NG's cross-track width)
+AV_BATCH = 64  # run_mag1c_groups' groups_per_batch
+
+
+def aviris_cube():
+    """The AVIRIS phase's scene: ``synthetic_scene`` (seed 11, 12 plumes) at
+    AV_H = 2,000 lines x AV_W = 598 detector columns on ``aviris_swir_bands``
+    (74 bands, 2122-2487 nm; ``run_mag1c_scene`` keeps 73), a GLT of one
+    group per detector column, made ragged by a wedge of fill values at each
+    edge (the first AV_W // 4 columns lose up to 70 % of their lines at the
+    top, the last as many at the bottom), and column AV_W // 2 left with 8
+    valid lines. Returns (cube, centers, fwhm, GLT, the 8-line column)."""
+    from starcop_tpu_torch.data.synthetic import aviris_swir_bands, synthetic_scene
+
+    centers, fwhm = aviris_swir_bands()
+    cube = synthetic_scene(np.random.default_rng(11), AV_H, AV_W, n_plumes=12)["radiance"]
+    edge, skip = AV_W // 4, AV_W // 2
+    for c in range(edge):
+        cut = int(0.7 * AV_H * (edge - c) / edge)
+        cube[:cut, c] = FILL
+        cube[AV_H - cut:, AV_W - 1 - c] = FILL
+    cube[8:, skip] = FILL
+    return cube, centers, fwhm, np.broadcast_to(np.arange(AV_W), (AV_H, AV_W)), skip
+
+
+def aviris_chunk(xb, keep, tpl, cov_scale, what):
+    """One chunk of the AVIRIS route, (G, P, S) f32 with its (G, P) keep rows,
+    as ``acrwl1mf_fused(glue="fused")`` runs it: the rounds
+    (``filter_round_bsp`` on the masked f32 stream, TPU rows 5-6) FIRST /
+    LOOP / FINAL and ``filter_glue`` within 4x the f32 twin's error against
+    the f64 twin + 1e-6, the 16-byte copy path taken; the whole chunk filter
+    with mf correlation > 0.9999 with the f32 twin on the kernel route's
+    Woodbury base, threshold-500 agreement >= 0.999 with the f64 twin and
+    albedo within 1e-4 of it. Returns ((rel err, max abs err) of the rounds,
+    of the glue, the timing inputs)."""
+    import torch
+
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.ops.mag1c_fused import _second_moment, acrwl1mf_fused
+
+    g, p, s = xb.shape
+    n = keep.sum(1).clamp(min=1).float()
+    m0 = (torch.where(keep[..., None], xb, 0.0).sum(1, dtype=torch.float64) / n[:, None]).float()
+    xs = torch.where(keep[..., None], xb - m0[:, None, :], 0.0).transpose(1, 2).contiguous()
+    k0, tgt0, cit0, norm0 = mk._woodbury_base(_second_moment(xs, n), m0, tpl, ALPHA)
+    k0 = k0.contiguous()
+    mask = keep.reshape(1, -1)
+    geom = mk.stream_geometry(xs, s)
+    check(geom.aligned, f"{what}: filter_round_bsp takes the 16-byte copies (G = {g}, P = {p})")
+    carry0 = mk.pack_carry(tgt0, cit0, norm0)
+    glue_kw = dict(m0=m0, template=tpl, k0=k0, n=n, alpha=ALPHA)
+
+    def run(mode, carry, r, mf):
+        return mk.filter_round_bsp(xs, mask, p, m0, carry, r, mf, mode=mode, cov_scale=cov_scale,
+                                   geom=geom)
+
+    def twin(mode, carry, r, mf, dt):
+        return mk.filter_round_bsp_plain(xs, mask, p, m0.to(dt), carry.to(dt), r, mf, mode=mode,
+                                         cov_scale=cov_scale)
+
+    rounds = held_rounds(f"{what}: filter_round_bsp (f32, masked)", run, twin, carry0,
+                         lambda st, c: mk.filter_glue(st, c, **glue_kw))
+    mf1, r1, st1 = run(mk.FIRST, carry0, None, None)
+    carry_k = mk.filter_glue(st1, carry0, **glue_kw)
+    carry_32 = mk.filter_glue_plain(st1.sum(1, keepdim=True), carry0, **glue_kw)
+    carry_64 = mk.filter_glue_plain(st1.double().sum(1, keepdim=True), carry0.double(),
+                                    m0=m0.double(), template=tpl.double(), k0=k0.double(),
+                                    n=n.double(), alpha=ALPHA)
+    ek_g, ep_g = rel_err(carry_k, carry_64), rel_err(carry_32, carry_64)
+    check(ek_g <= 4 * ep_g + 1e-6,
+          f"{what}: filter_glue vs f64 twin: rel err {ek_g:.3e} (f32 twin {ep_g:.3e})")
+
+    kw = dict(num_iter=NUM_ITER, alpha=ALPHA)
+    mf_k, r_k = acrwl1mf_fused(xb, tpl, keep.float(), covariance_update_scaling=cov_scale,
+                               device=xb.device, **kw)
+    mf_k, r_k = mf_k[..., 0], r_k[..., 0]
+    mf_32, _ = mk.bsp_filter_plain(xs, mask, p, m0, k0, tgt0, cit0, norm0, tpl, n,
+                                   cov_scale=cov_scale, **kw)
+    x64 = xb.double()
+    m0_64 = torch.where(keep[..., None], x64, 0.0).sum(1) / n.double()[:, None]
+    xs64 = torch.where(keep[..., None], x64 - m0_64[:, None, :], 0.0).transpose(1, 2).contiguous()
+    c0_64 = torch.einsum("bsp,btp->bst", xs64, xs64) / n.double()[:, None, None]
+    mf_64, r_64 = mk.bsp_filter_plain(xs64, mask, p, m0_64,
+                                      *mk._woodbury_base(c0_64, m0_64, tpl.double(), ALPHA),
+                                      tpl.double(), n.double(), cov_scale=cov_scale, **kw)
+    c32 = corr(mf_k[keep], mf_32[keep])
+    det = int((mf_64[keep] > 500).sum())
+    agree = float(((mf_k[keep] > 500) == (mf_64[keep] > 500)).double().mean())
+    alb = float(((r_k[keep].double() - r_64[keep]).abs() / r_64[keep].abs()).max())
+    check(c32 > 0.9999 and agree >= 0.999 and alb <= 1e-4,
+          f"{what}: whole chunk mf correlation with the f32 twin {c32:.7f} (> 0.9999), "
+          f"threshold-500 agreement with the f64 twin {agree:.6f} (>= 0.999, {det} detections), "
+          f"albedo rel err {alb:.3e} (<= 1e-4)")
+    return rounds, (ek_g, float((carry_k - carry_32).abs().max())), dict(
+        xs=xs, mask=mask, p=p, m0=m0, carry0=carry0, carry1=carry_k, r1=r1, mf1=mf1, geom=geom,
+        n_valid=int(keep.sum()))
+
+
+def aviris_phase(dev):
+    """17. The AVIRIS scene path at full width (``aviris_cube``) through
+    ``run_mag1c_scene`` on the card: one chunk = one ``acrwl1mf_fused(glue=
+    "fused")`` with a (G, P_max) weight row, its rounds ``filter_round_bsp``
+    on the masked f32 stream and ``filter_glue``, with launch counts zeroed
+    just before and read just after (1 FIRST, num_iter LOOP / FINAL rounds
+    and num_iter glues a chunk, nothing else); fill_value exactly at invalid
+    pixels and across the 8-pixel group; threshold-500 agreement >= 0.999
+    with the float64 run (``compute_dtype=torch.float64``, the plain filter
+    on the card; detections > 0) and albedo within 1e-4 of it; two chunks
+    (the smallest bucket's first, the largest bucket's last and short one)
+    held against their twins at covariance_update_scaling 1.0 and 0.7
+    (``aviris_chunk``); every bucket's stream on the 16-byte copies. Records
+    the scene's ms (CUDA events and wall), its device busy and idle share,
+    the share of ``_woodbury_base`` in the wall time and the rounds' times at
+    a full chunk of the largest bucket. Returns (kernel rows, launches,
+    timings)."""
+    import torch
+
+    from starcop_tpu_torch.ops import mag1c_fused as mfused
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.ops.ch4_template import generate_template_from_bands, get_mask_bad_bands
+    from starcop_tpu_torch.scenes import aviris_pipeline as av
+
+    t_phase = time.perf_counter()
+    cube, centers, fwhm, glt, skip = aviris_cube()
+    t_scene = time.perf_counter() - t_phase
+    keep_b = get_mask_bad_bands(centers)
+    s = int(keep_b.sum())
+    valid = np.all(cube[..., keep_b] > FILL, axis=-1)
+    groups = av._group_indices(valid, glt)
+    chunks = list(av._chunks(groups, AV_BATCH))
+    buckets = {}
+    for p_max, chunk in chunks:
+        buckets[p_max] = buckets.get(p_max, 0) + len(chunk)
+    sizes = [len(gi) for gi in groups]
+    print(f"aviris: {len(centers)} bands, {s} kept; {len(groups)} groups of {min(sizes)}.."
+          f"{max(sizes)} valid pixels; groups per bucket {buckets}; {len(chunks)} chunks, the "
+          f"last {len(chunks[-1][1])} groups", flush=True)
+    check(s == 73 and len(groups) == AV_W - 1 and len(buckets) >= 4
+          and len(chunks[-1][1]) < AV_BATCH,
+          f"aviris scene: S = {s} (73), {len(groups)} groups ({AV_W - 1}: column "
+          f"{skip} skipped), {len(buckets)} buckets (>= 4), a last chunk of "
+          f"{len(chunks[-1][1])} groups (< {AV_BATCH})")
+    for p_max, n_groups in buckets.items():
+        geom = mk.round_geometry("bsp", min(n_groups, AV_BATCH), p_max, s,
+                                 sm_count=mk._sm_count(dev))
+        check(geom.aligned, f"aviris bucket P = {p_max}: filter_round_bsp takes the 16-byte "
+                            f"copies")
+
+    kw = dict(glt_samples=glt, num_iter=NUM_ITER, alpha=ALPHA)
+    mk.reset_launch_counts()
+    mf, alb = av.run_mag1c_scene(cube, centers, fwhm, **kw)
+    launches = dict(mk.LAUNCH_COUNTS)
+    print("aviris launches:", json.dumps({k: v for k, v in launches.items() if v}), flush=True)
+    want = {k: 0 for k in launches}
+    want.update(filter_round_bsp_f32_masked_first=len(chunks),
+                filter_round_bsp_f32_masked_loop=NUM_ITER * len(chunks),
+                filter_glue=NUM_ITER * len(chunks))
+    check(launches == want, f"aviris scene: launches as {len(chunks)} chunk filters "
+                            f"({ {k: v for k, v in want.items() if v} })")
+    live = valid.copy()
+    live[:, skip] = False
+    check(mf.shape == (AV_H, AV_W) and mf.dtype == np.float32
+          and bool((mf[~live] == FILL).all() and (alb[~live] == FILL).all())
+          and bool((mf[:, skip] == FILL).all())
+          and bool(np.isfinite(mf[live]).all() and np.isfinite(alb[live]).all()),
+          "aviris scene: (2000, 598) float32, fill_value exactly at invalid pixels and across "
+          "the 8-pixel group, finite elsewhere")
+    mf64, alb64 = av.run_mag1c_scene(cube, centers, fwhm, compute_dtype=torch.float64, **kw)
+    det = int((mf64[live] > 500).sum())
+    agree = float(((mf[live] > 500) == (mf64[live] > 500)).mean())
+    alb_err = float((np.abs(alb[live].astype(np.float64) - alb64[live]) / np.abs(alb64[live])).max())
+    check(det > 0 and agree >= 0.999 and alb_err <= 1e-4,
+          f"aviris scene: threshold-500 agreement with the f64 run {agree:.6f} (>= 0.999), "
+          f"{det} detections; albedo rel err {alb_err:.3e} (<= 1e-4)")
+    print(f"info: aviris mf correlation with the f64 run {corr(mf[live], mf64[live]):.7f}",
+          flush=True)
+
+    flat_rad = torch.as_tensor(cube[..., keep_b].reshape(-1, s), device=dev)
+    tpl = torch.as_tensor(generate_template_from_bands(centers[keep_b], fwhm[keep_b])[:, 1],
+                          dtype=torch.float32, device=dev)
+    rounds, glues = [], []
+    for label, (p_max, chunk) in (("smallest bucket", chunks[0]), ("last chunk", chunks[-1])):
+        xb, keep, _ = av._gather(flat_rad, p_max, chunk, torch.float32)
+        for cs in (1.0, 0.7):
+            r_err, g_err, _ = aviris_chunk(xb, keep, tpl, cs,
+                                           f"aviris {label} (G = {len(chunk)}, P = {p_max}), "
+                                           f"cov_scale {cs}")
+            rounds.append(r_err)
+            glues.append(g_err)
+    full = next((p, c) for p, c in chunks if p == max(buckets) and len(c) == AV_BATCH)
+    xb, keep, _ = av._gather(flat_rad, *full, torch.float32)
+    _, _, t = aviris_chunk(xb, keep, tpl, 1.0, f"aviris full chunk (G = {AV_BATCH}, "
+                                                f"P = {full[0]})")
+    worst = (max(e for e, _ in rounds), max(a for _, a in rounds))
+    fields = {name: dict(rel_err=worst[0], max_abs_err=worst[1],
+                         check="FIRST / LOOP / FINAL rel err vs f64 twin <= 4x f32 twin's + 1e-6 "
+                               "on two AVIRIS chunks at cov_scale 1.0 and 0.7")
+              for name in ("filter_round_bsp_f32_masked_first", "filter_round_bsp_f32_masked_loop")}
+    g, p = AV_BATCH, t["p"]
+    nchunks = t["geom"].nchunks
+    stream_bytes = 4.0 * g * s * p + g * p + 4.0 * (g * 5 * s + g * nchunks * (s + 2))
+    plans = {
+        "filter_round_bsp_f32_masked_first": dict(
+            kernel=lambda: mk.filter_round_bsp(t["xs"], t["mask"], p, t["m0"], t["carry0"], None,
+                                               None, mode=mk.FIRST, geom=t["geom"]),
+            plain=lambda: mk.filter_round_bsp_plain(t["xs"], t["mask"], p, t["m0"], t["carry0"],
+                                                    None, None, mode=mk.FIRST),
+            library=None, bound=bound_ms(stream_bytes + 8.0 * g * p, t["n_valid"] * (7.0 * s + 12)),
+            replaces="594", tpu_kernel="_first_round_kernel (row 5) on the masked f32 stream"),
+        "filter_round_bsp_f32_masked_loop": dict(
+            kernel=lambda: mk.filter_round_bsp(t["xs"], t["mask"], p, t["m0"], t["carry1"],
+                                               t["r1"], t["mf1"], mode=mk.LOOP, geom=t["geom"]),
+            plain=lambda: mk.filter_round_bsp_plain(t["xs"], t["mask"], p, t["m0"], t["carry1"],
+                                                    t["r1"], t["mf1"], mode=mk.LOOP),
+            library=None, bound=bound_ms(stream_bytes + 12.0 * g * p, t["n_valid"] * (5.0 * s + 12)),
+            replaces="664", tpu_kernel="_loop_round_kernel (row 6; LOOP and FINAL) on the masked "
+                                       "f32 stream"),
+    }
+    rows = kernel_rows(plans, fields, "AVIRIS scene (run_mag1c_scene, 598 x 2000 x 73)")
+    # A round here is bound at ~15 us, below the host's launch gaps: ms is
+    # the kernel's own device time (torch.profiler), event_ms the events'.
+    for row, mode in zip(rows, (0, 1)):
+        row["event_ms"] = row["ms"]
+        row["ms"] = device_ms(plans[row["name"]]["kernel"], f"filter_round_bsp_kernel<float, {mode}")
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["launches"] = launches[row["name"]]
+        row["note"] = ("ms: the kernel's device time per launch (torch.profiler); event_ms: CUDA "
+                       "events around back-to-back calls, which the host's launch gaps set")
+        print_share(row["name"] + " (device time)", row["ms"], row["bound_ms"])
+
+    run = lambda: av.run_mag1c_scene(cube, centers, fwhm, **kw)  # noqa: E731
+    ev_ms, wall_ms = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        ev_ms.append(start.elapsed_time(end))
+    prof = profile_granule(run, "aviris_scene") or {}
+    spent, real = [], mfused._woodbury_base
+
+    def timed_base(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    mfused._woodbury_base = timed_base
+    try:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_base = time.perf_counter() - t0
+    finally:
+        mfused._woodbury_base = real
+    timings = {
+        "aviris_scene_event_ms": statistics.median(ev_ms),
+        "aviris_scene_wall_ms": statistics.median(wall_ms),
+        "aviris_device_busy_ms": prof.get("device_busy_ms"),
+        "aviris_idle_share": prof.get("idle_share"),
+        "aviris_chunks": len(chunks),
+        "aviris_woodbury_base_ms": sum(spent) * 1e3,
+        "aviris_woodbury_base_share": sum(spent) / wall_base,
+        "aviris_woodbury_run_wall_ms": wall_base * 1e3,
+        "aviris_scene_synthesis_s": t_scene,
+        "aviris_phase_s": time.perf_counter() - t_phase,
+    }
+    print("aviris timings " + json.dumps(timings), flush=True)
+    return rows, launches, timings
+
+
+def mag1c_cli_phase(tmp):
+    """18. ``cli/mag1c`` end to end in a subprocess on a 256 x 128 x 74 .npy
+    scene (``synthetic_scene`` seed 12, ``aviris_swir_bands``): with
+    ``--glt`` (groups of two columns) and without (column blocks of 32),
+    30 iterations; each .tif read back by ``load_raster`` equal to the
+    in-process ``run_mag1c_scene`` / ``mag1c_column_blocks`` result on the
+    card."""
+    from starcop_tpu_torch.data.geotiff import load_raster
+    from starcop_tpu_torch.data.synthetic import aviris_swir_bands, synthetic_scene
+    from starcop_tpu_torch.ops.ch4_template import generate_template_from_bands
+    from starcop_tpu_torch.ops.mag1c import mag1c_column_blocks
+    from starcop_tpu_torch.scenes.aviris_pipeline import run_mag1c_scene
+
+    centers, fwhm = aviris_swir_bands()
+    cube = synthetic_scene(np.random.default_rng(12), 256, 128, n_plumes=3)["radiance"]
+    glt = np.broadcast_to(np.arange(128) // 2, (256, 128))
+    paths = {k: os.path.join(tmp, f"cli_{k}.npy") for k in ("scene", "wl", "fwhm", "glt")}
+    for k, a in zip(paths, (cube, centers, fwhm, glt)):
+        np.save(paths[k], a)
+    root = os.path.dirname(os.path.abspath(__file__))
+    for mode in ("glt", "blocks"):
+        out = os.path.join(tmp, f"cli_{mode}.tif")
+        cmd = [sys.executable, "-m", "starcop_tpu_torch.cli.mag1c", paths["scene"], "--output",
+               out, "--wavelengths", paths["wl"], "--fwhm", paths["fwhm"], "--column-step", "32",
+               "--num-iter", str(NUM_ITER)] + (["--glt", paths["glt"]] if mode == "glt" else [])
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root)
+        check(res.returncode == 0, f"cli/mag1c ({mode}) exit code {res.returncode}: "
+                                   f"{(res.stdout + res.stderr)[-2000:]}")
+        got = load_raster(out)
+        if mode == "glt":
+            want, _ = run_mag1c_scene(cube, centers, fwhm, glt_samples=glt, num_iter=NUM_ITER,
+                                      alpha=1e-4)
+        else:
+            template = generate_template_from_bands(centers, fwhm)[:, 1]
+            want = mag1c_column_blocks(cube, template, None, column_step=32, num_iter=NUM_ITER,
+                                       alpha=1e-4)[0].cpu().numpy()
+        check(got.shape == want.shape == (256, 128) and np.array_equal(got, want)
+              and float(want.max()) > 500,
+              f"cli/mag1c ({mode}): the .tif equals the in-process result on the card "
+              f"(max {float(want.max()):.0f}; {time.perf_counter() - t0:.1f} s with the "
+              f"process start)")
+
+
+def held_f64(what, card, cpu32, cpu64):
+    """A product on the card against the CPU: the card's error against the
+    CPU's f64 result at most 4x the CPU f32 error + 1e-6 of the range.
+    Returns the card's max abs difference from the CPU f32 result."""
+    card, cpu32, cpu64 = (np.asarray(a, np.float64) for a in (card, cpu32, cpu64))
+    e_card, e_cpu = np.abs(card - cpu64).max(), np.abs(cpu32 - cpu64).max()
+    check(e_card <= 4 * e_cpu + 1e-6 * np.abs(cpu64).max(),
+          f"{what}: card vs CPU f64 {e_card:.3e} (CPU f32 {e_cpu:.3e})")
+    return float(np.abs(card - cpu32).max())
+
+
+def multispectral_phase(dev, tmp):
+    """19. The multispectral products on one 512 x 512 WV3-like chip (8 SWIR
+    bands of a correlated albedo field, seeded, the S2 bands the mixed ratios
+    read, a no-data corner): ``ratio_mlr_local`` in its four modes and
+    ``lr_bands`` on the card against the CPU (``held_f64``);
+    ``extract_features`` of all 16 products into a temporary folder on the
+    card and on the CPU, each file held so; the learned ratio from a seeded
+    ``RegressionModel`` checkpoint (.pt); ``CloudDetector.predict_scene`` on a
+    13 x 509 x 511 scene with the classes equal to the CPU's on >= 0.999 of
+    pixels; a ``RegressionModel``'s output within the U-Net logits bar
+    (rtol 1e-3, atol 2e-4) of the CPU's. Returns timings."""
+    import torch
+
+    from starcop_tpu_torch.data import features as feat
+    from starcop_tpu_torch.models.cloud import CloudDetector
+    from starcop_tpu_torch.models.layers import init_like_flax
+    from starcop_tpu_torch.models.regression import RegressionModel
+    from starcop_tpu_torch.ops import ratios
+
+    rng = np.random.default_rng(13)
+    size = 512
+    albedo = rng.uniform(0.1, 0.5, (size // 16, size // 16)).repeat(16, 0).repeat(16, 1)
+    names = sorted({p for spec in feat.FEATURES.values() for p in spec["inputs"]})
+    bands = {}
+    for name in names:
+        band = albedo * rng.uniform(0.8, 1.2) + rng.normal(0, 0.01, (size, size))
+        if name == "mag1c":
+            band = rng.uniform(0, 800, (size, size))
+        band[:8, :16] = 0.0
+        bands[name] = band.astype(np.float32)
+    wv3 = [bands[f"TOA_WV3_SWIR{i}"] for i in range(1, 9)]
+    on = lambda arrs, d, dt=torch.float32: [torch.as_tensor(a, dtype=dt, device=d)  # noqa: E731
+                                            for a in arrs]
+    errs = {}
+    for mode in ("simple", "simple_plus", "residual", "c_matched_outliers"):
+        outs = [ratios.ratio_mlr_local(on(wv3[:5], d, dt), on([wv3[6]], d, dt)[0], division=mode)
+                .cpu().numpy() for d, dt in ((dev, torch.float32), ("cpu", torch.float32),
+                                             ("cpu", torch.float64))]
+        errs[f"ratio_mlr_local {mode}"] = held_f64(f"ratio_mlr_local ({mode}) 512 x 512", *outs)
+    outs = [ratios.lr_bands(on(wv3[:3], d, dt), on([wv3[7]], d, dt)[0]).cpu().numpy()
+            for d, dt in ((dev, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64))]
+    errs["lr_bands"] = held_f64("lr_bands 512 x 512", *outs)
+
+    gen = torch.Generator().manual_seed(5)
+    reg = RegressionModel(feat.LEARNED_RATIO_INPUTS, ["TOA_WV3_SWIR8"],
+                          inhibit_normalisation=True).init(gen)
+    ckpt = os.path.join(tmp, "regressor.pt")
+    torch.save(reg.network.state_dict(), ckpt)
+    saved = dict(feat._LEARNED_MODEL)
+    products, t_feat = list(feat.FEATURES), {}
+    try:
+        for where, label in ((dev, "card"), ("cpu", "host")):
+            folder = os.path.join(tmp, f"features_{label}")
+            os.makedirs(folder)
+            for name, band in bands.items():
+                np.save(os.path.join(folder, f"{name}.npy"), band)
+            feat.register_learned_ratio_checkpoint(ckpt)
+            t0 = time.perf_counter()
+            written = feat.extract_features(products, [{"folder": folder}], device=where)
+            t_feat[label] = (time.perf_counter() - t0) * 1e3
+            check(written == len(products), f"extract_features on {where}: {written} files "
+                                            f"({len(products)})")
+    finally:
+        feat._LEARNED_MODEL.update(saved)
+    read = lambda label, name: np.load(os.path.join(tmp, f"features_{label}",  # noqa: E731
+                                                    f"{name}.npy"))
+    for name in products:
+        inputs = [torch.as_tensor(bands[p], dtype=torch.float64)
+                  for p in feat.FEATURES[name]["inputs"]]
+        if name.startswith("ratio_lrn_"):
+            feat.register_learned_ratio_model(
+                lambda x: reg.network(torch.as_tensor(x, dtype=torch.float32)).double())
+        try:
+            with torch.inference_mode():
+                ref = feat.FEATURES[name]["function"](*inputs).numpy()
+        finally:
+            feat._LEARNED_MODEL.update(saved)
+        errs[name] = held_f64(f"extract_features {name}", read("card", name), read("host", name),
+                              ref)
+
+    cloud = CloudDetector()
+    init_like_flax(cloud.network, torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        for mod in cloud.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.normal_(0.0, 0.05, generator=gen)
+                mod.running_var.uniform_(0.8, 1.2, generator=gen)
+    scene = np.random.default_rng(14).uniform(0, 1, (13, 509, 511)).astype(np.float32)
+    classes_cpu = cloud.predict_scene(scene).numpy()
+    cloud_d = cloud.to(dev)
+    classes = cloud_d.predict_scene(scene)
+    same = float((classes.cpu().numpy() == classes_cpu).mean())
+    check(classes.shape == (509, 511) and same >= 0.999 and len(np.unique(classes_cpu)) > 1,
+          f"CloudDetector.predict_scene 13 x 509 x 511: classes equal to the CPU's on {same:.6f} "
+          f"of pixels (>= 0.999), {len(np.unique(classes_cpu))} classes present")
+    x = np.stack([bands[p] for p in feat.LEARNED_RATIO_INPUTS])[None]
+    with torch.inference_mode():
+        want = reg(torch.as_tensor(x)).numpy()
+        got = reg.to(dev)(torch.as_tensor(x, device=dev)).cpu().numpy()
+    ok = np.allclose(got, want, rtol=1e-3, atol=2e-4)
+    check(ok, f"RegressionModel 6 x 512 x 512 on the card vs the CPU: max abs diff "
+              f"{np.abs(got - want).max():.3e} (rtol 1e-3, atol 2e-4)")
+    with torch.inference_mode():
+        timings = {"cloud_predict_scene_ms": cuda_ms(lambda: cloud_d.predict_scene(scene), reps=5),
+                   "extract_features_card_ms": t_feat["card"],
+                   "extract_features_cpu_ms": t_feat["host"]}
+    print("multispectral: " + json.dumps({"max_abs_vs_cpu_f32": errs, **timings}), flush=True)
+    return timings
+
+
+def codec_phase(granules):
+    """20. The native codecs on the card's host: on each served granule
+    ``valid_band_minmax``, ``quantize_pack12`` (even-band body) and
+    ``quantize_pack10`` of the native library byte-identical to their numpy
+    twins; the encoder's ms a granule (``encode_payload`` u12 and u10, the
+    native passes) beside the numpy twins' ms for the same passes."""
+    from starcop_tpu_torch.data import native_io as nio
+    from starcop_tpu_torch.serve.pipeline import encode_payload
+
+    check(nio.available(), "native codecs built and loaded")
+    for i, g in enumerate(granules):
+        cube = g["cube"]
+        s_even = cube.shape[-1] - cube.shape[-1] % 2
+        got = nio.valid_band_minmax(cube, FILL, n_minmax_bands=s_even)
+        want = nio.valid_band_minmax_plain(cube, FILL, n_minmax_bands=s_even)
+        body = np.ascontiguousarray(cube[..., :s_even])
+        lo, hi = got[1], got[2]
+        s12 = np.maximum((hi - lo) / 4095.0, 1e-12).astype(np.float32)
+        _, lo10, hi10 = nio.valid_band_minmax(cube, FILL)
+        s10 = np.maximum((hi10 - lo10) / 1023.0, 1e-12).astype(np.float32)
+        same = (all(a.tobytes() == b.tobytes() for a, b in zip(got, want))
+                and nio.quantize_pack12(body, lo, s12).tobytes()
+                == nio.quantize_pack12_plain(body, lo, s12).tobytes()
+                and nio.quantize_pack10(cube, lo10, s10).tobytes()
+                == nio.quantize_pack10_plain(cube, lo10, s10).tobytes())
+        check(same, f"granule {i}: native valid_band_minmax, pack12 and pack10 byte-identical "
+                    f"to the numpy twins")
+
+    def host_ms(fn, reps=3):
+        times = []
+        for g in granules:
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn(g)
+                times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def twins12(g):  # encode_payload's u12 cube passes, in numpy
+        cube = g["cube"]
+        s_even = cube.shape[-1] - cube.shape[-1] % 2
+        _, lo, hi = nio.valid_band_minmax_plain(cube, FILL, n_minmax_bands=s_even)
+        nio.quantize_pack12_plain(np.ascontiguousarray(cube[..., :s_even]), lo,
+                                  np.maximum((hi - lo) / 4095.0, 1e-12))
+
+    timings = {"encode_u12_native_ms": host_ms(lambda g: encode_payload(g, "u12")),
+               "encode_u10_native_ms": host_ms(lambda g: encode_payload(g, "u10")),
+               "encode_u12_numpy_twins_ms": host_ms(twins12, reps=1),
+               "host_cpus": os.cpu_count()}
+    print("codecs: " + json.dumps(timings), flush=True)
+    return timings
+
+
 def seeded_model(dev, seed: int = 0, bf16: bool = False):
     """A full-width SegmentationModel whose output spreads over (0, 1) and
     follows the filter: Kaiming-normal (fan-out) convolutions, zero conv
@@ -2689,14 +3226,25 @@ def main() -> int:
         eval_counts, eval_timings, index = eval_phase(dev, card, tmp)
         # 16. the training path on that dataset: the train CLI, card vs CPU, bf16 -----
         train_timings = train_phase(dev, card, index)
+        # 17. the AVIRIS scene path at full width, launches counted ------------------
+        aviris_rows, aviris_launches, aviris_timings = aviris_phase(dev)
+        # 18. cli/mag1c in a subprocess, with and without a GLT ---------------------
+        mag1c_cli_phase(tmp)
+        # 19. the multispectral products, the regression and cloud models -----------
+        multispectral_timings = multispectral_phase(dev, tmp)
+    # 20. the native codecs on the card's host ------------------------------------------
+    codec_timings = codec_phase(granules)
     for row in kernels:
         if row["name"] in FILTER_LAUNCHES:
             row["eval_launches"] = eval_counts
             row["train_data_launches"] = eval_counts["dataset"][row["name"]]
+    glue.update(aviris_launches=aviris_launches["filter_glue"])
+    kernels += aviris_rows
     print("timings " + json.dumps({"card": card, **timings, **masked_timings,
                                    **serving_timings, **bf16_timings, **masked_bf16_timings,
                                    **served_bf16_timings, **route_timings, **eval_timings,
-                                   **train_timings}), flush=True)
+                                   **train_timings, **aviris_timings, **multispectral_timings,
+                                   **codec_timings}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ Counterpart of ``starcop_tpu/ops/ch4_template.py``: convolves the CH4 radiance
 look-up table (7 concentrations x 31800 wavelengths, 1399.6-2522 nm) with
 per-band Gaussian spectral response functions and fits the log-radiance slope
 against concentration, giving the per-band unit absorption spectrum that the
-matched filter searches for. It is a one-time set-up computation per band
-set, so it stays in numpy. The LUT is this package's own byte-identical copy,
+matched filter searches for, and ``get_mask_bad_bands`` keeps the bands
+outside the water-vapour windows. It is a one-time set-up computation per
+band set, so it stays in numpy. The LUT is this package's own byte-identical copy,
 ``assets/ch4_lut.npz`` (provenance in ``assets/README.md``).
 """
 
@@ -74,3 +75,17 @@ def generate_template_from_bands(
     lsqmat = np.stack((np.ones_like(concentrations), concentrations)).T  # (7, 2)
     slope, _, _, _ = np.linalg.lstsq(lsqmat, lograd, rcond=None)  # (2, K)
     return np.stack((centers, slope[1, :] * SCALING)).T
+
+
+def get_mask_bad_bands(wave: np.ndarray) -> np.ndarray:
+    """Mask of wavelengths to KEEP, rejecting the water-vapour absorption
+    windows: below 400 nm, above 2485 nm, 1350-1420 nm and 1800-1945 nm
+    (ch4_template.py:98-111)."""
+    wave = np.asarray(wave)
+    reject = (
+        (wave < 400)
+        | (wave > 2485)
+        | ((wave > 1350) & (wave < 1420))
+        | ((wave > 1800) & (wave < 1945))
+    )
+    return ~reject

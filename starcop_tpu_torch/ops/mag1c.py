@@ -1,10 +1,11 @@
 """Albedo-corrected reweighted-L1 matched filter (mag1c) in PyTorch.
 
 Counterpart of ``starcop_tpu/ops/mag1c.py``. The plain torch functions here
-(``rmf``, ``acrwl1mf``, the SPD-inverse helpers) restate the JAX math on any
-device; ``mag1c_column_blocks`` runs a whole scene through the hand-written
-CUDA kernels (``ops/mag1c_kernels.py``), with or without a valid mask, on
-the f32 cube or a bf16 copy of it.
+(``rmf``, ``acrwl1mf`` with the reference's energy series, the SPD-inverse
+helpers) restate the JAX math on any device; ``mag1c_column_blocks`` runs a
+whole scene through the hand-written CUDA kernels (``ops/mag1c_kernels.py``),
+with or without a valid mask, on the f32 cube or a bf16 copy of it, or
+through the plain filter at float64 for parity runs.
 
 Semantics (pinned against the JAX package and the float64 oracle by
 tests/test_torch_mag1c.py):
@@ -80,14 +81,34 @@ def _shrink_diag(c: torch.Tensor, alpha: float) -> torch.Tensor:
     return c + alpha * (torch.diag_embed(torch.diagonal(c, dim1=-2, dim2=-1)) - c)
 
 
-def _cho_solve_vec(c: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve C z = b for SPD C. c (B, S, S), b (B, S) -> (B, S). Where C is
-    not positive definite (a block with no valid pixel has C = 0) z is NaN,
-    as JAX's ``jnp.linalg.cholesky`` gives; nothing raises or waits for the
-    device."""
+def _cholesky(c: torch.Tensor):
+    """(factor, ok) of SPD c (B, S, S): the lower Cholesky factor and, per
+    batch entry, whether it exists. Nothing raises or waits for the device."""
     factor, info = torch.linalg.cholesky_ex(c)
+    return factor, info == 0
+
+
+def _solve_from_factor(factor: torch.Tensor, ok: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C z = b from C's factor, b (B, S) -> (B, S); NaN where the factor does
+    not exist (a block with no valid pixel has C = 0), as JAX's
+    ``jnp.linalg.cholesky`` gives."""
     z = torch.cholesky_solve(b[..., None], factor)[..., 0]
-    return torch.where((info == 0)[:, None], z, torch.nan)
+    return torch.where(ok[:, None], z, torch.nan)
+
+
+def _cho_solve_vec(c: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve C z = b for SPD C. c (B, S, S), b (B, S) -> (B, S)."""
+    return _solve_from_factor(*_cholesky(c), b)
+
+
+def _energy_residual(xm: torch.Tensor, w, factor: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """The reference's per-iteration energy, the sum of every entry of the
+    (B, P, P) Mahalanobis product (x - mu) C^-1 (x - mu)^T, as the scalar
+    s^T C^-1 s with s the (weighted) pixel sum of the centred ``xm``
+    (mag1c.py:107-126). With a mask only valid rows are summed: JAX's
+    deviation from the reference, which sums every row."""
+    xm_sum = xm.sum(1) if w is None else torch.einsum("bp,bps->bs", w, xm)
+    return (xm_sum * _solve_from_factor(factor, ok, xm_sum)).sum()
 
 
 def _chol_inv_rec(a: torch.Tensor) -> torch.Tensor:
@@ -141,18 +162,29 @@ def rmf(
     zero_override: bool = False,
     albedo_override: bool = False,
     apply_scaling: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    compute_energy: bool = False,
+):
     """Single-pass matched filter. x (B, P, S), template (S,), weights
-    (B, P) 0/1 or None -> (mf, R), each (B, P, 1)."""
+    (B, P) 0/1 or None -> (mf, R), each (B, P, 1).
+
+    ``compute_energy`` also returns the reference's scalar energy, the
+    summed Mahalanobis residual (``_energy_residual``) less
+    ``P/2 * sum(log diag(chol))``, and leaves mf unscaled, as JAX does
+    (mag1c.py:272-327): (mf, R, energy)."""
     w, n = _weighted_stats(x, weights)
     mu0 = _weighted_mean(x, w, n)
-    mf, r = _rmf_core(x - mu0, mu0, template.to(x.dtype), w, n, alpha=alpha,
-                      zero_override=zero_override, albedo_override=albedo_override)
+    mf, r, energy = _rmf_core(x - mu0, mu0, template.to(x.dtype), w, n, alpha=alpha,
+                              zero_override=zero_override, albedo_override=albedo_override,
+                              compute_energy=compute_energy)
+    if compute_energy:
+        return mf, r, energy
     return (mf * SCALING if apply_scaling else mf), r
 
 
-def _rmf_core(xc, mu0, template, w, n, *, alpha, zero_override, albedo_override):
-    """Single-pass matched filter on the cube centred by ``mu0``."""
+def _rmf_core(xc, mu0, template, w, n, *, alpha, zero_override, albedo_override,
+              compute_energy=False):
+    """Single-pass matched filter on the cube centred by ``mu0``. Returns
+    (mf, R, the init energy or None)."""
     tpl = template[None, None, :]
     delta = _weighted_mean(xc, w, n)  # residual mean of xc (~0)
     mu = mu0 + delta
@@ -160,7 +192,8 @@ def _rmf_core(xc, mu0, template, w, n, *, alpha, zero_override, albedo_override)
     x_minus_mu = xc - delta
 
     c = _shrink_diag(_weighted_cov(x_minus_mu, w, n), alpha)
-    cit = _cho_solve_vec(c, target[:, 0, :])[:, :, None]  # (B, S, 1)
+    factor, ok = _cholesky(c)
+    cit = _solve_from_factor(factor, ok, target[:, 0, :])[:, :, None]  # (B, S, 1)
     normalizer = torch.einsum("bs,bso->bo", target[:, 0, :], cit)[:, None, :]
 
     if albedo_override:
@@ -174,7 +207,13 @@ def _rmf_core(xc, mu0, template, w, n, *, alpha, zero_override, albedo_override)
     mf = torch.einsum("bps,bso->bpo", x_minus_mu, cit) / (r * normalizer)
     if not zero_override:
         mf = torch.relu(mf)
-    return mf, r
+    energy = None
+    if compute_energy:
+        # residual + N/2 log det(C)^-1/2, the det over the whole batch
+        # (mag1c.py:386-394), N the padded pixel count P as in JAX.
+        logdet = torch.log(torch.diagonal(factor, dim1=-2, dim2=-1)).sum()
+        energy = _energy_residual(x_minus_mu, w, factor, ok) - 0.5 * xc.shape[1] * logdet
+    return mf, r, energy
 
 
 def acrwl1mf(
@@ -188,11 +227,14 @@ def acrwl1mf(
     sparse_override: bool = False,
     covariance_update_scaling: float = 1.0,
     alpha: float = 0.0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    compute_energy: bool = False,
+):
     """Albedo-corrected reweighted-L1 matched filter, plain torch.
 
     x (B, P, S) radiance, template (S,), weights (B, P) 0/1 or None.
-    Returns (mf scaled by 1e5, R), each (B, P, 1).
+    Returns (mf scaled by 1e5, R), each (B, P, 1); with ``compute_energy``
+    also the (num_iter + 1,) energy series (mag1c.py:410-530): element 0 the
+    rmf init's energy, then each iteration's summed Mahalanobis residual.
     """
     w, n = _weighted_stats(x, weights)
     template = template.to(x.dtype)
@@ -201,8 +243,9 @@ def acrwl1mf(
 
     mu0 = _weighted_mean(x, w, n)
     xc = x - mu0
-    mf, r = _rmf_core(xc, mu0, template, w, n, alpha=alpha,
-                      zero_override=zero_override, albedo_override=albedo_override)
+    mf, r, energy0 = _rmf_core(xc, mu0, template, w, n, alpha=alpha, zero_override=zero_override,
+                               albedo_override=albedo_override, compute_energy=compute_energy)
+    energies = [energy0]
     if w3 is not None:
         # Invalid pixels may carry R == 0 (zero-filled padding): pin R = 1 and
         # mf = 0 there so 1/R never injects inf/NaN into the statistics.
@@ -217,7 +260,10 @@ def acrwl1mf(
         dmu = _weighted_mean(modxc, w, n)
         target = tpl * (mu0 + dmu)
         c = _shrink_diag(_weighted_cov(modxc - dmu, w, n), alpha)
-        cit = _cho_solve_vec(c, target[:, 0, :])[:, :, None]
+        factor, ok = _cholesky(c)
+        cit = _solve_from_factor(factor, ok, target[:, 0, :])[:, :, None]
+        if compute_energy:  # the residual only, no det term (mag1c.py:492-495)
+            energies.append(_energy_residual(xc - dmu, w, factor, ok))
         if sparse_override:
             regularizer = torch.zeros_like(mf)
         else:
@@ -229,6 +275,8 @@ def acrwl1mf(
             mf = torch.relu(mf)
         if w3 is not None:
             mf = mf * w3
+    if compute_energy:
+        return mf * SCALING, r, torch.stack(energies)
     return mf * SCALING, r
 
 
@@ -252,6 +300,7 @@ def mag1c_column_blocks(
     num_iter: int = 30,
     alpha: float = 1e-4,
     fill_value: float = NODATA,
+    compute_dtype=torch.float32,
     stream_dtype=None,
     scene_layout: str = "hws",
     device: DeviceLike = None,
@@ -285,15 +334,22 @@ def mag1c_column_blocks(
     ``num_iter < 1`` (the rmf-only result) takes JAX's own route for it,
     the plain ``acrwl1mf`` over the blocks at f32 whatever ``stream_dtype``
     (``_column_blocks_plain``): the kernel filters refuse it.
+    ``compute_dtype=torch.float64`` is a parity option: as JAX leaves
+    Pallas at float64 (mag1c.py:621-630), the plain ``acrwl1mf`` runs over
+    the blocks at f64 on the given device, whatever ``stream_dtype``. Any
+    other dtype than f32 or f64 raises ``ValueError``.
 
-    Returns (mf, albedo) as (H, W) float32 tensors on the device, with
-    ``fill_value`` at invalid pixels.
+    Returns (mf, albedo) as (H, W) tensors of ``compute_dtype`` on the
+    device, with ``fill_value`` at invalid pixels.
     """
     from starcop_tpu_torch.ops import mag1c_kernels as mk
     from starcop_tpu_torch.ops.mag1c_fused import acrwl1mf_fused
 
     if scene_layout not in ("hws", "shw"):
         raise ValueError(f"scene_layout must be 'hws' or 'shw', got {scene_layout!r}")
+    if compute_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"compute_dtype must be torch.float32 or torch.float64, "
+                         f"got {compute_dtype!r}")
     band_major = scene_layout == "shw"
     bf16 = is_bf16_stream(stream_dtype)
     dev = resolve_device(device)
@@ -303,12 +359,13 @@ def mag1c_column_blocks(
         h, w_dim, s = scene.shape
     step = int(column_step) if column_step else w_dim
     nb = -(-w_dim // step)
-    x = torch.as_tensor(scene, dtype=torch.float32, device=dev)
-    tpl = torch.as_tensor(template, dtype=torch.float32, device=dev)
+    x = torch.as_tensor(scene, dtype=compute_dtype, device=dev)
+    tpl = torch.as_tensor(template, dtype=compute_dtype, device=dev)
 
-    if num_iter < 1:
+    if num_iter < 1 or compute_dtype == torch.float64:
         # JAX's routing (starcop_tpu/ops/mag1c.py:621-630): the rmf-only
-        # result is a contract of the plain path; no kernel computes it.
+        # result and float64 parity runs are the plain path's; no kernel
+        # computes them.
         if band_major:
             x = x.permute(1, 2, 0)
         return _column_blocks_plain(x, tpl, valid_mask, nb, step, num_iter=num_iter,
@@ -341,7 +398,7 @@ def mag1c_column_blocks(
 def _column_blocks_plain(x, tpl, valid_mask, nb: int, step: int, *, num_iter: int, alpha: float,
                          fill_value: float):
     """``mag1c_column_blocks`` through the plain ``acrwl1mf`` over the
-    (nb, H * step, S) blocks of the (H, W, S) cube x at f32, as JAX's XLA
+    (nb, H * step, S) blocks of the (H, W, S) cube x in its dtype, as JAX's XLA
     path (starcop_tpu/ops/mag1c.py:728-760): the ragged last block padded,
     the keep rows (valid and below W) as weights when there is a mask or a
     ragged block, invalid pixels selected to 0 (never multiplied), and
@@ -370,10 +427,15 @@ def reference_oracle_acrwl1mf(
     num_iter: int = 30,
     covariance_update_scaling: float = 1.0,
     alpha: float = 0.0,
+    compute_energy: bool = False,
 ):
     """Float64 numpy restatement of the reference matched-filter math (Foote
     et al., IEEE TGRS 2020): the judge for every route. x (B, P, S) ->
-    (mf scaled by 1e5, R), each (B, P, 1)."""
+    (mf scaled by 1e5, R), each (B, P, 1). ``compute_energy`` also returns
+    the reference's energy series literally, each residual the sum of the
+    full (B, P, P) Mahalanobis product (mag1c.py:763-840), so that
+    ``_energy_residual``'s identity is checked against an independent
+    statement."""
     x = np.asarray(x, dtype=np.float64)
     template = np.asarray(template, dtype=np.float64)
     b, p, s = x.shape
@@ -386,6 +448,10 @@ def reference_oracle_acrwl1mf(
         c = (1 - alpha) * c + alpha * np.eye(s)[None] * np.diagonal(c, axis1=1, axis2=2)[:, None, :]
         return mu, c
 
+    def energy_residual(x_minus_mu, c):
+        return float(sum(np.sum(x_minus_mu[i] @ np.linalg.solve(c[i], x_minus_mu[i].T))
+                         for i in range(b)))
+
     mu, c = stats(x)
     target = tpl * mu
     cit = np.linalg.solve(c, target[:, 0, :, None])
@@ -393,6 +459,11 @@ def reference_oracle_acrwl1mf(
     r = np.einsum("bps,bs->bp", x, mu[:, 0, :])[..., None] / np.einsum(
         "bs,bs->b", mu[:, 0, :], mu[:, 0, :])[:, None, None]
     mf = np.maximum(np.einsum("bps,bso->bpo", x - mu, cit) / (r * normalizer), 0.0)
+    energies = []
+    if compute_energy:
+        # residual + N/2 log(1 / prod(diag chol)), the product over the batch
+        det_cov = 1.0 / np.prod(np.diagonal(np.linalg.cholesky(c), axis1=-2, axis2=-1))
+        energies.append(energy_residual(x - mu, c) + p / 2.0 * np.log(det_cov))
 
     target = tpl * x.mean(axis=1, keepdims=True)
     for _ in range(num_iter):
@@ -400,8 +471,12 @@ def reference_oracle_acrwl1mf(
         mu, c = stats(modx)
         target = tpl * mu
         cit = np.linalg.solve(c, target[:, 0, :, None])
+        if compute_energy:
+            energies.append(energy_residual(x - mu, c))
         regularizer = 1.0 / (r * (mf + EPSILON))
         normalizer = np.maximum(np.einsum("bs,bso->bo", target[:, 0, :], cit)[:, None, :], 1.0)
         mf = np.maximum(
             (np.einsum("bps,bso->bpo", x - mu, cit) - regularizer) / (r * normalizer), 0.0)
+    if compute_energy:
+        return mf * SCALING, r, np.asarray(energies)
     return mf * SCALING, r

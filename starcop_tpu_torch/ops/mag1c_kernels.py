@@ -451,12 +451,15 @@ def cube_transpose_geometry(x: torch.Tensor, nb: int, step: int) -> RoundGeometr
 
 # The masked rounds count their FIRST launches (row 5 of the TPU kernel
 # table) apart from their LOOP and FINAL ones (row 6), the mono rounds their
-# FIRST (row 7) apart from their LOOP and FINAL ones (row 8).
+# FIRST (row 7) apart from their LOOP and FINAL ones (row 8); the masked
+# stream rounds count a bf16 stream apart from an f32 one (acrwl1mf_fused's
+# (B, P, S) input with a weight row).
 LAUNCH_COUNTS: Dict[str, int] = {
     "init_stats": 0, "filter_round": 0, "filter_glue": 0,
     "init_stats_masked": 0, "filter_round_masked_first": 0, "filter_round_masked_loop": 0,
     "blocked_transpose": 0, "init_stats_bsp": 0, "filter_round_bsp": 0,
     "filter_round_bsp_masked_first": 0, "filter_round_bsp_masked_loop": 0,
+    "filter_round_bsp_f32_masked_first": 0, "filter_round_bsp_f32_masked_loop": 0,
     "blocked_transpose_shw": 0, "init_stats_stream": 0, "filter_round_bsp_f32": 0,
     "fused_iter_woodbury": 0, "fused_iter_cholesky": 0,
     "filter_round_mono_first": 0, "filter_round_mono_loop": 0,
@@ -973,7 +976,8 @@ def filter_round_bsp(xs, valid, step, m0, carry, r, mf_prev, *, mode, cov_scale=
     if valid is None:
         _count("filter_round_bsp_f32" if xs.dtype == torch.float32 else "filter_round_bsp")
     else:
-        _count("filter_round_bsp_masked_first" if mode == FIRST else "filter_round_bsp_masked_loop")
+        stored = "f32_masked" if xs.dtype == torch.float32 else "masked"
+        _count(f"filter_round_bsp_{stored}_{'first' if mode == FIRST else 'loop'}")
     return mf, r, (None if mode == FINAL else stats)
 
 

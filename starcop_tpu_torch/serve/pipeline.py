@@ -10,7 +10,9 @@ While granule N computes on the card, granule N+1 is read and uploaded and
 granule N-1 written; throughput approaches max(read, compute, write).
 
 The JAX package's ``read_fn`` is split here: ``read_granule`` reads the h5
-file and ``encode_payload`` (numpy only) builds the wire payload; an
+file and ``encode_payload`` builds the wire payload (the fill scan, the
+ranges and the u12 / u10 packs through the threaded native codecs of
+``data/native_io.py``, as JAX's read stage runs them); an
 ``Uploader`` moves it to the card from pinned host memory on a side stream.
 ``make_compute_fn`` and ``make_write_fn`` are the other two stages, so a
 caller can build a ``ScenePipeline`` over granules held in memory.
@@ -167,7 +169,7 @@ class ScenePipeline:
 
 
 # ---------------------------------------------------------------------------
-# Reader stage: h5 read, wire encode (numpy), upload
+# Reader stage: h5 read, wire encode (native codecs), upload
 # ---------------------------------------------------------------------------
 
 
@@ -221,7 +223,7 @@ def _u16_grid(x: np.ndarray, lo: np.ndarray, scale: np.ndarray) -> np.ndarray:
 
 
 def encode_payload(granule: Dict, upload_dtype=None) -> Dict:
-    """The wire payload of a granule (``read_granule``'s dict), numpy only.
+    """The wire payload of a granule (``read_granule``'s dict) on the host.
 
     Validity comes from the original f32 values (narrowing rounds or clips
     the fill value). Per codec, the cube travels as

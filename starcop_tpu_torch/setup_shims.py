@@ -1,16 +1,13 @@
 """Setup shims: config -> DataModule / model (counterpart of
 starcop_tpu/setup_shims.py).
 
-``get_dataset(cfg)`` builds the DataModule; ``get_model(cfg, name)`` builds
-the segmentation model and, given ``name`` and ``model.model_folder``, also
-loads pretrained weights from ``model.model_folder/{name}``.
-``load_pretrained_variables`` reads a checkpoint of either package (or a
-Lightning one) as the network's state_dict.
-
-Not ported yet, and refused loudly: the regression model
-(``model_mode="regression_output"``, ROADMAP queue 1, item 9,
-``models/regression.py``) and the learned-ratio input product
-(``data/features.py``, item 6).
+``get_dataset(cfg)`` wires the learned-ratio product's checkpoint from the
+config and builds the DataModule; ``get_model(cfg, name)`` builds the
+segmentation or regression model and, given ``name`` and
+``model.model_folder``, also loads pretrained weights from
+``model.model_folder/{name}``. ``load_pretrained_variables`` reads a
+checkpoint of either package (or a Lightning one) as the network's
+state_dict.
 """
 
 from __future__ import annotations
@@ -20,17 +17,13 @@ from typing import Optional
 
 from starcop_tpu_torch.config import Config
 
-LEARNED_RATIO_PREFIX = "ratio_lrn_"
-
-
 def get_dataset(cfg: Config):
     from starcop_tpu_torch.data.datamodule import DataModule
+    from starcop_tpu_torch.data.features import configure_learned_ratio_from_config
 
-    learned = [p for p in cfg.dataset.input_products if p.startswith(LEARNED_RATIO_PREFIX)]
-    if learned or cfg.dataset.learned_ratio_checkpoint:
-        raise NotImplementedError(
-            f"the learned-ratio product {learned or cfg.dataset.learned_ratio_checkpoint} is "
-            "not ported: data/features.py is ROADMAP queue 1, item 6")
+    # The learned-ratio product's regressor is built from this checkpoint
+    # on the product's first use (data/features.py).
+    configure_learned_ratio_from_config(cfg)
     root = cfg.dataset.root_folder
     return DataModule(
         train_csv=os.path.join(root, cfg.dataset.train_csv),
@@ -68,9 +61,15 @@ def get_model(cfg: Config, name: Optional[str] = None):
             ),
         )
     elif cfg.model.model_mode == "regression_output":
-        raise NotImplementedError(
-            "model_mode='regression_output' is not ported: models/regression.py is ROADMAP "
-            "queue 1, item 9")
+        from starcop_tpu_torch.models.regression import RegressionModel
+
+        model = RegressionModel(
+            cfg.dataset.input_products,
+            cfg.dataset.output_products,
+            model_type=cfg.model.model_type,
+            num_outputs=cfg.model.num_classes,
+            loss_name=cfg.model.loss,
+        )
     else:
         raise ValueError(f"Unknown model_mode: {cfg.model.model_mode}")
 

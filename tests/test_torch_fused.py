@@ -346,8 +346,8 @@ ROUTE_LAUNCHES = {
     ("resident", "bsp"): (["init_stats_stream"], ["filter_round_bsp", "filter_glue"],
                           dict(init_stats_stream=1, filter_round_bsp_f32=4, filter_glue=3)),
     ("fused", "bps_weights"): ([], ["filter_round_bsp", "filter_glue"],
-                               dict(filter_round_bsp_masked_first=1,
-                                    filter_round_bsp_masked_loop=3, filter_glue=3)),
+                               dict(filter_round_bsp_f32_masked_first=1,
+                                    filter_round_bsp_f32_masked_loop=3, filter_glue=3)),
     ("woodbury", "bsp"): (["init_stats_stream"], ["fused_iter_woodbury", "filter_glue"],
                           dict(init_stats_stream=1, fused_iter_woodbury=4, filter_glue=3)),
     ("cholesky", "bsp"): (["init_stats_stream"], ["fused_iter_cholesky"],

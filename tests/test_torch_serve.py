@@ -225,36 +225,67 @@ def test_pipeline_error_isolation():
 # ---------------------------------------------------------------------------
 
 
+def _unpack(case, wire, shape):
+    """The grid values q (..., S) of a u12 or u10 wire of a cube of ``shape``."""
+    w = wire.astype(np.uint16)
+    if case == "pack12":
+        q = np.stack([w[0] | ((w[1] & 0xF) << 8), (w[1] >> 4) | (w[2] << 4)], axis=-1)
+        return q.reshape(shape)
+    q = np.stack([w[0] | ((w[1] & 0x3) << 8), (w[1] >> 2) | ((w[2] & 0xF) << 6),
+                  (w[2] >> 4) | ((w[3] & 0x3F) << 4), (w[3] >> 6) | (w[4] << 2)], axis=1)
+    return q.reshape(-1, shape[-1])[:int(np.prod(shape[:-1]))].reshape(shape)
+
+
 @pytest.mark.parametrize("case", ["valid_band_minmax", "band_minmax", "pack12", "pack10"])
 def test_native_io_encoders_match_jax_numpy(case, monkeypatch):
-    """Byte-identical to the JAX package's numpy fallback (its native
-    library switched off)."""
-    monkeypatch.setattr(jnative, "_load", lambda: None)
+    """The port's codecs (its native library) and their numpy twins are
+    byte-identical to the JAX package's native library (what JAX's served
+    path runs), and to its numpy fallback (the library switched off) but at
+    half grid steps, which that fallback rounds to even and both libraries
+    up: there, and only there, the grid values part by exactly one step."""
     rng = np.random.default_rng(1)
     cube = rng.uniform(0, 9, (37, 29, 6)).astype(np.float32)  # 1073 pixels: odd quads
     cube[3, 4, :] = FILL
     cube[5, 6, 2] = FILL
     cube[7, 8, 1] = np.nan
     valid, lo, hi = tnative.valid_band_minmax(cube, FILL)
+    jax_native = {}
+    if case in ("pack12", "pack10"):
+        top = 4095.0 if case == "pack12" else 1023.0
+        scale = np.maximum((hi - lo) / top, 1e-12).astype(np.float32)
+        fn = "quantize_pack12" if case == "pack12" else "quantize_pack10"
+        jax_native = getattr(jnative, fn)(cube, lo, scale)
+    monkeypatch.setattr(jnative, "_load", lambda: None)
     if case == "valid_band_minmax":
         for n_mm in (None, 0, 4):
-            for got, want in zip(tnative.valid_band_minmax(cube, FILL, n_minmax_bands=n_mm),
-                                 jnative.valid_band_minmax(cube, FILL, n_minmax_bands=n_mm)):
-                assert (got is None and want is None) or np.array_equal(got, want)
+            want = jnative.valid_band_minmax(cube, FILL, n_minmax_bands=n_mm)
+            for fn in (tnative.valid_band_minmax, tnative.valid_band_minmax_plain):
+                for got, w in zip(fn(cube, FILL, n_minmax_bands=n_mm), want):
+                    assert (got is None and w is None) or np.array_equal(got, w)
         assert not valid[3, 4] and not valid[5, 6] and valid[7, 8]
     elif case == "band_minmax":
         dead = cube.copy()
         dead[..., 5] = np.nan  # an all-NaN band pins (0, 1)
         for v in (None, valid):
-            for got, want in zip(tnative.band_minmax(dead, v), jnative.band_minmax(dead, v)):
-                assert got.dtype == want.dtype and np.array_equal(got, want)
+            want = jnative.band_minmax(dead, v)
+            for fn in (tnative.band_minmax, tnative.band_minmax_plain):
+                for got, w in zip(fn(dead, v), want):
+                    assert got.dtype == w.dtype and np.array_equal(got, w)
     else:
-        scale = np.maximum((hi - lo) / (4095.0 if case == "pack12" else 1023.0), 1e-12)
-        scale = scale.astype(np.float32)
-        fn = "quantize_pack12" if case == "pack12" else "quantize_pack10"
         got = getattr(tnative, fn)(cube, lo, scale)
-        want = getattr(jnative, fn)(cube, lo, scale)
-        assert got.dtype == np.uint8 and np.array_equal(got, want)
+        assert got.dtype == np.uint8 and np.array_equal(got, jax_native)
+        assert np.array_equal(getattr(tnative, fn + "_plain")(cube, lo, scale), got)
+        # JAX's numpy fallback: the same grid values but where f = (x - lo) /
+        # scale sits at a half step, which it rounds to even and the
+        # libraries up (f + 0.5 in f32): there, and only there, one step up.
+        q_got, q_fb = (_unpack(case, w, cube.shape) for w in
+                       (got, getattr(jnative, fn)(cube, lo, scale)))
+        f = (cube - lo) * (1.0 / scale)
+        near_half = np.abs(f - np.floor(f) - 0.5) < 1e-3
+        diff = q_got.astype(np.int32) - q_fb.astype(np.int32)
+        assert np.isin(diff, (0, 1)).all() and not (diff[~near_half]).any()
+        rule = (np.clip(np.floor(f + np.float32(0.5)), 0, top) - np.clip(np.rint(f), 0, top))
+        assert np.array_equal(diff, np.nan_to_num(rule).astype(np.int32))
         with pytest.raises(ValueError):
             getattr(tnative, fn)(cube[..., :5] if case == "pack12" else cube, lo[:3], scale[:3])
 

@@ -299,13 +299,23 @@ def test_setup_shims(chips, tmp_path):
     model2.network.load_state_dict(sd, strict=True)
     for a, b in zip(model.network.parameters(), model2.network.parameters()):
         assert torch.equal(a, b)
-    for overrides, match in ((["model.model_mode=regression_output"], "item 9"),):
-        with pytest.raises(NotImplementedError, match=match):
-            setup_shims.get_model(Config().apply_overrides(overrides))
+    # The regression model and the learned-ratio product build, as JAX's shims build them.
+    from starcop_tpu_torch.data import features as tfeatures
+    from starcop_tpu_torch.models.regression import RegressionModel
+
+    regression = setup_shims.get_model(Config().apply_overrides(
+        ["model.model_mode=regression_output", "model.model_type=cnn_regression"]))
+    assert isinstance(regression, RegressionModel) and regression.loss_name == "BCEWithLogitsLoss"
     learned = cfg.apply_overrides(
-        ['dataset.input_products=["ratio_lrn_bands2band8only_60ep_512_l1"]'])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        setup_shims.get_dataset(learned)
+        ['dataset.input_products=["ratio_lrn_bands2band8only_60ep_512_l1"]',
+         f"dataset.learned_ratio_checkpoint={tmp_path / 'exp'}"])
+    saved = dict(tfeatures._LEARNED_MODEL)
+    try:
+        dm = setup_shims.get_dataset(learned)
+        assert dm.input_products == ["ratio_lrn_bands2band8only_60ep_512_l1"]
+        assert tfeatures._LEARNED_MODEL["checkpoint"] == str(tmp_path / "exp")
+    finally:
+        tfeatures._LEARNED_MODEL.update(saved)
 
 
 def _png_size(path):
@@ -407,8 +417,9 @@ def test_train_cli_matches_jax(tmp_path, monkeypatch):
 
 def test_train_cli_refusals(tmp_path, monkeypatch, chips):
     """What the port does not run raises before anything runs: the
-    artifact upload, a TPU config, no card without training.accelerator=cpu;
-    and the regression model as the model is built."""
+    artifact upload, a TPU config, no card without training.accelerator=cpu.
+    The regression model trains and then stops where JAX's CLI stops, at the
+    segmentation validation's missing ``pred_binary``."""
     from starcop_tpu_torch.cli.train import main
 
     monkeypatch.chdir(tmp_path)
@@ -421,7 +432,7 @@ def test_train_cli_refusals(tmp_path, monkeypatch, chips):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(no_card)
     assert not (tmp_path / "experiments").exists()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(KeyError, match="pred_binary"):
         main(_cli_args(chips, ["model.model_mode=regression_output"]))
 
 
