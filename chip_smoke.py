@@ -208,7 +208,23 @@ every hand-written kernel against its plain torch twin on the card:
  20. the native codecs (starcop_tpu_torch/csrc/starcop_io.cpp, built with
      g++) on the card's host: valid_band_minmax, quantize_pack12 and
      quantize_pack10 byte-identical to their numpy twins on the four served
-     granules; encode ms a granule (u12, u10) beside the twins' ms.
+     granules; encode ms a granule (u12, u10) beside the twins' ms;
+ 21. data preparation (``prepare_phase``): cli/prepare_data --synthetic 2
+     --chip-size 512 on the card (1024 x 640 x 74 scenes, 73 kept bands,
+     step 32, 20 blocks), launch counts zeroed just before and read just
+     after (1 / 31 / 30 of init_stats / filter_round / filter_glue a scene,
+     nothing else); each scene's mag1c against the f64 twin (threshold-500
+     agreement >= 0.999, detections > 0) and the f32 twin from the kernel's
+     statistics (correlation > 0.9999 on the plume scene, the largest error
+     against f64 at most 4x the twin's); the same CLI at --device cpu:
+     identical chip ids and kinds, stats_mag1c.json within the two runs'
+     mag1c difference; process_scene on a 1024 x 640 x 427 full-spectrum
+     cube made on the card (one filter launched): WV3's 8 bands and S2A /
+     S2B's 13 at 819 x 512 against a float64 restatement on the CPU
+     (``held_f64``); host-clock and CUDA-event times of the CLI a scene, the
+     filter, the WV3 and S2 simulations, the window statistics and
+     cache_dataset, one traced process_scene (busy, idle share);
+     ``prepare_launches`` on rows 11-12 of the kernels line.
 
 Prints the card line, every kernel's registers, spills and static shared
 memory from the build ("ptxas:" lines; a spill in any of the statistics
@@ -2761,6 +2777,280 @@ def codec_phase(granules):
     return timings
 
 
+PREP_SCENES, PREP_STEP = 2, 32  # prepare_data's --synthetic scenes (1024 x 640 x 74) and filter step
+PREP_ARGS = ["--synthetic", str(PREP_SCENES), "--chip-size", "512"]
+FULL_WL = np.arange(380.0, 2511.0, 5.0)  # 427 bands: (b)'s full-spectrum cube
+FULL_HW = (1024, 640)
+
+
+def full_spectrum_cube(dev, seed: int = 21):
+    """(b)'s scene, made on the card from a seeded generator: FULL_HW pixels
+    over 380-2510 nm at 5 nm (427 bands, f32, 1.1 GB), a smooth albedo field
+    x a base spectrum x the transmission of two Gaussian plumes through the
+    full-range CH4 template, plus noise 0.01. Returns (cube, fwhm)."""
+    import torch
+    import torch.nn.functional as F
+
+    from starcop_tpu_torch.ops.ch4_template import generate_template_from_bands
+
+    h, w = FULL_HW
+    fwhm = np.full(len(FULL_WL), 5.5)
+    tpl = torch.as_tensor(generate_template_from_bands(FULL_WL, fwhm)[:, 1], dtype=torch.float32,
+                          device=dev)
+    g = torch.Generator(dev).manual_seed(seed)
+    coarse = torch.rand((1, 1, h // 16 + 2, w // 16 + 2), generator=g, device=dev) * 1.5 + 0.5
+    albedo = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)[0, 0]
+    base = torch.rand(len(FULL_WL), generator=g, device=dev) * 4 + 2
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    conc = sum(c * torch.exp(-((yy - cy * h) ** 2 / (2 * sy ** 2) + (xx - cx * w) ** 2
+                                / (2 * sx ** 2)))
+               for c, cy, cx, sy, sx in ((3000.0, 0.3, 0.3, 12.0, 25.0),
+                                         (2000.0, 0.7, 0.7, 8.0, 18.0)))
+    cube = albedo[..., None] * base * torch.exp(conc[..., None] * tpl / 1e5)
+    cube += 0.01 * torch.randn(cube.shape, generator=g, device=dev)
+    return cube.clamp_min_(1e-3), fwhm
+
+
+def sim_f64(cube64, weights, sigmas, size):
+    """A sensor simulation restated in float64 on the CPU (the reference of
+    phase 21b): the SRF product, each band's separable Gaussian blur (taps
+    of radius max(1, ceil(3 sigma)) normalised in f64, a reflect pad), the
+    antialiased bilinear resize."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from starcop_tpu_torch.ops.padding import reflect_pad
+
+    out = torch.einsum("hwk,kb->bhw", cube64, torch.as_tensor(weights, dtype=torch.float64))
+    bands = []
+    for i, sigma in enumerate(sigmas):
+        band = out[i]
+        if sigma > 0:
+            r = max(1, math.ceil(3 * sigma))
+            grid = torch.arange(-r, r + 1, dtype=torch.float64)
+            k = torch.exp(-grid ** 2 / (2 * sigma ** 2))
+            k = k / k.sum()
+            b = reflect_pad(band[None, None], (r, r), (r, r))
+            band = F.conv2d(F.conv2d(b, k.view(1, 1, -1, 1)), k.view(1, 1, 1, -1))[0, 0]
+        bands.append(band)
+    out = torch.stack(bands)
+    if tuple(size) != tuple(out.shape[-2:]):
+        out = F.interpolate(out[None], size=tuple(size), mode="bilinear", align_corners=False,
+                            antialias=True)[0]
+    return out.numpy()
+
+
+def window_stats_close(what, got, want, sup):
+    """stats_mag1c.json rows of two runs: the same windows, keys and valid
+    fractions; each statistic within what the two runs' mag1c maps differ
+    by (``sup`` by scene: max, min, mean and percentiles move by at most
+    it, the sum by it x the valid count; 1e-4 relative on top for the
+    statistics' own f32 rounding)."""
+    ok = len(got) == len(want)
+    worst = 0.0
+    for g, w in zip(got, want):
+        ok &= list(g) == list(w) and all(g[k] == w[k] for k in (
+            "name", "window_row_off", "window_col_off", "percentage_valids"))
+        d = sup[g["name"]]
+        n = g["percentage_valids"] * g["window_height"] * g["window_width"]
+        for k in ("max", "min", "mean", "p25", "p50", "p75", "p95", "p99", "sum"):
+            bound = (n if k == "sum" else 1) * d + 1e-4 * abs(w[k]) + 1e-9
+            worst = max(worst, abs(g[k] - w[k]) / bound)
+    check(ok and worst <= 1.0, f"{what}: {len(got)} windows, every statistic within the maps' "
+                               f"difference (worst {worst:.3f} of its bound)")
+
+
+def prepare_phase(dev, tmp):
+    """21. Data preparation (``cli/prepare_data.py``) on the card:
+    (a) ``main(--synthetic 2 --chip-size 512)`` (1024 x 640 x 74 scenes, 73
+    kept bands, step 32: 20 blocks a filter) with launch counts zeroed just
+    before and read just after (one unmasked filter a scene: init_stats 1,
+    filter_round 31, filter_glue 30, nothing else); each scene's mag1c.tif
+    against the f64 twin (``compute_dtype=torch.float64`` on the card:
+    threshold-500 agreement >= 0.999, detections > 0 over the scenes) and
+    the f32 twin from the kernel's own statistics (``resident_filter_plain``:
+    mf correlation > 0.9999 on a scene with detections; on every scene the
+    kernel's largest error against f64 at most 4x the f32 twin's + 1e-6 of
+    the range); the same CLI at ``--device cpu``: identical chip ids and
+    kinds, stats_mag1c.json within the two runs' mag1c difference;
+    (b) ``process_scene`` on a full-spectrum cube (``full_spectrum_cube``),
+    one filter launched: WV3's 8 bands and S2A / S2B's 13 at 819 x 512 held
+    to ``sim_f64`` (``held_f64``); (c) host-clock and CUDA-event times of
+    the CLI per scene, the filter, the WV3 and S2 simulations,
+    ``mag1c_window_stats`` and ``cache_dataset``, and one traced
+    ``process_scene`` (busy / idle share). Returns (launches, timings)."""
+    import csv
+
+    import torch
+
+    from starcop_tpu_torch.cli import prepare_data as prep
+    from starcop_tpu_torch.data import chip_cache, sensors
+    from starcop_tpu_torch.data.geotiff import load_raster
+    from starcop_tpu_torch.data.mining import mag1c_window_stats
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.ops.ch4_template import generate_template_from_bands, get_mask_bad_bands
+    from starcop_tpu_torch.ops.mag1c import mag1c_column_blocks, unblock_columns
+
+    t_phase = time.perf_counter()
+    timings, launches = {}, {}
+
+    def run_timed(fn):
+        """(result, host ms, CUDA-event ms) of one call, synchronised."""
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+    # 21a. the CLI on the card, launches counted, cache_dataset timed inside it.
+    cache_ms = []
+    real_cache = chip_cache.cache_dataset
+
+    def timed_cache(*args, **kw):
+        out, host, event = run_timed(lambda: real_cache(*args, **kw))
+        cache_ms.append((host, event))
+        return out
+
+    out_card, out_cpu = os.path.join(tmp, "prep_card"), os.path.join(tmp, "prep_cpu")
+    chip_cache.cache_dataset = timed_cache
+    try:
+        mk.reset_launch_counts()
+        rc, host, event = run_timed(lambda: prep.main(PREP_ARGS + ["--output", out_card,
+                                                                    "--device", str(dev)]))
+        launches["cli"] = eval_launches("prepare_data on the card", PREP_SCENES)
+    finally:
+        chip_cache.cache_dataset = real_cache
+    check(rc == 0, "prepare_data on the card: exit 0")
+    timings.update(prepare_cli_wall_ms_per_scene=host / PREP_SCENES,
+                   prepare_cli_event_ms_per_scene=event / PREP_SCENES,
+                   prepare_cache_dataset_wall_ms=cache_ms[0][0],
+                   prepare_cache_dataset_event_ms=cache_ms[0][1])
+    t0 = time.perf_counter()
+    check(prep.main(PREP_ARGS + ["--output", out_cpu, "--device", "cpu"]) == 0,
+          "prepare_data at --device cpu: exit 0")
+    timings["prepare_cli_cpu_wall_ms_per_scene"] = (time.perf_counter() - t0) * 1e3 / PREP_SCENES
+
+    # The filter against its twins, scene by scene (the CLI's own generator).
+    scenes = prep._synthetic_scenes(PREP_SCENES, np.random.default_rng(42))
+    sup, det = {}, 0
+    for name, cube, wl, fw, *_ in scenes:
+        keep = get_mask_bad_bands(wl) & (wl >= 2122) & (wl <= 2488)
+        x = torch.as_tensor(np.ascontiguousarray(cube[..., keep]), device=dev)
+        h, w, s = x.shape
+        nb = w // PREP_STEP
+        tpl = torch.as_tensor(generate_template_from_bands(wl[keep], fw[keep])[:, 1],
+                              dtype=torch.float32, device=dev)
+        mf_k = torch.as_tensor(load_raster(os.path.join(out_card, "scenes", name, "mag1c.tif")),
+                               device=dev)
+        mf_cpu = load_raster(os.path.join(out_cpu, "scenes", name, "mag1c.tif"))
+        sup[name] = float(np.abs(mf_k.cpu().numpy().astype(np.float64) - mf_cpu).max())
+        mf_64, _ = mag1c_column_blocks(x, tpl, None, column_step=PREP_STEP, num_iter=NUM_ITER,
+                                       alpha=ALPHA, compute_dtype=torch.float64, device=dev)
+        m0, c0 = mk.init_stats(x, nb, PREP_STEP)
+        mf_32, _ = mk.resident_filter_plain(x, nb, PREP_STEP, m0,
+                                            *mk._woodbury_base(c0, m0, tpl, ALPHA), tpl,
+                                            num_iter=NUM_ITER, alpha=ALPHA)
+        mf_32 = unblock_columns(mf_32, h, PREP_STEP)
+        n_det = int((mf_64 > 500).sum())
+        det += n_det
+        agree = float(((mf_k > 500) == (mf_64 > 500)).double().mean())
+        check(agree >= 0.999, f"prepare {name} ({h}x{w}x{s}, {nb} blocks): threshold-500 "
+                              f"agreement with the f64 twin {agree:.6f} (>= 0.999), "
+                              f"{n_det} detections")
+        c32 = corr(mf_k, mf_32)
+        e_k = float((mf_k.double() - mf_64).abs().max())
+        e_32 = float((mf_32.double() - mf_64).abs().max())
+        check(e_k <= 4 * e_32 + 1e-6 * float(mf_64.abs().max()),
+              f"prepare {name}: kernel's largest error vs f64 {e_k:.3e} (f32 twin {e_32:.3e}); "
+              f"correlation with the f32 twin {c32:.7f}, with f64 {corr(mf_k, mf_64):.7f}")
+        if n_det:
+            check(c32 > 0.9999, f"prepare {name}: mf correlation with the f32 twin "
+                                f"{c32:.7f} (> 0.9999)")
+    check(det > 0, f"prepare: {det} detections over the scenes (> 0)")
+
+    def chips(root):
+        with open(os.path.join(root, "chips", "index.csv")) as fh:
+            return [(r["id"], r["kind"], r["difficulty"]) for r in csv.DictReader(fh)]
+
+    ids_card, ids_cpu = chips(out_card), chips(out_cpu)
+    check(ids_card == ids_cpu and len(ids_card) > 0,
+          f"prepare: {len(ids_card)} chip ids and kinds identical card vs CPU "
+          f"({sorted({k for _, k, _ in ids_card})})")
+    with open(os.path.join(out_card, "stats_mag1c.json")) as a, \
+            open(os.path.join(out_cpu, "stats_mag1c.json")) as b:
+        window_stats_close("prepare stats_mag1c.json card vs CPU", json.load(a), json.load(b),
+                           sup)
+
+    # 21b. a full-spectrum scene: one filter, the WV3 and S2 simulations.
+    cube, fwhm = full_spectrum_cube(dev)
+    mk.reset_launch_counts()
+    scene_dir = os.path.join(tmp, "prep_full")
+    _, host, event = run_timed(lambda: prep.process_scene(scene_dir, "full", cube, FULL_WL, fwhm,
+                                                          device=dev))
+    launches["full_spectrum_scene"] = eval_launches("process_scene, full spectrum", 1)
+    timings.update(prepare_full_scene_wall_ms=host, prepare_full_scene_event_ms=event)
+    cube_cpu = cube.cpu()
+    cube64 = cube_cpu.double()
+    h, w = FULL_HW
+    size = (max(1, round(h / 1.25)), max(1, round(w / 1.25)))
+    for sensor in ("WV3", "S2A", "S2B"):
+        path = os.path.join(scene_dir, f"{sensor.lower()}.tif")
+        card = load_raster(path)
+        if sensor == "WV3":
+            bands = sensors.covered_bands(FULL_WL, sensors.WV3_SWIR_CENTERS_FWHM)
+            cpu32, _ = sensors.transform_to_worldview_3(cube_cpu, FULL_WL, bands=bands,
+                                                        device="cpu")
+            weights = sensors._resolve_srf_weights(FULL_WL, "WV3", bands,
+                                                   sensors.WV3_SWIR_CENTERS_FWHM, "table", None)
+            ref = sim_f64(cube64, weights, [0.0] * len(bands), (h, w))
+        else:
+            bands = sensors.covered_bands(FULL_WL, sensors.S2_BAND_CENTERS_FWHM)
+            cpu32, _ = sensors.transform_to_sentinel_2(cube_cpu, FULL_WL, bands=bands,
+                                                       sensor=sensor, device="cpu")
+            weights = sensors._resolve_srf_weights(FULL_WL, sensor, bands,
+                                                   sensors.S2_BAND_CENTERS_FWHM, "table", None)
+            sigmas = [max((sensors.BANDS_S2_RESOLUTION[b] / 8.0 - 1) / 2, 0) for b in bands]
+            ref = sim_f64(cube64, weights, sigmas, size)
+        check(card.shape == ref.shape, f"{sensor}.tif shape {card.shape} ({ref.shape})")
+        held_f64(f"{sensor} simulation ({len(bands)} bands, {card.shape[-2]}x{card.shape[-1]})",
+                 card, cpu32.numpy(), ref)
+    del cube64, cube_cpu
+
+    # 21c. the stages on the card: CUDA events and host clock.
+    name, scube, wl, fw, *_ = scenes[1]
+    keep = get_mask_bad_bands(wl) & (wl >= 2122) & (wl <= 2488)
+    x73 = torch.as_tensor(np.ascontiguousarray(scube[..., keep]), device=dev)
+    tpl = generate_template_from_bands(wl[keep], fw[keep])[:, 1]
+    mf_map = torch.as_tensor(load_raster(os.path.join(out_card, "scenes", name, "mag1c.tif")),
+                             device=dev)
+    stages = {
+        "filter": lambda: mag1c_column_blocks(x73, tpl, None, column_step=PREP_STEP,
+                                              num_iter=NUM_ITER, alpha=ALPHA, device=dev),
+        "wv3": lambda: sensors.transform_to_worldview_3(cube, FULL_WL, device=dev),
+        "s2": lambda: sensors.transform_to_sentinel_2(cube, FULL_WL, device=dev),
+        "window_stats": lambda: mag1c_window_stats(mf_map, size=512, overlap=256, device=dev),
+    }
+    for stage, fn in stages.items():
+        timings[f"prepare_{stage}_event_ms"] = cuda_ms(fn, reps=5, warmup=1)
+        timings[f"prepare_{stage}_wall_ms"] = statistics.median(
+            run_timed(fn)[1] for _ in range(3))
+    prof = profile_granule(
+        lambda: prep.process_scene(os.path.join(tmp, "prep_profiled"), name, scube, wl, fw,
+                                   device=dev), label="prepare_scene") or {}
+    timings.update(prepare_scene_busy_ms=prof.get("device_busy_ms"),
+                   prepare_scene_idle_share=prof.get("idle_share"),
+                   prepare_phase_s=time.perf_counter() - t_phase)
+    del cube
+    print("prepare timings " + json.dumps(timings), flush=True)
+    return launches, timings
+
+
 def seeded_model(dev, seed: int = 0, bf16: bool = False):
     """A full-width SegmentationModel whose output spreads over (0, 1) and
     follows the filter: Kaiming-normal (fan-out) convolutions, zero conv
@@ -3232,19 +3522,23 @@ def main() -> int:
         mag1c_cli_phase(tmp)
         # 19. the multispectral products, the regression and cloud models -----------
         multispectral_timings = multispectral_phase(dev, tmp)
+        # 21. data preparation: the prepare CLI, the filter and the sensor sims ------
+        prepare_launches, prepare_timings = prepare_phase(dev, tmp)
     # 20. the native codecs on the card's host ------------------------------------------
     codec_timings = codec_phase(granules)
     for row in kernels:
         if row["name"] in FILTER_LAUNCHES:
             row["eval_launches"] = eval_counts
             row["train_data_launches"] = eval_counts["dataset"][row["name"]]
+            row["prepare_launches"] = {run: counts[row["name"]]
+                                       for run, counts in prepare_launches.items()}
     glue.update(aviris_launches=aviris_launches["filter_glue"])
     kernels += aviris_rows
     print("timings " + json.dumps({"card": card, **timings, **masked_timings,
                                    **serving_timings, **bf16_timings, **masked_bf16_timings,
                                    **served_bf16_timings, **route_timings, **eval_timings,
                                    **train_timings, **aviris_timings, **multispectral_timings,
-                                   **codec_timings}), flush=True)
+                                   **prepare_timings, **codec_timings}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,10 +15,12 @@ the JAX CLI's; the checkpoints are in its npz layout.
 ``training.accelerator`` picks the device: ``gpu`` (the default) is the
 CUDA card, where everything runs with TF32 off (``device.float32_precision``;
 ``model.dtype=bfloat16`` is the fast route), and ``cpu`` the host. Without a
-card the default raises; nothing falls back to the CPU. ``upload_path``
-(the JAX CLI's artifact upload) is not ported: it raises before anything
-runs (ROADMAP queue 1, item 10, ``utils/storage.py``). JAX's persistent
-compilation cache has no counterpart.
+card the default raises; nothing falls back to the CPU. With
+``upload_path`` set, the experiment dir is copied to
+``{upload_path}/{experiment_name}/{time}`` through the storage seam
+(``utils/storage.put``) at the end, best-effort as in the JAX CLI: a failed
+upload is logged and does not fail the run. JAX's persistent compilation
+cache has no counterpart.
 """
 
 from __future__ import annotations
@@ -54,10 +56,6 @@ def run(argv=None):
     if yaml_args:
         cfg = Config.from_yaml(yaml_args[0])
     cfg.apply_overrides(overrides)
-    if cfg.upload_path:
-        raise NotImplementedError(
-            f"upload_path={cfg.upload_path!r}: the artifact upload is not ported "
-            "(utils/storage.py is ROADMAP queue 1, item 10)")
     dev = cfg.training.resolve_device()
 
     timestamp = time.strftime("%Y-%m-%d_%H-%M")
@@ -67,7 +65,18 @@ def run(argv=None):
         fh.write(cfg.to_json())
     logger.info("experiment dir: %s (device %s)", exp_dir, dev)
     with float32_precision():
-        return exp_dir, _train_and_validate(cfg, exp_dir, dev, logger)
+        state = _train_and_validate(cfg, exp_dir, dev, logger)
+    if cfg.upload_path:
+        # Best-effort, as the JAX CLI's upload: a failure is logged, the run stands.
+        from starcop_tpu_torch.utils import storage
+
+        try:
+            dest = os.path.join(cfg.upload_path, cfg.experiment_name, timestamp)
+            storage.put(exp_dir, dest, recursive=True)
+            logger.info("uploaded experiment artifacts to %s", dest)
+        except Exception as e:  # noqa: BLE001 - an upload failure must not fail the run
+            logger.warning("artifact upload failed: %s", e)
+    return exp_dir, state
 
 
 def _train_and_validate(cfg, exp_dir, dev, logger):

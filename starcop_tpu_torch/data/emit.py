@@ -1,6 +1,8 @@
 """EMIT sensor support (counterpart of starcop_tpu/data/emit.py): the EMIT ->
-AVIRIS renormalisation, the raw granule reader ``EMITRawScene`` and the GLT
-gather ``glt_gather``.
+AVIRIS renormalisation, the raw granule reader ``EMITRawScene``, the GLT
+gather ``glt_gather``, and the EMIT evaluation set (``EMITEvalDataset``,
+``EMITDataModule``, ``load_emit_folder_dataset`` over the npy and the
+ENVI-pair folder layouts).
 
 The constants are load-bearing for zero-shot transfer of AVIRIS-trained
 models: mag1c / 240, clip (0, 2), x 1750 and rgb / 20, clip (0, 2), x 60 map
@@ -9,8 +11,9 @@ EMIT products into the AVIRIS normaliser domain.
 
 from __future__ import annotations
 
+import os
 import re
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +33,14 @@ def renormalize_emit_to_aviris(
     m = torch.clamp(mag1c / MAGIC_DIV_BY, 0, 2) * MAGIC_MULT_BY
     r = torch.clamp(rgb / RGB_DIV_BY, 0, 2) * RGB_MULT_BY
     return m, r
+
+
+def crop_to_multiple(arrays: Sequence[np.ndarray], multiple: int = 32) -> List[np.ndarray]:
+    """Crop the trailing H, W of every array to multiples of ``multiple``
+    (the first array's H, W decide)."""
+    h, w = arrays[0].shape[-2:]
+    h2, w2 = (h // multiple) * multiple, (w // multiple) * multiple
+    return [a[..., :h2, :w2] for a in arrays]
 
 
 def glt_gather(glt_x: np.ndarray, glt_y: np.ndarray, raster: np.ndarray, fill: float) -> np.ndarray:
@@ -166,3 +177,135 @@ def _parse_geo_attrs(f) -> Tuple[Optional[Tuple[float, ...]], Optional[int]]:
         elif "EPSG:" in str(wkt):
             epsg = int(str(wkt).rsplit("EPSG:", 1)[1].split()[0])
     return transform, epsg
+
+
+class EMITEvalDataset:
+    """List-of-arrays EMIT evaluation set (no index CSV): each scene cropped
+    to x32, renormalised into the AVIRIS domain, label / 255 where it is in
+    0-255, has_plume = any(label), unit weight_loss. Items follow the batch
+    protocol in numpy (``input`` (4, H, W): mag1c and RGB)."""
+
+    def __init__(
+        self,
+        mag1c_list: Sequence[np.ndarray],
+        rgb_list: Sequence[np.ndarray],
+        label_list: Sequence[np.ndarray],
+        ids: Optional[Sequence[str]] = None,
+        nodata_masks: Optional[Sequence[np.ndarray]] = None,
+    ):
+        if not len(mag1c_list) == len(rgb_list) == len(label_list):
+            raise ValueError("mag1c_list, rgb_list and label_list differ in length")
+        self.items = []
+        for i in range(len(mag1c_list)):
+            m, rgb, label = mag1c_list[i], rgb_list[i], np.asarray(label_list[i], np.float32)
+            if label.max() > 1.5:
+                label = label / 255.0
+            m_c, rgb_c, label_c = crop_to_multiple(
+                [np.asarray(m)[None], np.moveaxis(np.asarray(rgb), -1, 0), label[None]])
+            m_n, rgb_n = renormalize_emit_to_aviris(torch.from_numpy(np.ascontiguousarray(m_c[0])),
+                                                    torch.from_numpy(np.ascontiguousarray(rgb_c)))
+            item = {
+                "input": np.concatenate([m_n.numpy().astype(np.float32)[None],
+                                         rgb_n.numpy().astype(np.float32)]),
+                "output": label_c.astype(np.float32),
+                "weight_loss": np.ones_like(label_c, np.float32),
+                "has_plume": float(label_c.sum() > 0),
+                "id": (ids[i] if ids else f"emit_{i}"),
+            }
+            if nodata_masks is not None:
+                item["nodata_mask"] = crop_to_multiple([np.asarray(nodata_masks[i])[None]])[0]
+            self.items.append(item)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        return self.items[idx]
+
+
+class EMITDataModule:
+    """Evaluation-only data module over the EMIT folder layout (scenes under
+    ``plume_events/`` and ``confounders/``): a test loader at batch size 1
+    by default."""
+
+    def __init__(self, root: str, batch_size: int = 1):
+        self.root = root
+        self.batch_size = batch_size
+        self._dataset: Optional[EMITEvalDataset] = None
+
+    def setup(self) -> "EMITDataModule":
+        if self._dataset is None:
+            self._dataset = load_emit_folder_dataset(self.root)
+        return self
+
+    @property
+    def dataset(self) -> EMITEvalDataset:
+        self.setup()
+        return self._dataset
+
+    def test_loader(self):
+        from starcop_tpu_torch.data.datamodule import BatchLoader
+
+        return BatchLoader(self.dataset, batch_size=self.batch_size)
+
+
+def load_emit_folder_dataset(root: str) -> EMITEvalDataset:
+    """Scan ``plume_events/`` and ``confounders/`` for per-scene products:
+    the npy layout (mag1c.npy, rgb.npy, label.npy) or the ENVI-pair layout
+    (``*_magic`` and ``*_RGB`` raw files with .hdr headers, a label in
+    label[_released].npy or label[_released].tif). Scenes in neither layout
+    are skipped; a scene without a label gets zeros."""
+    mags, rgbs, labels, ids = [], [], [], []
+    for sub in ("plume_events", "confounders"):
+        folder = os.path.join(root, sub)
+        if not os.path.isdir(folder):
+            continue
+        for name in sorted(os.listdir(folder)):
+            scene_dir = os.path.join(folder, name)
+            if not os.path.isdir(scene_dir):
+                continue
+            loaded = _load_scene_products(scene_dir)
+            if loaded is None:
+                continue
+            mag, rgb, label = loaded
+            mags.append(mag)
+            rgbs.append(rgb)
+            labels.append(label if label is not None else np.zeros(mag.shape, np.float32))
+            ids.append(f"{sub}/{name}")
+    return EMITEvalDataset(mags, rgbs, labels, ids)
+
+
+def _load_scene_products(scene_dir: str):
+    """One scene's (mag1c, rgb (H, W, 3), label or None) from npy files or
+    ENVI pairs; None when the folder holds neither."""
+    mag_p = os.path.join(scene_dir, "mag1c.npy")
+    rgb_p = os.path.join(scene_dir, "rgb.npy")
+    if os.path.exists(mag_p) and os.path.exists(rgb_p):
+        label_p = os.path.join(scene_dir, "label.npy")
+        label = np.load(label_p) if os.path.exists(label_p) else None
+        return np.load(mag_p), np.load(rgb_p), label
+
+    names = os.listdir(scene_dir)
+    magic = [n for n in names if n.endswith("_magic")]
+    rgb = [n for n in names if n.endswith("_RGB")]
+    if not (magic and rgb):
+        return None
+    from starcop_tpu_torch.data.ingest import ENVIReader
+
+    mag = ENVIReader(os.path.join(scene_dir, magic[0])).read_all()[..., 0]
+    rgb_arr = ENVIReader(os.path.join(scene_dir, rgb[0])).read_all()
+    label = None
+    for cand in ("label.npy", "label_released.npy"):
+        p = os.path.join(scene_dir, cand)
+        if os.path.exists(p):
+            label = np.load(p)
+            break
+    if label is None:
+        for cand in ("label.tif", "label_released.tif"):
+            p = os.path.join(scene_dir, cand)
+            if os.path.exists(p):
+                from starcop_tpu_torch.data.geotiff import read_geotiff
+
+                label = read_geotiff(p, band=0)[0]
+                break
+    return mag, rgb_arr, label

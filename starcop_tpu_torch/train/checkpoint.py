@@ -8,8 +8,9 @@ key paths (``models.weights.torch_to_flax_variables``: conv kernels as
 and ``step``. So the JAX package's ``load_pretrained_variables`` and
 ``load_checkpoint`` read a port checkpoint, and the port's
 ``load_pretrained_state_dict`` and ``load_checkpoint`` read a JAX one.
-Orbax (``save_checkpoint_orbax``) has no counterpart, and paths are local
-files (the JAX package's remote storage seam is ROADMAP queue 1, item 10).
+Orbax (``save_checkpoint_orbax``) has no counterpart. ``load_checkpoint``
+opens its path through the storage seam (``utils/storage.py``), as JAX's
+does, so a remote path loads where ``fsspec`` is installed.
 """
 
 from __future__ import annotations
@@ -59,8 +60,11 @@ def load_checkpoint(path: str, state):
     """Load a checkpoint of either package into ``state`` in place (its
     network's parameters and batch-norm statistics, its Adam, its step) and
     return it. Every entry the state has must be there at its shape."""
-    with np.load(path) as data:
-        flat = {k: data[k] for k in data.files}
+    from starcop_tpu_torch.utils import storage
+
+    with storage.open_file(path, "rb") as fh:
+        with np.load(fh) as data:
+            flat = {k: data[k] for k in data.files}
     network = state.model.network
     template = _flatten(torch_to_flax_variables(network.state_dict()), "")
     variables: Dict[str, Dict] = {}

@@ -21,7 +21,10 @@ from starcop_tpu.ops import ch4_template as jct  # noqa: E402
 from starcop_tpu.ops import padding as jpad  # noqa: E402
 from starcop_tpu.scenes import emit_pipeline as jpipe  # noqa: E402
 from starcop_tpu_torch import device as tdevice  # noqa: E402
+from starcop_tpu_torch.cli.prepare_data import process_scene  # noqa: E402
 from starcop_tpu_torch.data import emit as temit  # noqa: E402
+from starcop_tpu_torch.data.mining import mag1c_window_stats  # noqa: E402
+from starcop_tpu_torch.data.sensors import transform_to_worldview_3  # noqa: E402
 from starcop_tpu_torch.data.synthetic import synthetic_scene  # noqa: E402
 from starcop_tpu_torch.models.segmenter import EMIT_INPUT_PRODUCTS, SegmentationModel  # noqa: E402
 from starcop_tpu_torch.models.weights import flax_to_torch_state_dict  # noqa: E402
@@ -149,8 +152,10 @@ def test_port_imports_nothing_of_jax():
     banned = {"jax", "jaxlib", "flax", "optax", "starcop_tpu"}
     files = sorted((ROOT / "starcop_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    assert {ROOT / "starcop_tpu_torch/cli/__init__.py",
-            ROOT / "starcop_tpu_torch/cli/serve.py"} <= set(files)
+    assert {ROOT / "starcop_tpu_torch" / rel for rel in (
+        "cli/__init__.py", "cli/serve.py", "cli/prepare_data.py", "utils/storage.py",
+        "data/srf.py", "data/sensors.py", "data/mining.py", "data/permian.py",
+        "data/ingest.py", "data/vectorize.py", "data/geo.py", "data/emit.py")} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
             if isinstance(node, ast.Import):
@@ -174,6 +179,10 @@ def test_entry_points_need_a_card_or_cpu(tmp_path):
         lambda: tpipe.emit_granule_to_mask(cube, rgb, tpl, lambda b: b[:, :1]),
         lambda: tpipe.emit_mag1c(cube, np.linspace(2122, 2400, S), np.full(S, 8.0)),
         lambda: emit_serving_pipeline(lambda b: b[:, :1], str(tmp_path)),
+        lambda: mag1c_window_stats(cube[..., 0], size=16, overlap=8),
+        lambda: transform_to_worldview_3(cube, np.linspace(2122, 2400, S)),
+        lambda: process_scene(str(tmp_path / "scene"), "s", cube, np.linspace(2122, 2400, S),
+                              np.full(S, 8.0)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -416,15 +416,14 @@ def test_train_cli_matches_jax(tmp_path, monkeypatch):
 
 
 def test_train_cli_refusals(tmp_path, monkeypatch, chips):
-    """What the port does not run raises before anything runs: the
-    artifact upload, a TPU config, no card without training.accelerator=cpu.
-    The regression model trains and then stops where JAX's CLI stops, at the
-    segmentation validation's missing ``pred_binary``."""
+    """What the port does not run raises before anything runs: a TPU
+    config, no card without training.accelerator=cpu. The regression model
+    trains and then stops where JAX's CLI stops, at the segmentation
+    validation's missing ``pred_binary``. (``upload_path`` runs since the
+    storage seam was ported: test_torch_resume.py.)"""
     from starcop_tpu_torch.cli.train import main
 
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        main(_cli_args(chips, ["upload_path=gs://bucket/x"]))
     with pytest.raises(ValueError, match="training.accelerator=gpu"):
         main(_cli_args(chips, ["training.accelerator=tpu"]))
     if not torch.cuda.is_available():
