@@ -224,7 +224,37 @@ every hand-written kernel against its plain torch twin on the card:
      (``held_f64``); host-clock and CUDA-event times of the CLI a scene, the
      filter, the WV3 and S2 simulations, the window statistics and
      cache_dataset, one traced process_scene (busy, idle share);
-     ``prepare_launches`` on rows 11-12 of the kernels line.
+     ``prepare_launches`` on rows 11-12 of the kernels line;
+ 22. the multi-device path (``parallel_phase``), one process per device on
+     the one card: (a) a one-rank NCCL world runs ``sharded_mag1c_scene``
+     on phase 7's granule 0 (step 32, 39 blocks, a ragged last one, 30
+     iterations), launch counts zeroed just before and read just after (31
+     of filter_round_bsp on the masked f32 stream, 30 of filter_glue,
+     nothing else), threshold-500 agreement >= 0.999 with phase 7's f64
+     twin (detections > 0), the largest error against it at most 4x the
+     f32 twin's + 1e-6, albedo within 1e-4, ``emit_mag1c(mesh=)`` equal to
+     it; (b) two gloo ranks sharing cuda:0 (``parallel.run_world``) run the
+     same scene, 20 and 19 blocks, each rank 31 / 30 launches on its own,
+     the same assembled mf and albedo on both ranks, against (a) JAX's
+     sharded bar (mf correlation > 0.99999, agreement > 0.999, albedo rtol
+     1e-4; bitwise equality stated) and against the f64 twin (a)'s bars;
+     (c) in the same world, the full-width unet_semseg data parallel at a
+     global batch of 32 x 4 x 128^2 (16 a rank): two f64 steps against the
+     one-process f64 steps on the card (the first loss within 1e-12
+     relative, every gradient, running statistic and parameter leaf within
+     1e-9 of the largest absolute value of its kind, the parameters bitwise
+     equal across the ranks), two f32 steps (the first step's loss within
+     1e-5 relative of the one-process f32 step's, the second's stated: it
+     starts from Adam's first update, lr * sign(g), which flips where the
+     f32 gradient's sign is rounding), each rank's median f32 step ms (two
+     processes sharing one card: no scaling figure); (d) ``utils.profiling``:
+     ``trace`` around a served granule writes a trace naming
+     filter_round_masked and filter_glue (their ops and kernels), and
+     ``StageTimer`` stages (upload, filter, U-Net) sum to within 5 % of the
+     timed wall clock; (e) ``entry.dryrun_multichip(2)`` over two gloo ranks
+     on cuda:0 prints its OK line with each rank's launches as its legs
+     need, and ``entry()``'s forward is finite. ``parallel_launches`` on rows
+     5-6 and 11-12 of the kernels line, ``parallel_*`` timings.
 
 Prints the card line, every kernel's registers, spills and static shared
 memory from the build ("ptxas:" lines; a spill in any of the statistics
@@ -466,7 +496,8 @@ def masked_phase(dev, template, granule):
     masked kernel against its f64 and f32 twins, then the whole masked
     filter. Returns (kernel-row dicts without launches, the filter_glue
     errors with n per block, timings, the f32 twin's (H, W) mf on the kernel
-    route's Woodbury base with the fill at invalid pixels)."""
+    route's Woodbury base with the fill at invalid pixels, the f64 twin's
+    (H, W) mf and albedo)."""
     import torch
 
     from starcop_tpu_torch.ops import mag1c_kernels as mk
@@ -619,7 +650,8 @@ def masked_phase(dev, template, granule):
     out = kernel_rows(plans, rows, "served granules (ScenePipeline, f32 upload)")
     timings = {"masked_filter_ms": cuda_ms(lambda: mag1c_column_blocks(x, tpl, valid, **kw),
                                            reps=7)}
-    return out, rows["filter_glue"], timings, torch.where(valid, mf_32, FILL)
+    return (out, rows["filter_glue"], timings, torch.where(valid, mf_32, FILL),
+            (mf_64, r_64))
 
 
 def serving_phase(dev, model, granules, mf_plain0):
@@ -3051,6 +3083,357 @@ def prepare_phase(dev, tmp):
     return launches, timings
 
 
+# ---------------------------------------------------------------------------
+# 22. The multi-device path: one process per device, on the one card
+# ---------------------------------------------------------------------------
+
+PAR_BATCH, PAR_SIZE, PAR_STEPS, PAR_TIMED = 32, 128, 2, 6  # phase 16's geometry, 16 a rank
+PAR_TIMEOUT_S = 600.0
+PAR_SCENE_KW = dict(column_step=MSTEP, num_iter=NUM_ITER, alpha=ALPHA)
+PAR_ROWS = ("filter_round_bsp_f32_masked_first", "filter_round_bsp_f32_masked_loop",
+            "filter_glue", "init_stats", "filter_round")  # TPU rows 5-6 and 11-12
+
+
+def digest(arrays: dict) -> str:
+    """sha256 over the named arrays' bytes (bitwise equality across ranks)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(arrays[k]).tobytes())
+    return h.hexdigest()
+
+
+def par_scene(mesh, cube, template, valid):
+    """``sharded_mag1c_scene`` on the served granule, launches zeroed just
+    before and read just after; then a second run timed on the host's clock
+    (the device synchronised). Returns (mf, albedo, launches, ms)."""
+    import torch
+
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.parallel.scene_mag1c import sharded_mag1c_scene
+
+    run = lambda: sharded_mag1c_scene(cube, template, valid, mesh=mesh, **PAR_SCENE_KW)  # noqa: E731
+    torch.cuda.synchronize()
+    mk.reset_launch_counts()
+    mf, albedo = run()
+    torch.cuda.synchronize()
+    launches = dict(mk.LAUNCH_COUNTS)
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return mf, albedo, launches, (time.perf_counter() - t0) * 1e3
+
+
+def par_steps(mesh, batch, f64: bool, full: bool, timed: int = 0) -> dict:
+    """``train.loop``'s step of the JAX defaults' unet_semseg (seed 0, in
+    f64 or f32) over ``mesh`` on its shard of ``batch``: PAR_STEPS steps
+    (their losses; the network's state and gradients after them, in full
+    when ``full``, else their digest), then ``timed`` more steps timed on
+    the host's clock (ms each, the device synchronised)."""
+    import torch
+
+    from starcop_tpu_torch.config import Config
+    from starcop_tpu_torch.device import float32_precision
+    from starcop_tpu_torch.parallel.mesh import shard_batch
+    from starcop_tpu_torch.setup_shims import get_model
+    from starcop_tpu_torch.train import loop as tl
+
+    model = get_model(Config())
+    state = tl.create_train_state(model, 0, 1e-4, mesh.device)
+    if f64:
+        model.double()
+    step = tl.make_train_step(model, 0, mesh)
+    b = shard_batch(mesh, batch)
+    out = {"losses": [], "ms": []}
+    with float32_precision():
+        for _ in range(PAR_STEPS):
+            state, loss = step(state, b, 1e-4)
+            out["losses"].append(float(loss))
+        sd = {k: v.detach().cpu().numpy() for k, v in model.network.state_dict().items()}
+        grads = {k: p.grad.detach().cpu().numpy() for k, p in model.network.named_parameters()}
+        out["digest"] = digest({**sd, **{f"grad/{k}": g for k, g in grads.items()}})
+        if full:
+            out.update(sd=sd, grads=grads)
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, b, 1e-4)
+            float(loss)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def parallel_ranks(mesh, path: str) -> dict:
+    """One rank of phase 22's gloo world on the card: its blocks of the
+    served granule (22b), then the data-parallel steps (22c). Rank 0
+    returns its arrays in full, the others their digests."""
+    import torch.distributed as dist
+
+    from starcop_tpu_torch.parallel.scene_mag1c import block_range
+
+    with np.load(path) as f:
+        d = {k: f[k] for k in f.files}
+    out = {"rank": mesh.rank, "backend": dist.get_backend(), "device": str(mesh.device),
+           "blocks": block_range(-(-W // MSTEP), mesh)}
+    mf, albedo, out["launches"], out["scene_ms"] = par_scene(mesh, d["cube"], d["template"],
+                                                             d["valid"])
+    scene = {"mf": mf.cpu().numpy(), "albedo": albedo.cpu().numpy()}
+    out["scene_digest"] = digest(scene)
+    if mesh.lead:
+        out["scene"] = scene
+    batch = {k: d[k] for k in ("input", "output", "weight_loss", "has_plume")}
+    out["f64"] = par_steps(mesh, batch, True, mesh.lead)
+    out["f32"] = par_steps(mesh, batch, False, False, timed=PAR_TIMED)
+    return out
+
+
+def par_leaf_errs(got: dict, want: dict) -> dict:
+    """{kind: worst |got - want| / max |want| of the kind}: the gradients,
+    the running statistics, the parameters. A leaf whose value is zero in
+    exact arithmetic (a batch-norm bias that the next normalisation
+    cancels) holds rounding only, so the kind's largest value is the
+    scale."""
+    stats = [k for k in want["sd"] if "running" in k]
+    params = [k for k in want["sd"] if k not in stats and "num_batches" not in k]
+    kinds = {"grad": (got["grads"], want["grads"], list(want["grads"])),
+             "stats": (got["sd"], want["sd"], stats), "params": (got["sd"], want["sd"], params)}
+    out = {}
+    for kind, (g, w, keys) in kinds.items():
+        scale = max(float(np.abs(w[k]).max()) for k in keys)
+        out[kind] = max(float(np.abs(g[k] - w[k]).max()) for k in keys) / scale
+    return out
+
+
+def parallel_phase(dev, centers, template, granule, mf_32, twin64, model):
+    """22. The multi-device path on the one card (see the module docstring):
+    (a) a one-rank NCCL world, (b, c) two gloo ranks on cuda:0, (d) the
+    profiling hooks, (e) the entry module's dry run. Returns
+    ({kernel: parallel launches}, timings)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from starcop_tpu_torch import entry
+    from starcop_tpu_torch.data.synthetic import synthetic_chip_batch
+    from starcop_tpu_torch.device import float32_precision
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.ops.mag1c import mag1c_column_blocks
+    from starcop_tpu_torch.parallel.launch import run_world
+    from starcop_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+    from starcop_tpu_torch.scenes.emit_pipeline import emit_granule_to_mask, emit_mag1c, plume_mask
+    from starcop_tpu_torch.utils.profiling import StageTimer, trace
+
+    t_phase = time.perf_counter()
+    timings = {}
+    torch.cuda.empty_cache()  # the ranks below allocate on the same card
+    cube, valid = granule["cube"], granule["valid"]
+    valid_d = torch.as_tensor(valid, device=dev)
+    mf_64, r_64 = twin64
+    e_twin = rel_err(mf_32[valid_d], mf_64[valid_d])
+    one_filter = {k: 0 for k in mk.LAUNCH_COUNTS}
+    one_filter.update(filter_round_bsp_f32_masked_first=1,
+                      filter_round_bsp_f32_masked_loop=NUM_ITER, filter_glue=NUM_ITER)
+
+    def against_f64(what, mf, albedo):
+        mf, albedo = torch.as_tensor(mf, device=dev), torch.as_tensor(albedo, device=dev)
+        check(bool((mf[~valid_d] == FILL).all() and (albedo[~valid_d] == FILL).all()
+                   and torch.isfinite(mf[valid_d]).all()),
+              f"{what}: the fill value exactly at invalid pixels, finite elsewhere")
+        got, ref = mf[valid_d].double(), mf_64[valid_d]
+        det = int((ref > 500).sum())
+        agree = float(((got > 500) == (ref > 500)).double().mean())
+        e_k = rel_err(got, ref)
+        alb = float(((albedo[valid_d].double() - r_64[valid_d]).abs() / r_64[valid_d].abs()).max())
+        check(det > 0 and agree >= 0.999 and e_k <= 4 * e_twin + 1e-6 and alb <= 1e-4,
+              f"{what} vs phase 7's f64 twin: threshold-500 agreement {agree:.6f} (>= 0.999), "
+              f"{det} detections; largest error {e_k:.3e} (<= 4x the f32 twin's {e_twin:.3e} "
+              f"+ 1e-6); albedo rel err {alb:.3e} (<= 1e-4)")
+        return agree, e_k
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 22a. a one-rank NCCL world -------------------------------------------------
+        initialize_multihost(f"file://{os.path.join(tmp, 'rdv_nccl')}", 1, 0, backend="nccl",
+                             device="cuda:0", timeout_s=PAR_TIMEOUT_S)
+        try:
+            mesh = make_mesh(1, "cuda:0")
+            check(dist.get_backend() == "nccl" and mesh.group is not None and mesh.size == 1,
+                  f"22a: a one-rank NCCL world on {mesh.device}")
+            mf_a, alb_a, launches_a, timings["parallel_scene_nccl_1rank_ms"] = par_scene(
+                mesh, cube, template, valid)
+            print("22a launches:", json.dumps({k: v for k, v in launches_a.items() if v}),
+                  flush=True)
+            check(launches_a == one_filter,
+                  f"22a: {launches_a['filter_round_bsp_f32_masked_first']} + "
+                  f"{launches_a['filter_round_bsp_f32_masked_loop']} filter_round_bsp (masked "
+                  f"f32 stream) and {launches_a['filter_glue']} filter_glue launches (1 + "
+                  f"{NUM_ITER} and {NUM_ITER}), no other kernel")
+            agree_a, e_a = against_f64("22a sharded_mag1c_scene (1 rank, NCCL)", mf_a, alb_a)
+            mf_e, alb_e = emit_mag1c(cube, centers, np.full_like(centers, 8.0), valid, mesh=mesh,
+                                     **PAR_SCENE_KW)
+            check(np.array_equal(mf_e, mf_a.cpu().numpy())
+                  and np.array_equal(alb_e, alb_a.cpu().numpy()),
+                  "22a: emit_mag1c(mesh=) equals sharded_mag1c_scene bitwise")
+        finally:
+            dist.destroy_process_group()
+        timings.update(parallel_22a_agreement_f64=agree_a, parallel_22a_rel_err_f64=e_a,
+                       parallel_f32_twin_rel_err_f64=e_twin)
+
+        # 22b, 22c. two gloo ranks sharing cuda:0 --------------------------------------
+        batch = synthetic_chip_batch(np.random.default_rng(16), batch_size=PAR_BATCH,
+                                     size=PAR_SIZE)
+        path = os.path.join(tmp, "inputs.npz")
+        np.savez(path, cube=cube, template=np.asarray(template, np.float32), valid=valid,
+                 **batch)
+        t0 = time.perf_counter()
+        ranks = run_world(parallel_ranks, 2, backend="gloo", device="cuda:0",
+                          init_file=os.path.join(tmp, "rdv_gloo"), timeout_s=PAR_TIMEOUT_S,
+                          args=(path,))
+        timings["parallel_gloo_world_s"] = time.perf_counter() - t0
+        r0, r1 = ranks
+        check([(r["rank"], r["backend"], r["device"], r["blocks"]) for r in ranks]
+              == [(0, "gloo", "cuda:0", (0, 20)), (1, "gloo", "cuda:0", (20, 39))],
+              f"22b: two gloo ranks on cuda:0 with 20 and 19 blocks "
+              f"({[(r['rank'], r['backend'], r['device'], r['blocks']) for r in ranks]})")
+        for r in ranks:
+            check(r["launches"] == one_filter,
+                  f"22b rank {r['rank']}: {r['launches']['filter_round_bsp_f32_masked_first']} "
+                  f"+ {r['launches']['filter_round_bsp_f32_masked_loop']} filter_round_bsp and "
+                  f"{r['launches']['filter_glue']} filter_glue launches on its own blocks, no "
+                  f"other kernel")
+            timings[f"parallel_scene_gloo_ms_rank{r['rank']}"] = r["scene_ms"]
+        check(r0["scene_digest"] == r1["scene_digest"],
+              "22b: both ranks hold the same assembled mf and albedo (bitwise)")
+        mf_b, alb_b = r0["scene"]["mf"], r0["scene"]["albedo"]
+        mf_av, alb_av = mf_a.cpu().numpy()[valid], alb_a.cpu().numpy()[valid]
+        c_ab = corr(mf_b[valid], mf_av)
+        agree_ab = float(((mf_b[valid] > 500) == (mf_av > 500)).mean())
+        alb_ab = float((np.abs(alb_b[valid].astype(np.float64) - alb_av) / np.abs(alb_av)).max())
+        bitwise = bool(np.array_equal(mf_b, mf_a.cpu().numpy())
+                       and np.array_equal(alb_b, alb_a.cpu().numpy()))
+        check(c_ab > 0.99999 and agree_ab > 0.999 and alb_ab <= 1e-4,
+              f"22b vs 22a (JAX's sharded bar): mf correlation {c_ab:.8f} (> 0.99999), "
+              f"threshold-500 agreement {agree_ab:.6f} (> 0.999), albedo rel err {alb_ab:.3e} "
+              f"(<= 1e-4); bitwise equal: {bitwise}")
+        agree_b, e_b = against_f64("22b sharded_mag1c_scene (2 gloo ranks)", mf_b, alb_b)
+        timings.update(parallel_22b_vs_22a_corr=c_ab, parallel_22b_vs_22a_bitwise=bitwise,
+                       parallel_22b_agreement_f64=agree_b, parallel_22b_rel_err_f64=e_b)
+
+        one = make_mesh(device=dev)  # the group is gone: one process
+        ref64 = par_steps(one, batch, True, True)
+        e_loss = [abs(a - b) / abs(b) for a, b in zip(r0["f64"]["losses"], ref64["losses"])]
+        leaf = par_leaf_errs(r0["f64"], ref64)
+        check(e_loss[0] <= 1e-12 and all(v <= 1e-9 for v in leaf.values())
+              and r0["f64"]["digest"] == r1["f64"]["digest"],
+              f"22c: two f64 steps over 2 ranks vs one process on the global batch of "
+              f"{PAR_BATCH} x 4 x {PAR_SIZE}^2: loss rel err {e_loss[0]:.2e} (<= 1e-12; step 2 "
+              f"{e_loss[1]:.2e}), worst leaf / its kind's largest value: gradients "
+              f"{leaf['grad']:.2e}, running statistics {leaf['stats']:.2e}, parameters "
+              f"{leaf['params']:.2e} (<= 1e-9); parameters and gradients bitwise equal "
+              f"across the ranks")
+        ref32 = par_steps(one, batch, False, False, timed=PAR_TIMED)
+        e32 = [abs(a - b) / abs(b) for a, b in zip(r0["f32"]["losses"], ref32["losses"])]
+        # The second step starts from parameters that part by up to 2 lr: at
+        # the initial weights Adam's first update is lr * sign(g), and the
+        # sign of a small f32 gradient is rounding (phase 16: f32 gradients
+        # 2-16 % from f64). So step 2 is information; step 1 is held.
+        e32_64 = [abs(a - b) / abs(b) for a, b in zip(ref32["losses"], ref64["losses"])]
+        check(e32[0] <= 1e-5 and r0["f32"]["losses"] == r1["f32"]["losses"]
+              and r0["f32"]["digest"] == r1["f32"]["digest"],
+              f"22c: f32 steps over 2 ranks vs one process: step 1's loss rel err "
+              f"{e32[0]:.2e} (<= 1e-5), the ranks bitwise equal; step 2's {e32[1]:.2e} "
+              f"(information: the one-process f32 run's own distance from f64 at step 2 "
+              f"{e32_64[1]:.2e})")
+        for r in ranks:
+            timings[f"parallel_step_f32_ms_rank{r['rank']}"] = statistics.median(r["f32"]["ms"])
+        timings["parallel_step_f32_ms_one_process"] = statistics.median(ref32["ms"])
+        print(f"22c: f32 step ms, median of {PAR_TIMED}: rank 0 "
+              f"{timings['parallel_step_f32_ms_rank0']:.2f}, rank 1 "
+              f"{timings['parallel_step_f32_ms_rank1']:.2f} (two processes sharing one card, "
+              f"16 a rank: not a scaling figure); one process on all 32: "
+              f"{timings['parallel_step_f32_ms_one_process']:.2f}", flush=True)
+        timings.update(parallel_f64_loss_rel_err_step1=e_loss[0],
+                       parallel_f64_loss_rel_err_step2=e_loss[1],
+                       parallel_f64_grad_err=leaf["grad"], parallel_f64_stats_err=leaf["stats"],
+                       parallel_f64_params_err=leaf["params"],
+                       parallel_f32_loss_rel_err_step1=e32[0],
+                       parallel_f32_loss_rel_err_step2=e32[1],
+                       parallel_f32_one_process_vs_f64_step2=e32_64[1])
+        del ref64
+
+        # 22d. the profiling hooks around a served granule ---------------------------------
+        rgb = np.ascontiguousarray(np.moveaxis(granule["rgb"], -1, 0))
+        trace_dir = os.path.join(tmp, "trace")
+        with trace(trace_dir):
+            emit_granule_to_mask(cube, rgb, template, model, column_step=MSTEP,
+                                 num_iter=NUM_ITER, alpha=ALPHA, valid_mask=valid)
+            torch.cuda.synchronize()
+        (trace_file,) = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, trace_file)) as fh:
+            events = json.load(fh)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+        has = lambda pool, part: any(part in n for n in pool)  # noqa: E731
+        check(has(names, "filter_round_masked") and has(names, "filter_glue")
+              and has(kernels, "filter_round_kernel") and has(kernels, "filter_glue_kernel"),
+              f"22d: trace() of a served granule names filter_round_masked and filter_glue "
+              f"(ops and kernels; {len(events)} events, {len(kernels)} kernel names)")
+        timer = StageTimer(device=dev)
+        with torch.inference_mode(), float32_precision():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with timer.stage("upload"):
+                x_d = torch.as_tensor(cube, device=dev)
+                v_d = torch.as_tensor(valid, device=dev)
+                rgb_d = torch.as_tensor(rgb, device=dev)
+            with timer.stage("filter"):
+                mf_d, _ = mag1c_column_blocks(x_d, template, v_d, device=dev, **PAR_SCENE_KW)
+            with timer.stage("unet"):
+                plume_mask(mf_d[None], rgb_d[None], model)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        stages = timer.report(log=False)
+        check(list(stages) == ["upload", "filter", "unet"]
+              and abs(sum(stages.values()) - wall) <= 0.05 * wall,
+              f"22d: StageTimer stages {json.dumps({k: round(v * 1e3, 3) for k, v in stages.items()})} "
+              f"ms sum to {sum(stages.values()) * 1e3:.3f} ms, within 5 % of the wall clock "
+              f"{wall * 1e3:.3f} ms")
+        timings.update({f"parallel_stage_{k}_ms": v * 1e3 for k, v in stages.items()})
+        timings["parallel_stage_wall_ms"] = wall * 1e3
+
+    # 22e. the entry module ---------------------------------------------------------------
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dry = entry.dryrun_multichip(2, device="cuda:0", backend="gloo", timeout_s=PAR_TIMEOUT_S)
+    print(buf.getvalue(), end="", flush=True)
+    check("dryrun_multichip(2) OK:" in buf.getvalue(), "22e: dryrun_multichip(2) printed its OK "
+                                                       "line (two gloo ranks on cuda:0)")
+    dry_want = {k: 0 for k in mk.LAUNCH_COUNTS}
+    # the sharded leg: 1 block a rank, 3 iterations; serving: 2 granules a rank,
+    # 2 blocks each, 2 iterations, every pixel valid (rows 11-12)
+    dry_want.update(filter_round_bsp_f32_masked_first=1, filter_round_bsp_f32_masked_loop=3,
+                    filter_glue=3 + 2 * 2, init_stats=2, filter_round=2 * 3)
+    for rank, r in enumerate(dry["ranks"]):
+        check(r["launches"] == dry_want,
+              f"22e rank {rank}: launches {({k: v for k, v in r['launches'].items() if v})} "
+              f"(want {({k: v for k, v in dry_want.items() if v})})")
+    fn, args = entry.entry(dev)
+    logits = fn(*args)
+    check(tuple(logits.shape) == (2, 1, 128, 128) and bool(torch.isfinite(logits).all()),
+          f"22e: entry()'s unet_semseg forward {tuple(logits.shape)} finite")
+    timings["parallel_phase_s"] = time.perf_counter() - t_phase
+    launches = {name: {"22a": launches_a[name], "22b": [r["launches"][name] for r in ranks],
+                       "22e": [r["launches"][name] for r in dry["ranks"]]}
+                for name in PAR_ROWS}
+    print("parallel timings " + json.dumps(timings), flush=True)
+    return launches, timings
+
+
 def seeded_model(dev, seed: int = 0, bf16: bool = False):
     """A full-width SegmentationModel whose output spreads over (0, 1) and
     follows the filter: Kaiming-normal (fan-out) convolutions, zero conv
@@ -3387,8 +3770,8 @@ def main() -> int:
     # 7. the masked route (TPU kernels 5 and 6) on a served granule ---------------
     fwhm = np.full_like(centers, 8.0)
     granules = [masked_granule(seed, centers, fwhm) for seed in range(4)]
-    masked_rows, glue_masked, masked_timings, mf_plain0 = masked_phase(dev, template,
-                                                                       granules[0])
+    masked_rows, glue_masked, masked_timings, mf_plain0, twin64 = masked_phase(dev, template,
+                                                                               granules[0])
 
     # 8. the served path: ScenePipeline over 4 granules ------------------------------
     served, f32_served, serving_timings = serving_phase(dev, model, granules, mf_plain0)
@@ -3526,6 +3909,9 @@ def main() -> int:
         prepare_launches, prepare_timings = prepare_phase(dev, tmp)
     # 20. the native codecs on the card's host ------------------------------------------
     codec_timings = codec_phase(granules)
+    # 22. the multi-device path: a one-rank NCCL world, two gloo ranks on the card ------
+    parallel_launches, parallel_timings = parallel_phase(dev, centers, template, granules[0],
+                                                         mf_plain0, twin64, model)
     for row in kernels:
         if row["name"] in FILTER_LAUNCHES:
             row["eval_launches"] = eval_counts
@@ -3534,11 +3920,15 @@ def main() -> int:
                                        for run, counts in prepare_launches.items()}
     glue.update(aviris_launches=aviris_launches["filter_glue"])
     kernels += aviris_rows
+    for row in kernels:
+        if row["name"] in parallel_launches:
+            row["parallel_launches"] = parallel_launches[row["name"]]
     print("timings " + json.dumps({"card": card, **timings, **masked_timings,
                                    **serving_timings, **bf16_timings, **masked_bf16_timings,
                                    **served_bf16_timings, **route_timings, **eval_timings,
                                    **train_timings, **aviris_timings, **multispectral_timings,
-                                   **prepare_timings, **codec_timings}), flush=True)
+                                   **prepare_timings, **codec_timings, **parallel_timings}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

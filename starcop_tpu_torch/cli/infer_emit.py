@@ -8,7 +8,8 @@ The counterpart of starcop_tpu/cli/infer_emit.py, with its flags: the
 masked matched filter, the EMIT->AVIRIS renormalisation and the
 whole-scene U-Net (bf16-resident unless ``--model-dtype f32``).
 ``--device cpu`` runs on the host instead of the card. Prints the
-granule's wall time (the device synchronised) and its mean prediction.
+granule's wall time (a ``StageTimer`` stage, the device synchronised at its
+edges) and its mean prediction.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-import time
 
 import numpy as np
 
@@ -36,8 +36,6 @@ def main(argv=None) -> int:
                    help="cpu = the plain torch path on the host (no card needed)")
     args = p.parse_args(argv)
 
-    import torch
-
     from starcop_tpu_torch.data.emit import EMITRawScene
     from starcop_tpu_torch.data.geotiff import write_geotiff
     from starcop_tpu_torch.device import resolve_device
@@ -48,6 +46,7 @@ def main(argv=None) -> int:
     )
     from starcop_tpu_torch.models.weights import load_pretrained_state_dict
     from starcop_tpu_torch.scenes.emit_pipeline import emit_inference
+    from starcop_tpu_torch.utils.profiling import StageTimer
 
     dev = resolve_device(args.device)
     model = SegmentationModel(EMIT_INPUT_PRODUCTS)
@@ -56,18 +55,16 @@ def main(argv=None) -> int:
         cast_for_inference(model)
     model.to(dev).eval()
 
-    t0 = time.perf_counter()
-    scene = EMITRawScene(args.granule)
-    try:
-        transform, crs_epsg = scene.transform, scene.crs_epsg
-        out = emit_inference(scene, model, column_step=args.column_step,
-                             num_iter=args.num_iter, georeference=args.georeference,
-                             device=dev)
-    finally:
-        scene.close()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    total_s = time.perf_counter() - t0
+    timer = StageTimer(device=dev)
+    with timer.stage("total"):
+        scene = EMITRawScene(args.granule)
+        try:
+            transform, crs_epsg = scene.transform, scene.crs_epsg
+            out = emit_inference(scene, model, column_step=args.column_step,
+                                 num_iter=args.num_iter, georeference=args.georeference,
+                                 device=dev)
+        finally:
+            scene.close()
 
     os.makedirs(args.output, exist_ok=True)
     for name, arr in out.items():
@@ -81,7 +78,8 @@ def main(argv=None) -> int:
             crs_epsg=crs_epsg if on_ortho_grid else None,
             descriptions=["CH4 Absorption (ppm x m)" if "mag1c" in name else name],
         )
-    print(f"EMIT inference {os.path.basename(args.granule)}: {total_s:.2f}s; "
+    times = timer.report(log=False)
+    print(f"EMIT inference {os.path.basename(args.granule)}: {times['total']:.2f}s; "
           f"pred mean {float(out['prediction'].mean()):.4f}")
     return 0
 

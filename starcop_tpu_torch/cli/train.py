@@ -49,6 +49,7 @@ def run(argv=None):
 
     from starcop_tpu_torch.config import Config
     from starcop_tpu_torch.device import float32_precision
+    from starcop_tpu_torch.parallel.mesh import broadcast_object, initialize_multihost, make_mesh
 
     cfg = Config()
     yaml_args = [a for a in argv if a.endswith((".yaml", ".yml"))]
@@ -57,16 +58,20 @@ def run(argv=None):
         cfg = Config.from_yaml(yaml_args[0])
     cfg.apply_overrides(overrides)
     dev = cfg.training.resolve_device()
+    initialize_multihost(device=dev)  # torchrun's world, if launched by it
+    mesh = make_mesh(cfg.training.devices or None, dev)
 
-    timestamp = time.strftime("%Y-%m-%d_%H-%M")
+    timestamp = broadcast_object(mesh, time.strftime("%Y-%m-%d_%H-%M"))
     exp_dir = os.path.join("experiments", cfg.experiment_name, timestamp)
-    os.makedirs(exp_dir, exist_ok=True)
-    with open(os.path.join(exp_dir, "config.json"), "w") as fh:
-        fh.write(cfg.to_json())
-    logger.info("experiment dir: %s (device %s)", exp_dir, dev)
+    if mesh.lead:
+        os.makedirs(exp_dir, exist_ok=True)
+        with open(os.path.join(exp_dir, "config.json"), "w") as fh:
+            fh.write(cfg.to_json())
+    logger.info("experiment dir: %s (device %s, rank %d of %d)", exp_dir, mesh.device,
+                mesh.rank, mesh.size)
     with float32_precision():
-        state = _train_and_validate(cfg, exp_dir, dev, logger)
-    if cfg.upload_path:
+        state = _train_and_validate(cfg, exp_dir, mesh, logger)
+    if cfg.upload_path and mesh.lead:
         # Best-effort, as the JAX CLI's upload: a failure is logged, the run stands.
         from starcop_tpu_torch.utils import storage
 
@@ -79,12 +84,13 @@ def run(argv=None):
     return exp_dir, state
 
 
-def _train_and_validate(cfg, exp_dir, dev, logger):
+def _train_and_validate(cfg, exp_dir, mesh, logger):
     import torch
 
     from starcop_tpu_torch.data.datamodule import BatchLoader, prefetch_to_device
     from starcop_tpu_torch.data.dataset import ChipDataset
     from starcop_tpu_torch.eval.validation import run_validation
+    from starcop_tpu_torch.parallel.mesh import broadcast_object
     from starcop_tpu_torch.setup_shims import get_dataset, get_model
     from starcop_tpu_torch.train import Trainer, save_checkpoint
     from starcop_tpu_torch.train.logging import make_logger
@@ -95,10 +101,10 @@ def _train_and_validate(cfg, exp_dir, dev, logger):
     metric_logger = make_logger(
         exp_dir, wandb_project=cfg.wandb.project if cfg.wandb.entity else "",
         wandb_entity=cfg.wandb.entity, config=cfg.to_dict(),
-    )
+    ) if mesh.lead else None
 
     callbacks = []
-    if cfg.wandb.images_logging and cfg.products_plot:
+    if cfg.wandb.images_logging and cfg.products_plot and mesh.lead:
         # Epoch-end image grids on one fixed test batch.
         from starcop_tpu_torch.eval.plot import ImageLogger
 
@@ -119,23 +125,22 @@ def _train_and_validate(cfg, exp_dir, dev, logger):
         early_stopping_patience=cfg.model.early_stopping_patience,
         max_epochs=cfg.training.max_epochs,
         val_check_interval=cfg.training.val_check_interval,
-        n_devices=cfg.training.devices if cfg.training.devices > 0 else None,
+        mesh=mesh,
         checkpoint_dir=exp_dir,
         log_every_n_steps=cfg.training.train_log_every_n_steps,
         metric_logger=metric_logger,
         callbacks=callbacks,
-        device=dev,
     )
 
     state = None
     if cfg.model.train:
         resume_path = None
         if cfg.resume_from_checkpoint:
-            # the newest best / final checkpoint under experiments/{name}
+            # the newest best / final checkpoint under experiments/{name}, rank 0's pick
             candidates = sorted(
                 glob.glob(os.path.join("experiments", cfg.experiment_name, "*", "*.npz")))
-            if candidates:
-                resume_path = candidates[-1]
+            resume_path = broadcast_object(mesh, candidates[-1] if candidates else None)
+            if resume_path is not None:
                 logger.info("resuming from %s", resume_path)
         state = trainer.fit(
             lambda: dm.train_loader(),
@@ -144,11 +149,13 @@ def _train_and_validate(cfg, exp_dir, dev, logger):
             resume_from=resume_path,
         )
         save_checkpoint(exp_dir, state, name="final_checkpoint_model",
-                        extra={"config": cfg.to_dict()})
-        with open(os.path.join(exp_dir, "history.json"), "w") as fh:
-            json.dump(trainer.history, fh, indent=2)
+                        extra={"config": cfg.to_dict()}, mesh=mesh)
+        if mesh.lead:
+            with open(os.path.join(exp_dir, "history.json"), "w") as fh:
+                json.dump(trainer.history, fh, indent=2)
 
-    if cfg.model.test and state is not None:
+    if cfg.model.test and state is not None and mesh.lead:
+        dev = mesh.device
         model.eval()
         with torch.inference_mode():
             _, metrics = run_validation(

@@ -201,14 +201,23 @@ class _PinnedRing:
         return buf, slot
 
 
-def prefetch_to_device(iterator, device: DeviceLike = None, size: int = 2) -> Iterator[Dict]:
+def prefetch_to_device(iterator, device: DeviceLike = None, size: int = 2,
+                       mesh=None) -> Iterator[Dict]:
     """Host-to-device prefetch of batch dicts: numeric arrays become tensors
     on ``device`` (None: the CUDA card; raises here without one), the rest
     (ids, bool flags) passes through. On the card each array goes through a
     pinned host buffer and a side stream, ``size`` batches ahead of the one
     yielded, and the consumer's stream waits on each batch's copy event
     before the batch is yielded. With ``device="cpu"`` the arrays become
-    CPU tensors."""
+    CPU tensors. With a ``mesh`` (``parallel.Mesh``) each numeric array is
+    cut to the rank's contiguous rows first (a batch that does not divide by
+    the world raises, as ``parallel.shard_batch``), on the mesh's device."""
+    if mesh is not None:
+        from starcop_tpu_torch.parallel.mesh import local_rows, mesh_device
+
+        device = mesh_device(mesh, device)
+        iterator = ({k: v if (a := _numeric(v)) is None else a[local_rows(mesh, len(a))]
+                     for k, v in batch.items()} for batch in iterator)
     dev = resolve_device(device)
     if dev.type != "cuda":
         return ({k: v if (a := _numeric(v)) is None else torch.as_tensor(a)

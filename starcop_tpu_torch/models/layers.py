@@ -15,20 +15,44 @@
     from scratch would start elsewhere.
   * ``dropout``: inverted dropout drawn from an explicit generator (Flax
     draws from a key folded with the step; the masks cannot be equal).
+  * ``set_data_parallel``: a network trained by a world of ranks, each on
+    its shard of the global batch, computes what the one-process network
+    computes on the whole batch (as a Flax network under ``jit`` on a
+    batch-sharded array does): batch norm normalises with the global batch
+    statistics and dropout slices the rank's rows out of the global mask.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 # The standard deviation of a unit normal truncated to [-2, 2]: lecun_normal
 # divides by it so that the truncated draw keeps variance 1 / fan_in.
 _TRUNC_STD = 0.87962566103423978
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """The sum of a tensor over a process group, differentiable: each rank's
+    gradient is the sum of the ranks' output gradients."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -40,9 +64,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     running statistics in eval). One value per channel normalises to the
     bias, as in Flax."""
 
+    process_group = None  # set by ``set_data_parallel``: statistics of the global batch
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            return self._global_forward(x)
         n = x.numel() // x.shape[1]
         m = self.momentum
         self.num_batches_tracked.add_(1)
@@ -68,6 +96,47 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.weight * torch.rsqrt(torch.full_like(self.weight, self.eps))).view(shape) \
             + self.bias.view(shape)
 
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Training forward on the rank's shard with the global batch's
+        statistics: the shard's count, mean and M2 (at f32 at least), combined
+        over the group by Chan's update in f64 through a differentiable
+        all_reduce (the global mean first, then the M2 terms about it), the
+        biased variance, and Flax's running update."""
+        c = x.shape[1]
+        dt = torch.promote_types(x.dtype, torch.float32)
+        var, mean = torch.var_mean(x.to(dt), dim=(0, 2, 3), correction=0)
+        n = torch.full((1,), float(x.numel() // c), dtype=torch.float64, device=x.device)
+        mean, m2 = mean.double(), var.double() * n
+        total = _SumOverGroup.apply(torch.cat([n * mean, n]), self.process_group)
+        count = total[c:].detach()
+        g_mean = total[:c] / count
+        g_var = _SumOverGroup.apply(m2 + n * (mean - g_mean) ** 2, self.process_group) / count
+        m = self.momentum
+        self.num_batches_tracked.add_(1)
+        with torch.no_grad():
+            self.running_mean.lerp_(g_mean.to(self.running_mean.dtype), m)
+            self.running_var.lerp_(g_var.to(self.running_var.dtype), m)
+        shape = (1, -1, 1, 1)
+        inv = torch.rsqrt(g_var + self.eps).to(dt)
+        y = (x.to(dt) - g_mean.to(dt).view(shape)) * (self.weight.to(dt) * inv).view(shape) \
+            + self.bias.to(dt).view(shape)
+        return y.to(x.dtype)
+
+
+def set_data_parallel(network: nn.Module, mesh) -> nn.Module:
+    """Make ``network``'s training forward on the rank's shard that of the
+    global batch over ``mesh`` (a ``parallel.Mesh``): every ``BatchNorm2d``
+    takes the global statistics over the mesh's group and dropout draws the
+    global mask and keeps the rank's rows. A world of one changes nothing."""
+    group = mesh.group if mesh.size > 1 else None
+    shard = (mesh.rank, mesh.size) if mesh.size > 1 else None
+    for mod in network.modules():
+        if isinstance(mod, BatchNorm2d):
+            mod.process_group = group
+        if hasattr(mod, "dropout_rate"):
+            mod.batch_shard = shard
+    return network
+
 
 def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = None):
     """Flax's ``lecun_normal`` on a torch conv weight (O, I / groups, kh, kw):
@@ -92,9 +161,18 @@ def init_like_flax(module: nn.Module, generator: Optional[torch.Generator] = Non
     return module
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout as Flax's ``nn.Dropout``: each element kept with
     probability 1 - ``rate`` and scaled by 1 / (1 - rate), the draw from
-    ``generator`` (on ``x``'s device)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    ``generator`` (on ``x``'s device). ``shard`` = (rank, size): ``x`` is
+    the rank's contiguous rows of a global batch ``size`` times as long,
+    whose mask is drawn and the rank's rows of it kept."""
+    if shard is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    else:
+        rank, size = shard
+        b = x.shape[0]
+        keep = torch.rand((b * size, *x.shape[1:]), generator=generator,
+                          device=x.device)[rank * b:(rank + 1) * b] >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))

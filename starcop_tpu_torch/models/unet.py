@@ -50,6 +50,7 @@ class UNet(nn.Module):
         super().__init__()
         self.widths = tuple(widths)
         self.dropout_rate = dropout_rate
+        self.batch_shard = None  # (rank, size) under ``layers.set_data_parallel``
         cin = in_channels
         for i, w in enumerate(self.widths[:-1]):
             setattr(self, f"down{i}", DoubleConv(cin, w))
@@ -72,7 +73,7 @@ class UNet(nn.Module):
         if self.dropout_rate > 0 and self.training:
             if generator is None:
                 raise ValueError("a training forward with dropout needs a generator")
-            x = dropout(x, self.dropout_rate, generator)
+            x = dropout(x, self.dropout_rate, generator, self.batch_shard)
         for i in reversed(range(len(self.widths) - 1)):
             x = torch.cat([upsample2(x), skips[i]], dim=1)
             x = getattr(self, f"up{i}")(x)

@@ -26,6 +26,8 @@ from starcop_tpu_torch.device import DeviceLike, float32_precision, resolve_devi
 from starcop_tpu_torch.ops.ch4_template import generate_template_from_bands
 from starcop_tpu_torch.ops.mag1c import NODATA, mag1c_column_blocks
 from starcop_tpu_torch.ops.padding import find_padding, reflect_pad
+from starcop_tpu_torch.parallel.mesh import mesh_device
+from starcop_tpu_torch.parallel.scene_mag1c import sharded_mag1c_scene
 
 
 def emit_mag1c(
@@ -38,25 +40,33 @@ def emit_mag1c(
     column_step: int = 32,
     num_iter: int = 30,
     alpha: float = 1e-4,
+    mesh=None,
+    compute_dtype=torch.float32,
     device: DeviceLike = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Matched filter over an EMIT-like (rows, cols, bands) radiance cube.
 
     Selects the bands inside ``wavelength_range``, builds the CH4 template
-    for them, and runs ``mag1c_column_blocks``. Returns (mf, albedo) float32
-    (rows, cols) numpy arrays with NODATA at invalid pixels.
+    for them, and runs ``mag1c_column_blocks`` (``compute_dtype`` f32, or
+    f64 for parity runs), or with a ``mesh`` (``parallel.Mesh``) the column
+    blocks split over its ranks (``parallel.sharded_mag1c_scene``, on the
+    mesh's device; a ``device`` other than it raises). Returns (mf, albedo)
+    float32 (rows, cols) numpy arrays with NODATA at invalid pixels.
     """
-    dev = resolve_device(device)
     sel = (wavelengths >= wavelength_range[0]) & (wavelengths <= wavelength_range[1])
     if not sel.any():
         raise ValueError("No bands in the selected wavelength range")
     target = generate_template_from_bands(wavelengths[sel], fwhm[sel])[:, 1]
     cube = np.asarray(radiance[..., sel], np.float32)
-    mf, albedo = mag1c_column_blocks(
-        cube, target, valid_mask, column_step=column_step, num_iter=num_iter, alpha=alpha,
-        device=dev,
-    )
-    return mf.cpu().numpy(), albedo.cpu().numpy()
+    kw = dict(column_step=column_step, num_iter=num_iter, alpha=alpha,
+              compute_dtype=compute_dtype)
+    if mesh is not None:
+        mesh_device(mesh, device)
+        mf, albedo = sharded_mag1c_scene(cube, target, valid_mask, mesh=mesh, **kw)
+    else:
+        mf, albedo = mag1c_column_blocks(cube, target, valid_mask, device=resolve_device(device),
+                                         **kw)
+    return mf.cpu().numpy().astype(np.float32), albedo.cpu().numpy().astype(np.float32)
 
 
 def plume_mask(mf: torch.Tensor, rgb_chw: torch.Tensor, model_apply: Callable) -> torch.Tensor:
@@ -174,6 +184,7 @@ def emit_inference(
     column_step: int = 32,
     num_iter: int = 30,
     alpha: float = 1e-4,
+    mesh=None,
     georeference: bool = False,
     device: DeviceLike = None,
 ) -> Dict[str, np.ndarray]:
@@ -184,17 +195,21 @@ def emit_inference(
         model_apply: (1, 4, H', W') normalized-domain input -> (1, 1, H', W')
             logits on ``device``; the channels are [mag1c, R, G, B] in the
             AVIRIS training domain.
+        mesh: optional ``parallel.Mesh``: the filter's column blocks split
+            over its ranks (every rank then holds the whole mf and runs the
+            U-Net on its device, the mesh's).
         georeference: also gather the outputs onto the GLT grid.
 
     Returns a dict of numpy arrays: mag1c, albedo, rgb, prediction (sigmoid)
     and, if asked, mag1c_geo and prediction_geo.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh_device(mesh, device)
     sel = scene.band_slice()
     cube = scene.read_bands(sel)
     invalid = scene.invalid_mask(cube)
     mf, albedo = emit_mag1c(cube, scene.wavelengths[sel], scene.fwhm[sel], ~invalid,
-                            column_step=column_step, num_iter=num_iter, alpha=alpha, device=dev)
+                            column_step=column_step, num_iter=num_iter, alpha=alpha, mesh=mesh,
+                            device=dev)
     rgb = scene.read_rgb()  # (rows, cols, 3)
     with torch.inference_mode(), float32_precision():
         pred = plume_mask(torch.as_tensor(mf, device=dev)[None],

@@ -10,7 +10,9 @@ and ``step``. So the JAX package's ``load_pretrained_variables`` and
 ``load_pretrained_state_dict`` and ``load_checkpoint`` read a JAX one.
 Orbax (``save_checkpoint_orbax``) has no counterpart. ``load_checkpoint``
 opens its path through the storage seam (``utils/storage.py``), as JAX's
-does, so a remote path loads where ``fsspec`` is installed.
+does, so a remote path loads where ``fsspec`` is installed. Over a
+``parallel.Mesh`` rank 0 alone writes (the others wait at a barrier) and
+rank 0 alone reads, its entries broadcast to every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from starcop_tpu_torch.models.weights import (
     flax_to_torch_state_dict,
     torch_to_flax_variables,
 )
+from starcop_tpu_torch.parallel.mesh import barrier, broadcast_object
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
@@ -40,11 +43,20 @@ def _flatten(tree: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
 
 
 def save_checkpoint(directory: str, state, name: str = "checkpoint",
-                    extra: Optional[Dict] = None) -> str:
+                    extra: Optional[Dict] = None, mesh=None) -> str:
     """Save a ``TrainState`` as ``directory/{name}.npz`` (and ``extra`` as
-    ``{name}_meta.json``); returns the npz path."""
-    os.makedirs(directory, exist_ok=True)
+    ``{name}_meta.json``); returns the npz path. With a ``mesh`` only rank
+    0 writes, and every rank returns once the file is there."""
     path = os.path.join(directory, f"{name}.npz")
+    if mesh is None or mesh.lead:
+        _write(directory, path, state, name, extra)
+    if mesh is not None:
+        barrier(mesh)
+    return path
+
+
+def _write(directory: str, path: str, state, name: str, extra: Optional[Dict]) -> None:
+    os.makedirs(directory, exist_ok=True)
     network = state.model.network
     flat = _flatten(torch_to_flax_variables(network.state_dict()), "")
     flat.update(adam_state_to_flax(state.optimizer, network))
@@ -53,18 +65,22 @@ def save_checkpoint(directory: str, state, name: str = "checkpoint",
     if extra:
         with open(os.path.join(directory, f"{name}_meta.json"), "w") as fh:
             json.dump(extra, fh, indent=2, default=str)
-    return path
 
 
-def load_checkpoint(path: str, state):
+def load_checkpoint(path: str, state, mesh=None):
     """Load a checkpoint of either package into ``state`` in place (its
     network's parameters and batch-norm statistics, its Adam, its step) and
-    return it. Every entry the state has must be there at its shape."""
+    return it. Every entry the state has must be there at its shape. With a
+    ``mesh`` rank 0 reads the file and broadcasts its entries."""
     from starcop_tpu_torch.utils import storage
 
-    with storage.open_file(path, "rb") as fh:
-        with np.load(fh) as data:
-            flat = {k: data[k] for k in data.files}
+    flat = None
+    if mesh is None or mesh.lead:
+        with storage.open_file(path, "rb") as fh:
+            with np.load(fh) as data:
+                flat = {k: data[k] for k in data.files}
+    if mesh is not None:
+        flat = broadcast_object(mesh, flat)
     network = state.model.network
     template = _flatten(torch_to_flax_variables(network.state_dict()), "")
     variables: Dict[str, Dict] = {}

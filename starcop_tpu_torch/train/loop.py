@@ -17,14 +17,25 @@
     is any decrease (torch's scheduler needs a relative 1e-4), and the
     count resets after a reduction.
   * best-on-val_loss checkpoints and the metric logger and callbacks.
+  * data parallelism over a ``parallel.Mesh`` (one process per device,
+    launched by torchrun or ``parallel.run_world``), with the global-batch
+    semantics of JAX's sharded ``jit``: each rank steps on its contiguous
+    shard of every global batch, batch norm normalises with the global
+    statistics and dropout keeps the rank's rows of the global mask
+    (``models.layers.set_data_parallel``), and one ``all_reduce`` averages
+    the gradients (equal shards: the global batch's gradient) and the loss,
+    so every rank takes the same Adam step and the parameters stay
+    bitwise equal. Validation averages the loss and sums the confusion
+    matrices over the ranks, so every rank sees the same val_loss and the
+    plateau, early stopping and best-checkpoint choices agree; rank 0 alone
+    writes checkpoints and logs.
 
 Initialisation follows Flax's distributions (``models.layers.init_like_flax``)
 from an explicit ``torch.Generator`` seeded by ``seed``; the random streams
 differ from JAX's, so a state carried from JAX (``train.checkpoint``) is
 what makes the two runs comparable. ``UNetDropout``'s masks come from a
 generator seeded from (seed, step): an intended deviation, since JAX folds
-the step into ``PRNGKey(0)``. One card only: several devices or a mesh
-raise (ROADMAP queue 1, item 11).
+the step into ``PRNGKey(0)``.
 """
 
 from __future__ import annotations
@@ -40,7 +51,16 @@ import torch
 from starcop_tpu_torch.data.datamodule import prefetch_to_device
 from starcop_tpu_torch.device import DeviceLike, float32_precision, resolve_device
 from starcop_tpu_torch.eval import metrics as sm
+from starcop_tpu_torch.models.layers import set_data_parallel
 from starcop_tpu_torch.models.segmenter import SegmentationModel, pred_classification
+from starcop_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_,
+    average_,
+    make_mesh,
+    mesh_device,
+    replicate,
+)
 
 logger = logging.getLogger("starcop_tpu_torch.train")
 
@@ -127,11 +147,18 @@ def dropout_generator(seed: int, step: int, device: torch.device) -> torch.Gener
     return torch.Generator(device).manual_seed((seed << 32) + step)
 
 
-def make_train_step(model: SegmentationModel, seed: int = 0) -> Callable:
+def make_train_step(model: SegmentationModel, seed: int = 0, mesh: Optional[Mesh] = None) -> Callable:
     """``train_step(state, batch, lr) -> (state, loss)``: one Adam step at
     learning rate ``lr`` on a batch already on the device. The state is
-    updated in place; the loss stays on the device (no host sync)."""
+    updated in place; the loss stays on the device (no host sync). With a
+    ``mesh`` of several ranks the batch is the rank's shard of the global
+    batch, and the step and the loss returned are the global batch's (the
+    network's batch norms and dropout are set to the global batch,
+    ``models.layers.set_data_parallel``)."""
     needs_generator = getattr(model.network, "dropout_rate", 0.0) > 0
+    parallel = mesh is not None and mesh.size > 1
+    if mesh is not None:
+        set_data_parallel(model.network, mesh)
 
     def train_step(state: TrainState, batch: Dict[str, Any], lr: float):
         for group in state.optimizer.param_groups:
@@ -143,9 +170,13 @@ def make_train_step(model: SegmentationModel, seed: int = 0) -> Callable:
         loss = model.loss_fn(logits, batch["output"], batch.get("weight_loss"))
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if parallel:
+            grads = [p.grad for p in model.network.parameters() if p.grad is not None]
+            average_(mesh, grads + [loss.view(1)])
         state.optimizer.step()
         state.step += 1
-        return state, loss.detach()
+        return state, loss
 
     return train_step
 
@@ -172,9 +203,14 @@ def make_eval_step(model: SegmentationModel) -> Callable:
 
 class Trainer:
     """Epoch loop with plateau LR, early stopping and best-checkpoint
-    retention, on one device (None: the card). Batches reach it through
-    ``prefetch_to_device``. ``n_devices > 1`` or a ``mesh`` raise:
-    data-parallel training is ROADMAP queue 1, item 11."""
+    retention. Batches reach it through ``prefetch_to_device``.
+
+    It trains over ``mesh`` (a ``parallel.Mesh``) or else over
+    ``make_mesh(n_devices, device)``: ``n_devices`` None is the launched
+    world (one process when none was launched), another size than the
+    world's raises. Outside a launched world that is one device (None:
+    the card). Every rank reads the same global batches and keeps its rows.
+    """
 
     def __init__(
         self,
@@ -193,12 +229,13 @@ class Trainer:
         metric_logger=None,
         device: DeviceLike = None,
     ):
-        if mesh is not None or (n_devices or 1) > 1:
-            raise NotImplementedError(
-                "the port trains on one card: several devices or a mesh are ROADMAP "
-                "queue 1, item 11 (parallel/mesh.py)")
+        if mesh is None:
+            mesh = make_mesh(n_devices, device)
+        elif not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh).__name__}")
+        self.mesh = mesh
         self.model = model
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh, device)
         self.learning_rate = learning_rate
         self.scheduler = ReduceLROnPlateau(factor=lr_decay, patience=lr_patience)
         self.early_stopping = EarlyStopping(patience=early_stopping_patience)
@@ -223,8 +260,10 @@ class Trainer:
         resume_from: Optional[str] = None,
     ) -> TrainState:
         """Train from a fresh state initialised from ``seed`` (then loaded
-        from ``resume_from`` if given), or from ``state``, whose model must
-        be this trainer's and on its device. ``seed`` also seeds dropout."""
+        from ``resume_from`` if given: read by rank 0 and broadcast), or from
+        ``state``, whose model must be this trainer's and on its device.
+        ``seed`` also seeds dropout. Every rank starts from rank 0's
+        parameters."""
         with float32_precision():
             return self._fit(train_batches, val_batches, seed, state, resume_from)
 
@@ -234,11 +273,12 @@ class Trainer:
             if resume_from is not None:
                 from starcop_tpu_torch.train.checkpoint import load_checkpoint
 
-                state = load_checkpoint(resume_from, state)
+                state = load_checkpoint(resume_from, state, mesh=self.mesh)
                 logger.info("resumed from %s at step %d", resume_from, state.step)
         elif state.model is not self.model:
             raise ValueError("the state's model must be the trainer's")
-        self._train_step = make_train_step(self.model, seed)
+        replicate(self.mesh, self.model.network)
+        self._train_step = make_train_step(self.model, seed, self.mesh)
         self._eval_step = make_eval_step(self.model)
 
         base_lr = self.learning_rate
@@ -260,13 +300,13 @@ class Trainer:
             else:
                 val_at = set()
             last_i = -1
-            for i, batch in enumerate(prefetch_to_device(iter(batches), device=self.device)):
+            for i, batch in enumerate(prefetch_to_device(iter(batches), mesh=self.mesh)):
                 last_i = i
                 state, loss = self._train_step(state, batch, base_lr * self.scheduler.scale)
                 losses.append(loss)
                 if i % self.log_every_n_steps == 0:
                     logger.info("epoch %d step %d loss %.5f", epoch, i, float(loss))
-                    if self.metric_logger is not None:
+                    if self.metric_logger is not None and self.mesh.lead:
                         self.metric_logger.log({"train_loss": float(loss), "epoch": epoch},
                                                step=state.step)
                 if i in val_at:
@@ -284,32 +324,37 @@ class Trainer:
                     return state
             epoch_loss = float(torch.stack(losses).mean())
             logger.info("epoch %d done: train_loss %.5f (%.1fs)", epoch, epoch_loss, time.time() - t0)
-            for cb in self.callbacks:
+            for cb in self.callbacks if self.mesh.lead else ():
                 if hasattr(cb, "on_epoch_end"):
                     cb.on_epoch_end(self, state, epoch)
         return state
 
     # ------------------------------------------------------------------
     def validate(self, state: TrainState, val_batches) -> Dict[str, float]:
-        """val_loss (the mean of the batches' losses) and every confusion-
-        matrix metric of the pixels and of the tiles. The per-batch results
-        stay on the device and come home in one copy; the matrices are
-        summed in int64 on the host."""
+        """val_loss (the mean of the global batches' losses) and every
+        confusion-matrix metric of the pixels and of the tiles. The
+        per-batch results stay on the device; over a mesh the ranks' loss
+        sums are averaged and their matrices summed (int64) by all_reduce,
+        and the totals come home in one copy."""
         losses, cms, cms_cls = [], [], []
         with float32_precision():
-            for batch in prefetch_to_device(iter(val_batches()), device=self.device):
+            for batch in prefetch_to_device(iter(val_batches()), mesh=self.mesh):
                 loss, cm_i, cm_cls_i = self._eval_step(state, batch)
                 losses.append(loss)
                 cms.append(cm_i)
                 cms_cls.append(cm_cls_i)
         n = len(losses)
-        if n:
-            total_loss = float(torch.stack(losses).sum())
-            cm = torch.stack(cms).cpu().numpy().sum(0, dtype=np.int64)
-            cm_cls = torch.stack(cms_cls).cpu().numpy().sum(0, dtype=np.int64)
-        else:
-            total_loss, cm, cm_cls = 0.0, np.zeros((2, 2), np.int64), np.zeros((2, 2), np.int64)
-        out = {"val_loss": total_loss / max(n, 1)}
+        dev = self.mesh.device
+        total_loss = (torch.stack(losses).sum() if n
+                      else torch.zeros((), dtype=torch.float64, device=dev))
+        counts = torch.cat([torch.stack(cms).sum(0, dtype=torch.int64).reshape(-1),
+                            torch.stack(cms_cls).sum(0, dtype=torch.int64).reshape(-1)]) \
+            if n else torch.zeros(8, dtype=torch.int64, device=dev)
+        all_reduce_(self.mesh, total_loss)
+        all_reduce_(self.mesh, counts)
+        counts = counts.cpu().numpy()
+        cm, cm_cls = counts[:4].reshape(2, 2), counts[4:].reshape(2, 2)
+        out = {"val_loss": float(total_loss) / self.mesh.size / max(n, 1)}
         for fun in sm.METRICS_CONFUSION_MATRIX:
             out[f"val_{fun.__name__}"] = float(fun(cm))
             out[f"val_classification_{fun.__name__}"] = float(fun(cm_cls))
@@ -319,7 +364,7 @@ class Trainer:
         self.history.append({"epoch": epoch, **metrics})
         val_loss = metrics["val_loss"]
         logger.info("val: %s", {k: round(v, 4) for k, v in metrics.items()})
-        if self.metric_logger is not None:
+        if self.metric_logger is not None and self.mesh.lead:
             self.metric_logger.log(metrics)
         self.scheduler.update(val_loss)
         self.early_stopping.update(val_loss)
@@ -328,5 +373,5 @@ class Trainer:
             if self.checkpoint_dir is not None:
                 from starcop_tpu_torch.train.checkpoint import save_checkpoint
 
-                save_checkpoint(self.checkpoint_dir, state, name="best")
+                save_checkpoint(self.checkpoint_dir, state, name="best", mesh=self.mesh)
                 logger.info("saved best checkpoint (val_loss %.5f)", val_loss)

@@ -1,1 +1,4 @@
-"""Utilities: the storage seam (counterpart of starcop_tpu/utils)."""
+"""Utilities: profiling and tracing, the storage seam (counterpart of
+starcop_tpu/utils)."""
+
+from starcop_tpu_torch.utils.profiling import StageTimer, trace  # noqa: F401

@@ -591,7 +591,11 @@ def test_eval_step_matches_jax(tmp_path):
 
 
 def test_trainer_refuses_several_devices():
+    """Outside a launched world several devices raise and name torchrun
+    (one process per device); a mesh that is not a ``parallel.Mesh`` raises.
+    Training over a world: tests/test_torch_parallel_train.py."""
     model = SegmentationModel(["mag1c"], model_type="single")
-    for kw in ({"n_devices": 2}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tloop.Trainer(model, device="cpu", **kw)
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        tloop.Trainer(model, device="cpu", n_devices=2)
+    with pytest.raises(TypeError, match="parallel.Mesh"):
+        tloop.Trainer(model, device="cpu", mesh=object())
