@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (starcop_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the repository root; needs a CUDA card and nvcc
+    python3 chip_smoke.py [--paper-out DIR]   # from the repository root; needs a CUDA card and nvcc
 
 Drives the port's main path, raw EMIT granule -> plume mask, at the full
 bench geometry (1280 x 1242 x 50, column_step 54, 30 iterations, alpha 1e-4,
@@ -254,7 +254,22 @@ every hand-written kernel against its plain torch twin on the card:
      timed wall clock; (e) ``entry.dryrun_multichip(2)`` over two gloo ranks
      on cuda:0 prints its OK line with each rank's launches as its legs
      need, and ``entry()``'s forward is finite. ``parallel_launches`` on rows
-     5-6 and 11-12 of the kernels line, ``parallel_*`` timings.
+     5-6 and 11-12 of the kernels line, ``parallel_*`` timings;
+ 23. the user-facing surface (``paper_phase``): the paper reproduction
+     (``experiments.paper_reproduction.main``, 20 + 8 chips of 256^2 with
+     the filter on the card, 15 epochs of unet_semseg, both validations;
+     the JAX artifact's command and seeds), launch counts zeroed just before
+     and read just after (28 filters' 1 / 31 / 30 of rows 11-12, nothing
+     else); every test chip's mag1c at threshold-500 agreement >= 0.999 with
+     the f64 plain filter (detections > 0); Mag1cBaseline within 0.01 F1 /
+     precision / recall and 0.005 FPR_no_plume of JAX's committed summary;
+     the model's F1 above the baseline's and its FPR_no_plume at most the
+     baseline's; rows 11-12 held against their twins on a chip (256 x 256 x
+     74, step 64) with their times at that geometry; the SRF sensitivity
+     (256^2, 24 draws, seed 0): nominal best F1 within 0.01 of JAX's
+     committed summary, abs_delta_f1_max < 0.05, ratio_rms_max < 0.01 and
+     within 10 % of JAX's; each stage's wall seconds. ``--paper-out DIR``
+     copies the summaries and validation results to DIR.
 
 Prints the card line, every kernel's registers, spills and static shared
 memory from the build ("ptxas:" lines; a spill in any of the statistics
@@ -3434,6 +3449,237 @@ def parallel_phase(dev, centers, template, granule, mf_32, twin64, model):
     return launches, timings
 
 
+# ---------------------------------------------------------------------------
+# 23. The user-facing surface: the paper reproduction and the SRF sensitivity
+# ---------------------------------------------------------------------------
+
+PAPER_TRAIN, PAPER_TEST, PAPER_EPOCHS = 20, 8, 15  # the JAX artifact's command
+PAPER_SIZE, PAPER_STEP = 256, 64  # the chips' side; write_synthetic_chip_dataset's step
+JAX_PAPER = "experiments/paper_reproduction_synthetic"  # JAX's committed artifacts
+JAX_SRF = "experiments/srf_sensitivity/summary.json"
+PAPER_BARS = (("f1score", 0.01), ("precision", 0.01), ("recall", 0.01), ("FPR_no_plume", 0.005))
+
+
+def paper_kernels(dev, scene):
+    """The kernels of rows 11-12 on one paper chip (256 x 256 x 74, step 64,
+    4 blocks of 16,384 pixels), as ``write_synthetic_chip_dataset`` runs
+    them: init_stats within 1e-5 of its f64 twin, filter_round FIRST / LOOP /
+    FINAL and filter_glue within 4x the f32 twin's error against the f64 twin
+    + 1e-6; then their kernels-line rows at this geometry (without
+    launches)."""
+    import torch
+
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.ops.mag1c import block_columns
+
+    x = torch.as_tensor(scene["radiance"], device=dev)
+    tpl = torch.as_tensor(scene["template"], dtype=torch.float32, device=dev)
+    nb, step, s = PAPER_SIZE // PAPER_STEP, PAPER_STEP, x.shape[-1]
+    p, npix = PAPER_SIZE * step, PAPER_SIZE * PAPER_SIZE
+    m0, c0 = mk.init_stats(x, nb, step)
+    m0_64, c0_64 = mk.init_stats_plain(x.double(), nb, step)
+    m0_32, c0_32 = mk.init_stats_plain(x, nb, step)
+    e_init = max(rel_err(m0, m0_64), rel_err(c0, c0_64))
+    check(e_init <= 1e-5, f"paper chip init_stats vs f64 twin: rel err {e_init:.3e} (<= 1e-5)")
+    k0, tgt0, cit0, norm0 = mk._woodbury_base(c0, m0, tpl, ALPHA)
+    k0 = k0.contiguous()
+    carry0 = mk.pack_carry(tgt0, cit0, norm0)
+    glue_kw = dict(m0=m0, template=tpl, k0=k0, n=p, alpha=ALPHA)
+
+    def run(mode, carry, r, mf):
+        return mk.filter_round(x, nb, step, m0, carry, r, mf, mode=mode)
+
+    def twin(mode, carry, r, mf, dt):
+        return mk.filter_round_plain(x.to(dt), nb, step, m0.to(dt), carry.to(dt), r, mf,
+                                     mode=mode)
+
+    err_round = held_rounds("paper chip filter_round", run, twin, carry0,
+                            lambda stats, carry: mk.filter_glue(stats, carry, **glue_kw))
+    mf1, r1, st1 = run(mk.FIRST, carry0, None, None)
+    outs = (mk.filter_glue(st1, carry0, **glue_kw),
+            mk.filter_glue_plain(st1.sum(1, keepdim=True), carry0, **glue_kw),
+            mk.filter_glue_plain(st1.double().sum(1, keepdim=True), carry0.double(),
+                                 m0=m0.double(), template=tpl.double(), k0=k0.double(), n=p,
+                                 alpha=ALPHA))
+    err_glue = held_against_twins("paper chip filter_glue", *([o] for o in outs))
+    carry1 = outs[0]
+
+    geom = mk.cube_geometry(x, nb, step)
+    n_round, cube_bytes = geom.nchunks, 4.0 * npix * s
+    xb = block_columns(x, nb, step)
+
+    def library_stats():
+        xc = xb - xb.mean(1, keepdim=True)
+        return torch.bmm(xc.transpose(1, 2), xc) / p
+
+    check_f64 = "rel err vs f64 twin <= 4x f32 twin's + 1e-6"
+    fields = {
+        "init_stats_paper_chip": dict(
+            rel_err=e_init, check="m0, C0 rel err vs f64 twin <= 1e-5",
+            max_abs_err=max(float((m0 - m0_32).abs().max()), float((c0 - c0_32).abs().max()))),
+        "filter_round_paper_chip": dict(rel_err=err_round[0], max_abs_err=err_round[1],
+                                        check=check_f64),
+        "filter_glue_paper_chip": dict(rel_err=err_glue[0], max_abs_err=err_glue[1],
+                                       check=check_f64),
+    }
+    plans = {
+        "init_stats_paper_chip": dict(
+            kernel=lambda: mk.init_stats(x, nb, step),
+            plain=lambda: mk.init_stats_plain(x, nb, step), library=library_stats,
+            bound=bound_ms(cube_bytes + 4.0 * nb * (s + s * s), npix * (s * (s + 1) + 2.0 * s)),
+            replaces=1332, tpu_kernel="_init_stats_swh_kernel (row 11)",
+            note="one call = 2 __global__ launches; ms covers both"),
+        "filter_round_paper_chip": dict(
+            kernel=lambda: mk.filter_round(x, nb, step, m0, carry1, r1, mf1, mode=mk.LOOP,
+                                           geom=geom),
+            plain=lambda: mk.filter_round_plain(x, nb, step, m0, carry1, r1, mf1, mode=mk.LOOP),
+            library=None,
+            bound=bound_ms(cube_bytes + 4.0 * (3 * npix + nb * 5 * s + nb * n_round * (s + 2)),
+                           npix * (5.0 * s + 12)),
+            replaces=1361, tpu_kernel="_resident_swh_kernel / _resident_filter_body (row 12)"),
+        "filter_glue_paper_chip": dict(
+            kernel=lambda: mk.filter_glue(st1, carry0, **glue_kw),
+            plain=lambda: mk.filter_glue_plain(st1, carry0, **glue_kw), library=None,
+            bound=bound_ms(4.0 * nb * (n_round * (s + 2) + 10 * s + s * s),
+                           nb * (10.0 * s * s + 40 * s)),
+            replaces=1361, tpu_kernel="_resident_swh_kernel / _glue_math :776 (row 12)",
+            note="ms: the kernel's device time per launch (torch.profiler); event_ms: CUDA "
+                 "events around back-to-back calls, which the host's launch gaps set"),
+    }
+    rows = kernel_rows(plans, fields, "paper reproduction chips (phase 23)")
+    glue = rows[-1]
+    glue["event_ms"] = glue["ms"]
+    glue["ms"] = device_ms(plans["filter_glue_paper_chip"]["kernel"], "filter_glue_kernel")
+    glue["share_of_bound"] = glue["bound_ms"] / glue["ms"]
+    return rows
+
+
+def paper_phase(dev, card: str, paper_out: Optional[str]):
+    """23. The user-facing path at the JAX artifact's scale, seeds unchanged:
+    ``experiments.paper_reproduction.main`` with 20 + 8 chips of 256^2 and 15
+    epochs (experiments/paper_reproduction_synthetic/README.md's command),
+    launch counts zeroed just before and read just after (28 filters' 1 / 31
+    / 30, nothing else: training and validation launch none); each test
+    chip's mag1c against the f64 plain filter on the same scene
+    (threshold-500 agreement >= 0.999, detections); the baseline within 0.01
+    F1 / precision / recall and 0.005 FPR_no_plume of JAX's committed
+    summary; the model's F1 above the baseline's and its FPR_no_plume at most
+    the baseline's; then ``experiments.srf_sensitivity.run()`` at the
+    committed config (256^2, 24 draws, seed 0) against JAX's committed
+    summary. With ``paper_out`` the summaries and the validation results are
+    copied there. Returns (rows 11-12's launches, kernels-line rows, timings)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from starcop_tpu_torch.data.dataset import read_index_csv
+    from starcop_tpu_torch.data.synthetic import synthetic_scene
+    from starcop_tpu_torch.experiments import paper_reproduction as pr
+    from starcop_tpu_torch.experiments import srf_sensitivity
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+    from starcop_tpu_torch.ops.mag1c import mag1c_column_blocks
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, JAX_PAPER, "summary.json")) as fh:
+        jax_summary = json.load(fh)
+    with open(os.path.join(root, JAX_SRF)) as fh:
+        jax_srf = json.load(fh)
+    timings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "paper")
+        stages = {}
+        mk.reset_launch_counts()
+        summary = pr.main(out_dir, n_train=PAPER_TRAIN, n_test=PAPER_TEST, epochs=PAPER_EPOCHS,
+                          device=dev, size=PAPER_SIZE, timings=stages)
+        n_chips = PAPER_TRAIN + PAPER_TEST
+        launches = eval_launches(f"paper reproduction ({n_chips} chips of {PAPER_SIZE}^2, "
+                                 f"step {PAPER_STEP}; then training and both validations)",
+                                 n_chips)
+        for stage, seconds in stages.items():
+            timings[f"paper_{stage}"] = seconds
+            print(f"paper reproduction stage {stage}: {seconds:.1f} s wall", flush=True)
+
+        # The test chips' mag1c (made by the kernels) against the f64 plain
+        # filter on the same scenes, redrawn as write_synthetic_chip_dataset
+        # draws them from default_rng(1).
+        rng = np.random.default_rng(1)
+        agree, dets, scenes, redrawn = [], 0, [], True
+        for row in read_index_csv(os.path.join(out_dir, "test", "index.csv")):
+            scene = synthetic_scene(rng, PAPER_SIZE, PAPER_SIZE, n_plumes=int(rng.integers(0, 3)),
+                                    n_confounders=int(rng.integers(0, 4)))
+            scenes.append(scene)
+            label = np.load(os.path.join(row["folder"], "labelbinary.npy"))
+            redrawn &= np.array_equal(label, scene["label"].astype(np.float32))
+            with torch.inference_mode():
+                mf64, _ = mag1c_column_blocks(scene["radiance"], scene["template"], None,
+                                              column_step=PAPER_STEP, num_iter=NUM_ITER,
+                                              alpha=ALPHA, device=dev,
+                                              compute_dtype=torch.float64)
+            mf64 = mf64.cpu().numpy()
+            mf = np.load(os.path.join(row["folder"], "mag1c.npy"))
+            dets += int((mf64 > 500).sum())
+            agree.append(float(((mf > 500) == (mf64 > 500)).mean()))
+        check(redrawn, f"paper test chips: the {len(scenes)} redrawn scenes are the chips' "
+                       f"(labels bitwise)")
+        check(dets > 0 and min(agree) >= 0.999,
+              f"paper test chips' mag1c vs the f64 plain filter: threshold-500 agreement "
+              f"{min(agree):.6f} worst of {len(agree)} (>= 0.999), {dets} detections")
+        timings["paper_chip_agreement_min"] = min(agree)
+
+        base, model = summary["baseline"], summary["model"]
+        for key, bar in PAPER_BARS:
+            gap = abs(base[key] - jax_summary["baseline"][key])
+            check(gap <= bar, f"paper Mag1cBaseline {key} {base[key]:.4f} vs JAX's committed "
+                              f"{jax_summary['baseline'][key]:.4f}: |gap| {gap:.4f} (<= {bar})")
+        check(model["f1score"] > base["f1score"] and model["FPR_no_plume"] <= base["FPR_no_plume"],
+              f"paper claim's direction: model F1 {model['f1score']:.4f} > baseline "
+              f"{base['f1score']:.4f}, model FPR_no_plume {model['FPR_no_plume']:.4f} <= "
+              f"baseline {base['FPR_no_plume']:.4f}")
+        print(f"paper reproduction on {card}: f1_gain_pct {summary['f1_gain_pct']:+.1f} % "
+              f"(JAX's committed {jax_summary['f1_gain_pct']:+.1f} %, the paper > +25 %); "
+              f"model {json.dumps(model)}; baseline {json.dumps(base)}", flush=True)
+        timings.update(paper_f1_gain_pct=summary["f1_gain_pct"],
+                       paper_model_f1=model["f1score"], paper_baseline_f1=base["f1score"])
+        if paper_out:
+            os.makedirs(paper_out, exist_ok=True)
+            shutil.copy(os.path.join(out_dir, "summary.json"), paper_out)
+            for val in ("val_model", "val_baseline"):
+                os.makedirs(os.path.join(paper_out, val), exist_ok=True)
+                for name in ("results_agg.json", "results.csv"):
+                    shutil.copy(os.path.join(out_dir, val, name), os.path.join(paper_out, val))
+
+    rows = paper_kernels(dev, scenes[0])
+
+    # The SRF sensitivity at the committed configuration.
+    t0 = time.perf_counter()
+    srf = srf_sensitivity.run(device=dev)
+    timings["paper_srf_s"] = time.perf_counter() - t0
+    print(f"srf sensitivity stage: {timings['paper_srf_s']:.1f} s wall", flush=True)
+    fam, jfam = srf["perturbation_family"], jax_srf["perturbation_family"]
+    check(srf["config"] == jax_srf["config"], f"srf sensitivity config {srf['config']}")
+    for pair, f1 in jax_srf["nominal_best_f1"].items():
+        got = srf["nominal_best_f1"][pair]
+        check(abs(got - f1) <= 0.01, f"srf nominal best F1 {pair} {got:.4f} vs JAX's committed "
+                                     f"{f1:.4f} (within 0.01)")
+    check(fam["abs_delta_f1_max"] < 0.05 and fam["ratio_rms_max"] < 0.01,
+          f"srf bounds: abs_delta_f1_max {fam['abs_delta_f1_max']:.4f} (< 0.05), ratio_rms_max "
+          f"{fam['ratio_rms_max']:.3e} (< 0.01)")
+    check(abs(fam["ratio_rms_max"] - jfam["ratio_rms_max"]) <= 0.1 * jfam["ratio_rms_max"],
+          f"srf ratio_rms_max {fam['ratio_rms_max']:.4e} within 10 % of JAX's committed "
+          f"{jfam['ratio_rms_max']:.4e}")
+    print("srf sensitivity " + json.dumps({"card": card, **fam}), flush=True)
+    if paper_out:
+        with open(os.path.join(paper_out, "srf_sensitivity_summary.json"), "w") as fh:
+            json.dump(srf, fh, indent=1)
+    timings.update(paper_srf_ratio_rms_max=fam["ratio_rms_max"],
+                   paper_srf_abs_delta_f1_max=fam["abs_delta_f1_max"],
+                   paper_phase_s=time.perf_counter() - t_phase)
+    print(f"paper phase: {timings['paper_phase_s']:.1f} s wall", flush=True)
+    return launches, rows, timings
+
+
 def seeded_model(dev, seed: int = 0, bf16: bool = False):
     """A full-width SegmentationModel whose output spreads over (0, 1) and
     follows the filter: Kaiming-normal (fan-out) convolutions, zero conv
@@ -3466,8 +3712,15 @@ def seeded_model(dev, seed: int = 0, bf16: bool = False):
     return model.to(dev).eval()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="chip smoke test of starcop_tpu_torch")
+    ap.add_argument("--paper-out", default=None,
+                    help="copy phase 23's summaries and validation results to this directory")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3912,14 +4165,20 @@ def main() -> int:
     # 22. the multi-device path: a one-rank NCCL world, two gloo ranks on the card ------
     parallel_launches, parallel_timings = parallel_phase(dev, centers, template, granules[0],
                                                          mf_plain0, twin64, model)
+    # 23. the user-facing surface: the paper reproduction and the SRF sensitivity --------
+    paper_launches, paper_rows, paper_timings = paper_phase(dev, card, args.paper_out)
     for row in kernels:
         if row["name"] in FILTER_LAUNCHES:
             row["eval_launches"] = eval_counts
             row["train_data_launches"] = eval_counts["dataset"][row["name"]]
             row["prepare_launches"] = {run: counts[row["name"]]
                                        for run, counts in prepare_launches.items()}
+            row["paper_launches"] = paper_launches[row["name"]]
     glue.update(aviris_launches=aviris_launches["filter_glue"])
     kernels += aviris_rows
+    for row in paper_rows:
+        row["launches"] = paper_launches[row["name"].replace("_paper_chip", "")]
+    kernels += paper_rows
     for row in kernels:
         if row["name"] in parallel_launches:
             row["parallel_launches"] = parallel_launches[row["name"]]
@@ -3927,7 +4186,8 @@ def main() -> int:
                                    **serving_timings, **bf16_timings, **masked_bf16_timings,
                                    **served_bf16_timings, **route_timings, **eval_timings,
                                    **train_timings, **aviris_timings, **multispectral_timings,
-                                   **prepare_timings, **codec_timings, **parallel_timings}),
+                                   **prepare_timings, **codec_timings, **parallel_timings,
+                                   **paper_timings}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

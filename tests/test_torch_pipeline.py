@@ -157,7 +157,11 @@ def test_port_imports_nothing_of_jax():
         "data/srf.py", "data/sensors.py", "data/mining.py", "data/permian.py",
         "data/ingest.py", "data/vectorize.py", "data/geo.py", "data/emit.py",
         "parallel/__init__.py", "parallel/mesh.py", "parallel/scene_mag1c.py",
-        "parallel/launch.py", "utils/profiling.py", "entry.py")} <= set(files)
+        "parallel/launch.py", "utils/profiling.py", "entry.py",
+        "experiments/__init__.py", "experiments/paper_reproduction.py",
+        "experiments/srf_sensitivity.py", "examples/__init__.py", "examples/emit_zero_shot.py",
+        "examples/model_demo_synthetic.py", "examples/dataset_exploration.py",
+        "examples/training_demo.py", "examples/srf_simulation_demo.py")} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
             if isinstance(node, ast.Import):
