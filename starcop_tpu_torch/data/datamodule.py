@@ -28,6 +28,7 @@ import torch
 
 from starcop_tpu_torch.data.dataset import ChipDataset, _read_product, read_index_csv
 from starcop_tpu_torch.device import DeviceLike, resolve_device
+from starcop_tpu_torch.utils.profiling import carry, span
 
 
 def sliding_window_offsets(height: int, width: int, size: int = 512, overlap: int = 256):
@@ -102,7 +103,9 @@ class BatchLoader:
     ``weighted=True`` draws indices with replacement in proportion to
     ``sample_weights``; ``shuffle`` permutes them; otherwise they run in
     order (eval). ``num_workers > 0`` reads chips on a thread pool (np.load
-    releases the GIL), at most 2 x num_workers batches ahead.
+    releases the GIL), at most 2 x num_workers batches ahead. Traced
+    (``utils.profiling``; the pool's reads take the iterating thread's
+    tracing state), a batch's reads and stack are span ``data.load``.
     """
 
     def __init__(
@@ -147,7 +150,7 @@ class BatchLoader:
             with concurrent.futures.ThreadPoolExecutor(self.num_workers) as pool:
                 inflight = collections.deque()
                 for b in batches:
-                    inflight.append(pool.submit(self._collate, b))
+                    inflight.append(pool.submit(carry(self._collate), b))
                     if len(inflight) > window:
                         yield inflight.popleft().result()
                 while inflight:
@@ -157,17 +160,18 @@ class BatchLoader:
                 yield self._collate(b)
 
     def _collate(self, indices: np.ndarray) -> Dict:
-        samples = [self.dataset[int(i)] for i in indices]
-        batch: Dict = {}
-        for key in samples[0]:
-            vals = [s[key] for s in samples]
-            if isinstance(vals[0], np.ndarray):
-                batch[key] = np.stack(vals)
-            elif isinstance(vals[0], (int, float, bool, np.floating)):
-                batch[key] = np.asarray(vals, np.float32)
-            else:
-                batch[key] = vals
-        return batch
+        with span("data.load"):
+            samples = [self.dataset[int(i)] for i in indices]
+            batch: Dict = {}
+            for key in samples[0]:
+                vals = [s[key] for s in samples]
+                if isinstance(vals[0], np.ndarray):
+                    batch[key] = np.stack(vals)
+                elif isinstance(vals[0], (int, float, bool, np.floating)):
+                    batch[key] = np.asarray(vals, np.float32)
+                else:
+                    batch[key] = vals
+            return batch
 
 
 def _numeric(v):

@@ -12,7 +12,8 @@ numbers.
   * aggregate and tile-classification metrics, and the PR-curve points.
 
 Every count of a batch is made on the device of the batch, and the host
-gets them in one copy per batch.
+gets them in one copy per batch. Traced (``utils.profiling``), the batch's
+rows on the host after that copy are span ``validation.rows``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from starcop_tpu_torch.eval import metrics as sm
+from starcop_tpu_torch.utils.profiling import span
 
 DEFAULT_THRESHOLDS: List[float] = sorted(
     [0.0, 1e-3, 1e-2] + list(np.arange(0.5, 0.96, 0.05)) + [0.99, 0.995, 0.999],
@@ -119,27 +121,28 @@ def run_validation(
         # One device-to-host copy for every count of the batch.
         host = torch.cat([cms.reshape(-1), sweep.reshape(-1), label_px, pred_px,
                           pred_cls]).cpu().numpy()
-        cms, rest = host[:4 * bsz].reshape(bsz, 2, 2), host[4 * bsz:]
-        sweep, rest = rest[:4 * len(thresholds)].reshape(-1, 2, 2), rest[4 * len(thresholds):]
-        label_px, pred_px, pred_cls = rest.reshape(3, bsz)
-        for k, thr in enumerate(thresholds):
-            cm_thresholds[thr] += sweep[k]
+        with span("validation.rows"):
+            cms, rest = host[:4 * bsz].reshape(bsz, 2, 2), host[4 * bsz:]
+            sweep, rest = rest[:4 * len(thresholds)].reshape(-1, 2, 2), rest[4 * len(thresholds):]
+            label_px, pred_px, pred_cls = rest.reshape(3, bsz)
+            for k, thr in enumerate(thresholds):
+                cm_thresholds[thr] += sweep[k]
 
-        for i in range(bsz):
-            cm_iter = cms[i]
-            cm_total += cm_iter
-            row: Dict[str, Any] = {}
-            for fun in sm.METRICS_CONFUSION_MATRIX + [sm.TP, sm.TN, sm.FP, sm.FN]:
-                row[fun.__name__] = float(fun(cm_iter))
-            ids = enriched.get("id", [str(len(out_data))] * bsz)
-            row["id"] = ids[i] if isinstance(ids, (list, tuple)) else str(ids)
-            row["label_pixels_plume"] = int(label_px[i])
-            row["has_plume"] = row["label_pixels_plume"] > 0
-            row["pred_classification"] = int(pred_cls[i])
-            row["pred_pixels_plume"] = int(pred_px[i])
-            out_data.append(row)
-            if plot_fn is not None:
-                plot_fn(enriched, i, row["id"])
+            for i in range(bsz):
+                cm_iter = cms[i]
+                cm_total += cm_iter
+                row: Dict[str, Any] = {}
+                for fun in sm.METRICS_CONFUSION_MATRIX + [sm.TP, sm.TN, sm.FP, sm.FN]:
+                    row[fun.__name__] = float(fun(cm_iter))
+                ids = enriched.get("id", [str(len(out_data))] * bsz)
+                row["id"] = ids[i] if isinstance(ids, (list, tuple)) else str(ids)
+                row["label_pixels_plume"] = int(label_px[i])
+                row["has_plume"] = row["label_pixels_plume"] > 0
+                row["pred_classification"] = int(pred_cls[i])
+                row["pred_pixels_plume"] = int(pred_px[i])
+                out_data.append(row)
+                if plot_fn is not None:
+                    plot_fn(enriched, i, row["id"])
 
     # ---------------------------------------------------------- aggregates
     metrics: Dict[str, Any] = {}

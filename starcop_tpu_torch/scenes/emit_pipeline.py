@@ -28,6 +28,7 @@ from starcop_tpu_torch.ops.mag1c import NODATA, mag1c_column_blocks
 from starcop_tpu_torch.ops.padding import find_padding, reflect_pad
 from starcop_tpu_torch.parallel.mesh import mesh_device
 from starcop_tpu_torch.parallel.scene_mag1c import sharded_mag1c_scene
+from starcop_tpu_torch.utils.profiling import count, span
 
 
 def emit_mag1c(
@@ -114,16 +115,33 @@ def emit_granule_to_mask(
 
     Returns:
         (prediction (H, W), mf (H, W)) float32 tensors on ``device``.
+
+    Traced (``utils.profiling``), the inputs' move to the device is span
+    ``entry.upload``, its counter ``bytes`` the bytes of the inputs handed in
+    from host memory (0 for tensors on the device already), and the filter is
+    span ``entry.filter``.
     """
     dev = resolve_device(device)
     with torch.inference_mode(), float32_precision():
-        x = torch.as_tensor(cube, dtype=torch.float32, device=dev)
-        rgb = torch.as_tensor(rgb_chw, dtype=torch.float32, device=dev)
-        mf, _ = mag1c_column_blocks(
-            x, template, valid_mask, column_step=column_step, num_iter=num_iter,
-            alpha=alpha, stream_dtype=stream_dtype, device=dev,
-        )
+        with span("entry.upload") as upload:
+            x = torch.as_tensor(cube, dtype=torch.float32, device=dev)
+            rgb = torch.as_tensor(rgb_chw, dtype=torch.float32, device=dev)
+            if upload is not None:
+                count("bytes", _host_bytes(cube, dev) + _host_bytes(rgb_chw, dev))
+        with span("entry.filter"):
+            mf, _ = mag1c_column_blocks(
+                x, template, valid_mask, column_step=column_step, num_iter=num_iter,
+                alpha=alpha, stream_dtype=stream_dtype, device=dev,
+            )
         return plume_mask(mf[None], rgb[None], model_apply)[0], mf
+
+
+def _host_bytes(a, dev: torch.device) -> int:
+    """The bytes ``torch.as_tensor(a, device=dev)`` reads from ``a``: 0 for
+    a tensor already on a ``dev.type`` device."""
+    if isinstance(a, torch.Tensor):
+        return 0 if a.device.type == dev.type else a.nbytes
+    return np.asarray(a).nbytes
 
 
 def emit_granule_to_mask_batched(

@@ -44,6 +44,7 @@ from starcop_tpu_torch.device import DeviceLike, resolve_device
 from starcop_tpu_torch.ops.ch4_template import generate_template_from_bands
 from starcop_tpu_torch.ops.mag1c import NODATA, is_bf16_stream
 from starcop_tpu_torch.scenes.emit_pipeline import emit_granule_to_mask
+from starcop_tpu_torch.utils.profiling import carry, span
 
 logger = logging.getLogger("starcop_tpu_torch.serve")
 
@@ -79,6 +80,13 @@ class ScenePipeline:
 
     A scene whose read, compute or write raises is logged and reported in
     its ``SceneResult.error``; the other scenes go on.
+
+    Traced (``utils.profiling``; the stage threads take the tracing state of
+    the thread that calls ``run``), each stage's call is span ``serve.read``,
+    ``serve.compute`` or ``serve.write`` under the scene's name as key, and
+    ``SceneResult.timings`` are those spans' durations; a compute worker
+    waiting on the reader is span ``serve.get_wait``, the reader waiting on
+    the compute workers ``serve.put_wait``.
     """
 
     def __init__(
@@ -105,10 +113,13 @@ class ScenePipeline:
 
         def reader():
             for name in names:
-                t0 = time.time()
+                t0 = time.time_ns()
                 try:
-                    payload = self.read_fn(name)
-                    read_q.put((name, payload, time.time() - t0))
+                    with span("serve.read", key=name) as sp:
+                        payload = self.read_fn(name)
+                    item = (name, payload, _seconds(sp, t0))
+                    with span("serve.put_wait", key=name):
+                        read_q.put(item)
                 except Exception as e:  # noqa: BLE001 -- isolate scene failures
                     logger.exception("read failed for %s", name)
                     with results_lock:
@@ -118,15 +129,18 @@ class ScenePipeline:
 
         def computer(fn):
             while True:
-                item = read_q.get()
+                with span("serve.get_wait"):
+                    item = read_q.get()
                 if item is _SENTINEL:
                     write_q.put(_SENTINEL)
                     return
                 name, payload, t_read = item
-                t0 = time.time()
+                t0 = time.time_ns()
                 try:
-                    outputs = fn(payload)
-                    write_q.put((name, outputs, {"read_s": t_read, "compute_s": time.time() - t0}))
+                    with span("serve.compute", key=name) as sp:
+                        outputs = fn(payload)
+                    write_q.put((name, outputs, {"read_s": t_read,
+                                                 "compute_s": _seconds(sp, t0)}))
                 except Exception as e:  # noqa: BLE001
                     logger.exception("compute failed for %s", name)
                     with results_lock:
@@ -140,11 +154,12 @@ class ScenePipeline:
                     done_workers += 1
                     continue
                 name, outputs, timings = item
-                t0 = time.time()
+                t0 = time.time_ns()
                 try:
-                    if self.write_fn is not None:
-                        self.write_fn(name, outputs)
-                    timings["write_s"] = time.time() - t0
+                    with span("serve.write", key=name) as sp:
+                        if self.write_fn is not None:
+                            self.write_fn(name, outputs)
+                    timings["write_s"] = _seconds(sp, t0)
                     with results_lock:
                         results.append(SceneResult(name, outputs, timings))
                 except Exception as e:  # noqa: BLE001
@@ -152,10 +167,10 @@ class ScenePipeline:
                     with results_lock:
                         results.append(SceneResult(name, outputs, timings, error=f"write: {e}"))
 
-        threads = [threading.Thread(target=reader, daemon=True)]
-        threads += [threading.Thread(target=computer, args=(fn,), daemon=True)
+        threads = [threading.Thread(target=carry(reader), daemon=True)]
+        threads += [threading.Thread(target=carry(computer), args=(fn,), daemon=True)
                     for fn in self.compute_fns]
-        threads += [threading.Thread(target=writer, daemon=True)]
+        threads += [threading.Thread(target=carry(writer), daemon=True)]
         t_start = time.time()
         for t in threads:
             t.start()
@@ -166,6 +181,12 @@ class ScenePipeline:
         logger.info("pipeline: %d scenes (%d ok, %d workers) in %.2fs (%.2fs/scene)",
                     len(results), len(ok), n_workers, wall, wall / max(len(results), 1))
         return results
+
+
+def _seconds(sp, t0: int) -> float:
+    """A stage's seconds: its span's own stamps when traced, else from
+    ``t0`` (``time.time_ns``) to now."""
+    return sp.seconds if sp is not None else (time.time_ns() - t0) / 1e9
 
 
 # ---------------------------------------------------------------------------
@@ -241,8 +262,13 @@ def encode_payload(granule: Dict, upload_dtype=None) -> Dict:
     under u10, else f32. The valid mask ships bit-packed. Returns
     {"codec", "wire" (arrays to upload), "valid_host" (the (H, W) bool mask,
     kept on the host), "wavelengths", "fwhm", "glt", "transform", "crs_epsg"}.
+    Traced, the encoding is span ``serve.encode``.
     """
-    codec = wire_codec(upload_dtype)
+    with span("serve.encode"):
+        return _encode_payload(granule, wire_codec(upload_dtype))
+
+
+def _encode_payload(granule: Dict, codec: str) -> Dict:
     cube, fill = granule["cube"], granule["fill_value"]
     wire: Dict[str, np.ndarray] = {}
     if codec == "u12":
