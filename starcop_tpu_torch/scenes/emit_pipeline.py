@@ -29,6 +29,7 @@ from starcop_tpu_torch.ops.padding import find_padding, reflect_pad
 from starcop_tpu_torch.parallel.mesh import mesh_device
 from starcop_tpu_torch.parallel.scene_mag1c import sharded_mag1c_scene
 from starcop_tpu_torch.utils.profiling import count, span
+from starcop_tpu_torch.utils.staging import stage_to_device
 
 
 def emit_mag1c(
@@ -116,16 +117,24 @@ def emit_granule_to_mask(
     Returns:
         (prediction (H, W), mf (H, W)) float32 tensors on ``device``.
 
+    A host input bound for the card (numpy or a CPU tensor, 8 MiB or more as
+    float32: the cube, then the RGB planes) is staged through a pinned ring
+    kept across calls, its host copy of one row band overlapping the DMA of
+    the band before (``utils.staging.stage_to_device``); anything else moves
+    by ``torch.as_tensor``. Either way the card receives the same float32
+    values.
+
     Traced (``utils.profiling``), the inputs' move to the device is span
     ``entry.upload``, its counter ``bytes`` the bytes of the inputs handed in
-    from host memory (0 for tensors on the device already), and the filter is
-    span ``entry.filter``.
+    from host memory (0 for tensors on the device already) and its counter
+    ``staged_bytes`` the part of them that went through the ring (absent
+    when none did), and the filter is span ``entry.filter``.
     """
     dev = resolve_device(device)
     with torch.inference_mode(), float32_precision():
         with span("entry.upload") as upload:
-            x = torch.as_tensor(cube, dtype=torch.float32, device=dev)
-            rgb = torch.as_tensor(rgb_chw, dtype=torch.float32, device=dev)
+            x = stage_to_device(cube, dev)
+            rgb = stage_to_device(rgb_chw, dev)
             if upload is not None:
                 count("bytes", _host_bytes(cube, dev) + _host_bytes(rgb_chw, dev))
         with span("entry.filter"):

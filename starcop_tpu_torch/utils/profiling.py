@@ -18,7 +18,10 @@ its host events (Unix-epoch nanoseconds), so a span can be joined with the
 trace's launches and device activity. The spans:
 
   * ``entry.upload`` (counter ``bytes``: the bytes handed in from host
-    memory), ``entry.filter``: ``scenes.emit_pipeline.emit_granule_to_mask``;
+    memory; counter ``staged_bytes``: those of them that
+    ``utils.staging.stage_to_device`` copied through its pinned ring, absent
+    when none were), ``entry.filter``:
+    ``scenes.emit_pipeline.emit_granule_to_mask``;
   * ``serve.read``, ``serve.compute``, ``serve.write`` (key: the granule's
     name), ``serve.get_wait`` (the compute worker waiting on the reader),
     ``serve.put_wait`` (the reader waiting on the compute worker):

@@ -1,0 +1,168 @@
+"""The pinned-ring upload of host arrays (starcop_tpu_torch/utils/staging.py).
+
+On the CPU: the band planner covers the leading axis once, in order, each
+band within ``BAND_BYTES``, the last ragged; a small array, a device tensor,
+the CPU device and arrays torch cannot wrap take the plain path, which
+counts no ``staged_bytes`` (``test_torch_spans.py`` holds
+``entry.upload``'s counters on the CPU).
+
+On the card (marker ``cuda``, skipped without one; imports no JAX, so it
+runs with ``--noconftest``): the staged upload is bitwise
+``torch.as_tensor``'s for a contiguous f32 cube, a band-sliced strided
+view, an f64 input and a ragged leading axis; two granules staged back to
+back behind a busy stream keep their own bytes; ``emit_granule_to_mask``'s
+``entry.upload`` carries ``staged_bytes == bytes``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from starcop_tpu_torch.scenes.emit_pipeline import emit_granule_to_mask  # noqa: E402
+from starcop_tpu_torch.utils import staging  # noqa: E402
+from starcop_tpu_torch.utils.profiling import clear_spans, span, spans  # noqa: E402
+from starcop_tpu_torch.utils.staging import (  # noqa: E402
+    BAND_BYTES,
+    STAGE_MIN_BYTES,
+    plan_bands,
+    stage_to_device,
+    staged_source,
+)
+
+CUDA = torch.device("cuda")
+GRANULE = (1280, 1242, 50)  # an EMIT granule's band-selected cube
+
+
+@pytest.fixture(autouse=True)
+def empty_log():
+    clear_spans()
+    yield
+    clear_spans()
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return CUDA
+
+
+@pytest.mark.parametrize("shape", [GRANULE, (3, 1280, 1242), (1001, 1242, 50), (67, 1242, 50),
+                                   (5,), (4 << 20,), (1, 2048, 2048), (9, 3)])
+def test_bands_cover_the_leading_axis_once_in_order(shape):
+    bands = plan_bands(shape)
+    row = 4 * int(np.prod(shape[1:]))
+    assert bands[0][0] == 0 and bands[-1][1] == shape[0]
+    assert all(a[1] == b[0] for a, b in zip(bands, bands[1:]))
+    sizes = [stop - start for start, stop in bands]
+    assert all(n >= 1 and n * row <= BAND_BYTES for n in sizes)
+    assert len(set(sizes[:-1])) <= 1 and sizes[-1] <= sizes[0]
+    assert (sizes[0] + 1) * row > BAND_BYTES or len(bands) == 1  # as many rows as fit
+
+
+def test_granule_bands_end_ragged():
+    rows = BAND_BYTES // (4 * 1242 * 50)
+    bands = plan_bands(GRANULE)
+    assert len(bands) == -(-1280 // rows) and bands[-1] == (rows * (len(bands) - 1), 1280)
+    assert 1280 % rows and bands[-1][1] - bands[-1][0] == 1280 % rows
+    assert plan_bands((3, 1280, 1242)) == [(0, 2), (2, 3)]  # the RGB planes
+
+
+def test_which_inputs_are_staged():
+    n = STAGE_MIN_BYTES // 4
+    big = np.zeros((8, n // 8), np.float32)
+    got = staged_source(big, CUDA)
+    assert got is not None and got.data_ptr() == big.ctypes.data  # no copy
+    assert staged_source(big.astype(np.float16), CUDA) is not None  # f32 size counts
+    t = torch.from_numpy(big)
+    assert staged_source(t, CUDA) is t
+    assert staged_source(big[:, ::2], CUDA) is None  # under the size as float32
+    assert staged_source(np.zeros((8, n // 8 - 1), np.float32), CUDA) is None  # small
+    assert staged_source(big, torch.device("cpu")) is None  # the CPU device
+    assert staged_source(t, torch.device("cpu")) is None
+    assert staged_source(torch.empty(big.shape, device="meta"), CUDA) is None  # on a device
+    assert staged_source(big[::-1], CUDA) is None  # a stride torch cannot wrap
+    assert staged_source([1.0, 2.0], CUDA) is None  # not an array
+    wide = np.zeros((2, BAND_BYTES // 4 + 1), np.float32)  # a row wider than a band
+    assert staged_source(wide, CUDA) is None
+
+
+def test_cpu_device_takes_torch_as_tensor():
+    a = np.arange(STAGE_MIN_BYTES // 4, dtype=np.float64).reshape(64, -1)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with span("upload") as s:
+            got = stage_to_device(a, torch.device("cpu"))
+    assert torch.equal(got, torch.as_tensor(a, dtype=torch.float32))
+    assert s.counts == {} and [x.name for x in spans()] == ["upload"]
+    t = torch.ones(4, 5)
+    assert stage_to_device(t, torch.device("cpu")) is t
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+
+def _cube(shape, seed, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+CASES = {
+    "contiguous_f32": lambda: _cube(GRANULE, 1),
+    "band_sliced_view": lambda: _cube((640, 1242, 60), 2)[..., 4:54],
+    "f64": lambda: _cube((400, 1242, 50), 3, np.float64),
+    "ragged_rows": lambda: _cube((1001, 1242, 50), 4),
+    "rgb_planes": lambda: _cube((3, 1280, 1242), 5),
+    "cpu_tensor": lambda: torch.from_numpy(_cube((300, 1242, 50), 6)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_staged_upload_is_bitwise_as_tensor(card, case):
+    a = CASES[case]()
+    assert staged_source(a, card) is not None
+    with profile(activities=[ProfilerActivity.CPU]):
+        with span("upload") as s:
+            got = stage_to_device(a, card)
+    want = torch.as_tensor(a, dtype=torch.float32, device=card)
+    assert got.is_contiguous() and got.device.type == "cuda" and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert s.counts == {"staged_bytes": a.nbytes}
+
+
+@pytest.mark.cuda
+def test_back_to_back_granules_keep_their_own_bytes(card):
+    a, b = _cube(GRANULE, 7), _cube(GRANULE, 8)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # hold the stream, so the copies queue behind it
+    xa = stage_to_device(a, card)
+    xb = stage_to_device(b, card)
+    a[:] = 0.0  # the caller reuses its arrays once the call returns
+    b[:] = 0.0
+    torch.cuda.synchronize()
+    assert torch.equal(xa.cpu(), torch.from_numpy(_cube(GRANULE, 7)))
+    assert torch.equal(xb.cpu(), torch.from_numpy(_cube(GRANULE, 8)))
+    assert len(plan_bands(GRANULE)) > staging.RING_SLOTS  # every slot was reused
+
+
+@pytest.mark.cuda
+def test_entry_upload_counts_staged_bytes(card):
+    h, w, s = 1024, 768, 16
+    rng = np.random.default_rng(9)
+    cube = (10.0 + rng.random((h, w, s))).astype(np.float32)
+    rgb = rng.random((3, h, w)).astype(np.float32)
+    template = -np.abs(np.sin(np.linspace(0.3, 3 * np.pi, s))).astype(np.float32)
+    kw = dict(column_step=64, num_iter=2, alpha=1e-4, device=card)
+    with profile(activities=[ProfilerActivity.CPU]):
+        pred, mf = emit_granule_to_mask(cube, rgb, template, lambda x: x[:, :1], **kw)
+    upload = next(x for x in spans() if x.name == "entry.upload")
+    assert upload.counts == {"bytes": cube.nbytes + rgb.nbytes,
+                             "staged_bytes": cube.nbytes + rgb.nbytes}
+    want_pred, want_mf = emit_granule_to_mask(torch.as_tensor(cube, device=card),
+                                              torch.as_tensor(rgb, device=card), template,
+                                              lambda x: x[:, :1], **kw)
+    assert torch.equal(pred, want_pred) and torch.equal(mf, want_mf)
