@@ -6,7 +6,9 @@ mag1c GeoTIFFs, on the CUDA card.
 
 The counterpart of starcop_tpu/cli/infer_emit.py, with its flags: the
 masked matched filter, the EMIT->AVIRIS renormalisation and the
-whole-scene U-Net (bf16-resident unless ``--model-dtype f32``).
+whole-scene U-Net (bf16-resident unless ``--model-dtype f32``;
+``--model-type`` names another network of ``models.segmenter.ARCHITECTURES``,
+e.g. ``segformer_b5``).
 ``--device cpu`` runs on the host instead of the card. Prints the
 granule's wall time (a ``StageTimer`` stage, the device synchronised at its
 edges) and its mean prediction.
@@ -22,6 +24,8 @@ import numpy as np
 
 
 def main(argv=None) -> int:
+    from starcop_tpu_torch.models.segmenter import ARCHITECTURES
+
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("granule", help="EMIT L1B radiance .nc file")
     p.add_argument("--checkpoint", required=True,
@@ -32,6 +36,8 @@ def main(argv=None) -> int:
     p.add_argument("--georeference", action="store_true")
     p.add_argument("--model-dtype", choices=("bf16", "f32"), default="bf16",
                    help="bf16 = bf16-resident U-Net weights (cast once at load; logits f32)")
+    p.add_argument("--model-type", choices=sorted(ARCHITECTURES), default="unet_semseg",
+                   help="the checkpoint's network (models.segmenter.ARCHITECTURES)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cpu = the plain torch path on the host (no card needed)")
     args = p.parse_args(argv)
@@ -49,7 +55,7 @@ def main(argv=None) -> int:
     from starcop_tpu_torch.utils.profiling import StageTimer
 
     dev = resolve_device(args.device)
-    model = SegmentationModel(EMIT_INPUT_PRODUCTS)
+    model = SegmentationModel(EMIT_INPUT_PRODUCTS, model_type=args.model_type)
     model.network.load_state_dict(load_pretrained_state_dict(args.checkpoint), strict=True)
     if args.model_dtype == "bf16":
         cast_for_inference(model)

@@ -6,9 +6,11 @@
 The counterpart of starcop_tpu/cli/serve.py, with its flags and defaults:
 the three-stage pipelined runtime (host read | device compute | host write),
 a bf16-resident U-Net unless ``--model-dtype f32``, and the bf16 matched-
-filter stream with ``--bf16-stream``. ``--devices N`` serves scenes across
-cuda:0..N-1. ``--device cpu`` runs the plain torch path on the CPU instead
-of the card. ``--watch N`` polls the directory every N seconds.
+filter stream with ``--bf16-stream``. ``--model-type`` names the
+checkpoint's network (default ``unet_semseg``; e.g. ``segformer_b5``).
+``--devices N`` serves scenes across cuda:0..N-1. ``--device cpu`` runs the
+plain torch path on the CPU instead of the card. ``--watch N`` polls the
+directory every N seconds.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import time
 
 
 def main(argv=None) -> int:
+    from starcop_tpu_torch.models.segmenter import ARCHITECTURES
+
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--granules-dir", required=True)
     p.add_argument("--pattern", default="*.nc")
@@ -44,6 +48,8 @@ def main(argv=None) -> int:
                         "exact), f32 = the results as computed")
     p.add_argument("--model-dtype", choices=("bf16", "f32"), default="bf16",
                    help="bf16 = bf16-resident U-Net weights (cast once at load; logits f32)")
+    p.add_argument("--model-type", choices=sorted(ARCHITECTURES), default="unet_semseg",
+                   help="the checkpoint's network (models.segmenter.ARCHITECTURES)")
     p.add_argument("--devices", type=int, default=1,
                    help="serve scenes across N cards (cuda:0..N-1), one compute worker each")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -63,7 +69,7 @@ def main(argv=None) -> int:
     from starcop_tpu_torch.models.weights import load_pretrained_state_dict
     from starcop_tpu_torch.serve.pipeline import emit_serving_pipeline
 
-    model = SegmentationModel(EMIT_INPUT_PRODUCTS)
+    model = SegmentationModel(EMIT_INPUT_PRODUCTS, model_type=args.model_type)
     model.network.load_state_dict(load_pretrained_state_dict(args.checkpoint), strict=True)
     if args.model_dtype == "bf16":
         cast_for_inference(model)

@@ -6,7 +6,8 @@ constants and runs the network, returning (B, K, H, W) logits.
 ``batch_with_preds`` enriches a batch dict with the predictions the
 validation harness reads (eval/validation.py), and ``loss_fn`` is the
 weighted BCE of training. Every segmentation ``model_type`` of the JAX
-package builds (``ARCHITECTURES``).
+package builds (``ARCHITECTURES``), and the port's own ``segformer_b5``
+(models/segformer.py).
 
 Batch protocol: a dict with input (B, C, H, W), output (B, 1, H, W),
 optionally weight_loss (B, 1, H, W), has_plume (B,) and id (list of str).
@@ -14,10 +15,10 @@ optionally weight_loss (B, 1, H, W), has_plume (B,) and id (list of str).
 Precision, two routes:
 
   * mixed-precision training (``model_dtype=torch.bfloat16``, the config's
-    ``model.dtype=bfloat16``; ``unet_semseg`` only, as in JAX): the
-    network computes under ``torch.autocast`` in bf16 while its parameters,
-    the batch-norm statistics and the loss stay f32, and the logits come
-    back f32 (starcop_tpu/models/mobilenet_unet.py:171-185);
+    ``model.dtype=bfloat16``; ``unet_semseg``, as in JAX, and the SegFormers):
+    the network computes under ``torch.autocast`` in bf16 while its
+    parameters, the batch-norm statistics and the loss stay f32, and the
+    logits come back f32 (starcop_tpu/models/mobilenet_unet.py:171-185);
   * bf16-resident inference (the serving CLI's default): call
     ``cast_for_inference`` once. The input is normalised in f32, cast to
     the network's parameter dtype, runs through bf16 weights and batch-norm
@@ -37,6 +38,7 @@ from torch import nn
 from starcop_tpu_torch.data.normalizer import DataNormalizer
 from starcop_tpu_torch.models.layers import init_like_flax
 from starcop_tpu_torch.models.mobilenet_unet import MobileNetV2UNet
+from starcop_tpu_torch.models.segformer import ARCHITECTURES as SEGFORMERS
 from starcop_tpu_torch.models.simple import SimpleCNN, SimpleCNNRegression, SingleConv
 from starcop_tpu_torch.models.unet import UNet, UNetDropout
 
@@ -74,7 +76,10 @@ ARCHITECTURES: Dict[str, Callable[[int, int], nn.Module]] = {
     "cnn": SimpleCNN,
     "single": SingleConv,
     "cnn_regression": SimpleCNNRegression,
+    **SEGFORMERS,
 }
+# The networks that compute under bf16 autocast for ``model_dtype=torch.bfloat16``.
+AUTOCAST_TYPES = ("unet_semseg", *SEGFORMERS)
 
 
 def configure_architecture(architecture: str, in_channels: int, num_classes: int) -> nn.Module:
@@ -122,9 +127,9 @@ class SegmentationModel(nn.Module):
         super().__init__()
         if model_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"model_dtype must be None, float32 or bfloat16, got {model_dtype}")
-        if model_dtype == torch.bfloat16 and model_type != "unet_semseg":
-            warnings.warn(f"model dtype={model_dtype} is only plumbed through 'unet_semseg'; "
-                          f"'{model_type}' will compute in float32")
+        if model_dtype == torch.bfloat16 and model_type not in AUTOCAST_TYPES:
+            warnings.warn(f"model dtype={model_dtype} is only plumbed through "
+                          f"{', '.join(AUTOCAST_TYPES)}; '{model_type}' will compute in float32")
             model_dtype = None
         self.input_products = list(input_products)
         self.output_products = list(output_products)
@@ -140,13 +145,18 @@ class SegmentationModel(nn.Module):
 
     def init(self, generator: Optional[torch.Generator] = None) -> "SegmentationModel":
         """Re-initialise the network as Flax does (``init_like_flax``, drawn
-        from ``generator``), then the ImageNet encoder rule of
-        segmenter.py:144-177: with ``encoder_weights='auto'`` a 3-product
+        from ``generator``; a network with its own ``init_weights``, as the
+        SegFormers' NVlabs rule, draws by that), then the ImageNet encoder
+        rule of segmenter.py:144-177: with ``encoder_weights='auto'`` a 3-product
         ``unet_semseg`` takes its encoder from a torchvision mobilenet_v2
         checkpoint when ``find_imagenet_mobilenet_v2`` finds one;
         ``'imagenet'`` makes a missing checkpoint an error; None or 'none'
         never loads one."""
-        init_like_flax(self.network, generator)
+        own = getattr(self.network, "init_weights", None)
+        if own is not None:
+            own(generator)
+        else:
+            init_like_flax(self.network, generator)
         if (self.encoder_weights in ("auto", "imagenet") and self.model_type == "unet_semseg"
                 and len(self.input_products) == 3):
             ckpt = find_imagenet_mobilenet_v2()
@@ -165,7 +175,8 @@ class SegmentationModel(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Normalised input -> network -> logits (f32 at least). ``generator``
-        draws the dropout masks of a training forward (``unet_dropout``)."""
+        draws the dropout masks of a training forward (``unet_dropout``, the
+        SegFormers)."""
         xn = self.normalizer.normalize_x(x)
         kw = {} if generator is None else {"generator": generator}
         if self.model_dtype is not None:
