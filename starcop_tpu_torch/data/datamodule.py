@@ -5,7 +5,8 @@
     plume fraction and the has_plume > 10 / 64^2 rule;
   * ``sample_weights``: balanced plume / background sampling weights;
   * ``BatchLoader``: batches of the (B, C, H, W) dict protocol, sequential,
-    shuffled or weighted with replacement, chip reads on a thread pool;
+    shuffled or weighted with replacement, assembled by the dataset's
+    ``read_batch`` (optionally on a thread pool);
   * ``prefetch_to_device``: pinned host buffers and a side stream, so the
     next batches' copies overlap the current batch's compute;
   * ``DataModule``: an index CSV -> the five dataset views and the train /
@@ -26,7 +27,8 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from starcop_tpu_torch.data.dataset import ChipDataset, _read_product, read_index_csv
+from starcop_tpu_torch.data.dataset import (ChipDataset, _read_product, read_index_csv,
+                                            stack_samples)
 from starcop_tpu_torch.device import DeviceLike, resolve_device
 from starcop_tpu_torch.utils.profiling import carry, span
 
@@ -102,10 +104,14 @@ class BatchLoader:
 
     ``weighted=True`` draws indices with replacement in proportion to
     ``sample_weights``; ``shuffle`` permutes them; otherwise they run in
-    order (eval). ``num_workers > 0`` reads chips on a thread pool (np.load
-    releases the GIL), at most 2 x num_workers batches ahead. Traced
+    order (eval). A batch comes from the dataset's ``read_batch`` where it
+    has one (``ChipDataset``: one threaded native read of every product
+    straight into the batch arrays, where no sample draws anything of its
+    own), else from stacking its samples. ``num_workers > 0`` assembles
+    batches on a thread pool, at most 2 x num_workers batches ahead. Traced
     (``utils.profiling``; the pool's reads take the iterating thread's
-    tracing state), a batch's reads and stack are span ``data.load``.
+    tracing state), a batch's assembly is span ``data.load``, with
+    ``read_batch``'s counters ``chips`` and ``native_chips``.
     """
 
     def __init__(
@@ -161,17 +167,10 @@ class BatchLoader:
 
     def _collate(self, indices: np.ndarray) -> Dict:
         with span("data.load"):
-            samples = [self.dataset[int(i)] for i in indices]
-            batch: Dict = {}
-            for key in samples[0]:
-                vals = [s[key] for s in samples]
-                if isinstance(vals[0], np.ndarray):
-                    batch[key] = np.stack(vals)
-                elif isinstance(vals[0], (int, float, bool, np.floating)):
-                    batch[key] = np.asarray(vals, np.float32)
-                else:
-                    batch[key] = vals
-            return batch
+            read_batch = getattr(self.dataset, "read_batch", None)
+            if read_batch is not None:
+                return read_batch(indices)
+            return stack_samples([self.dataset[int(i)] for i in indices])
 
 
 def _numeric(v):

@@ -10,7 +10,12 @@ by the port's own codec (``starcop_tpu_torch.data.geotiff``), with the same
 window semantics.
 
 The reader is host-side numpy: chips feed ``datamodule.prefetch_to_device``,
-and all math after batching runs on the device.
+and all math after batching runs on the device. ``ChipDataset.read_batch``
+assembles a batch: where no sample draws anything of its own, every product
+of every chip that ``chip_io`` takes is read straight into its slice of the
+batch arrays by one threaded native call, the rest as ``__getitem__`` reads
+them; the batch is the one ``stack_samples`` makes of ``__getitem__``'s
+samples, bitwise.
 """
 
 from __future__ import annotations
@@ -36,6 +41,21 @@ def read_index_csv(path: str) -> List[Dict]:
     return rows
 
 
+def collate_values(vals: List):
+    """One key of a batch from its samples' values: arrays stacked, numbers
+    as a float32 array, anything else a list."""
+    if isinstance(vals[0], np.ndarray):
+        return np.stack(vals)
+    if isinstance(vals[0], (int, float, bool, np.floating)):
+        return np.asarray(vals, np.float32)
+    return vals
+
+
+def stack_samples(samples: Sequence[Dict]) -> Dict:
+    """The batch of ``samples``, key by key in the first sample's order."""
+    return {key: collate_values([s[key] for s in samples]) for key in samples[0]}
+
+
 def _read_product(folder: str, product: str, window: Optional[Tuple[int, int, int, int]]) -> np.ndarray:
     """Read one product raster, optionally windowed (col_off, row_off, w, h)."""
     from starcop_tpu_torch.data.geotiff import find_raster, load_raster
@@ -52,6 +72,8 @@ class ChipDataset:
     Returns dict samples: input (C, H, W), output (1, H, W), weight_loss
     (1, H, W) if configured, id, has_plume. RGB-AVIRIS convenience (/50 like
     the reference dataset.py:91) applies when ``add_rgb_aviris``.
+    ``read_batch(indices)`` returns those samples' batch without reading
+    them one by one (see the module's docstring).
     """
 
     RGB_AVIRIS = ("TOA_AVIRIS_640nm", "TOA_AVIRIS_550nm", "TOA_AVIRIS_460nm")
@@ -110,6 +132,85 @@ class ChipDataset:
                 row["window_height"],
             )
         return None
+
+    def _products(self) -> Dict[str, List[str]]:
+        """The sample's arrays and their products, in ``__getitem__``'s order."""
+        keys = {"input": self.input_products, "output": self.output_products}
+        if self.weight_loss_product:
+            keys["weight_loss"] = [self.weight_loss_product]
+        for p in self.extra_products:
+            keys[p] = [p]
+        if self.add_rgb_aviris:
+            keys["rgb_aviris"] = list(self.RGB_AVIRIS)
+        return keys
+
+    def read_batch(self, indices: Sequence[int]) -> Dict:
+        """``stack_samples([self[i] for i in indices])``, bitwise. Where a
+        sample draws from the generator (``augment``, ``window_size_sample``)
+        or an extra product shadows another key, it is exactly that, as
+        for an empty batch or key (which raise as they do). Otherwise each
+        product of each chip is read once into
+        ``batch[key][i, c]``: in one ``chip_io.BatchRead`` where ``chip_io``
+        takes it, else by ``__getitem__``'s reader; and should a product
+        come back in a shape the batch cannot hold, the batch is stacked
+        from ``__getitem__`` after all. Adds counters ``chips`` and
+        ``native_chips`` (chips all of whose products took the native read)
+        to the open span."""
+        from starcop_tpu_torch.data import chip_io
+        from starcop_tpu_torch.data.geotiff import find_raster
+        from starcop_tpu_torch.utils.profiling import count
+
+        indices = [int(i) for i in indices]
+        count("chips", len(indices))
+
+        def per_chip():
+            count("native_chips", 0)
+            return stack_samples([self[i] for i in indices])
+
+        keys = self._products()
+        names = ["input", "output"] + (["weight_loss"] if self.weight_loss_product else []) + \
+            self.extra_products + (["rgb_aviris"] if self.add_rgb_aviris else [])
+        if (self.augment or self.window_size_sample is not None or len(keys) != len(names)
+                or {"id", "has_plume"} & set(keys) or not indices or not all(keys.values())):
+            return per_chip()
+
+        # Plan every product: a native source, or the array read the old way.
+        slots = [(key, n, c, self.rows[idx], p) for key, products in keys.items()
+                 for n, idx in enumerate(indices) for c, p in enumerate(products)]
+        paths = [find_raster(row["folder"], p) for _, _, _, row, p in slots]
+        sources = iter(chip_io.plan([(path, self._window(slot[3]))
+                                     for path, slot in zip(paths, slots) if path is not None]))
+        planned, shapes, native = {}, {}, [True] * len(indices)
+        for (key, n, c, row, p), path in zip(slots, paths):
+            src = None if path is None else next(sources)
+            if src is None:
+                native[n] = False
+                src = _read_product(row["folder"], p, self._window(row))
+            planned[key, n, c] = src
+            shapes.setdefault(key, set()).add(src.shape)
+        if any(len(s) != 1 or len(next(iter(s))) != 2 for s in shapes.values()):
+            return per_chip()
+
+        arrays = {key: np.empty((len(indices), len(products)) + next(iter(shapes[key])),
+                                np.float32) for key, products in keys.items()}
+        reads = chip_io.BatchRead()
+        for (key, n, c), src in planned.items():
+            if isinstance(src, np.ndarray):
+                arrays[key][n, c] = src
+            else:
+                reads.add(src, arrays[key][n, c])
+        reads.run()
+        if self.add_rgb_aviris:
+            arrays["rgb_aviris"] /= 50.0
+        count("native_chips", sum(native))
+
+        ids, flags = [], []
+        for n, idx in enumerate(indices):
+            row = self.rows[idx]
+            ids.append(row.get("id", str(idx)))
+            flags.append(float(row["has_plume"]) if "has_plume" in row
+                         else float(arrays["output"][n].sum() > 0))
+        return {"id": collate_values(ids), "has_plume": collate_values(flags), **arrays}
 
     def __getitem__(self, idx: int) -> Dict:
         row = self.rows[idx]

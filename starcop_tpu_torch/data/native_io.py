@@ -88,29 +88,34 @@ def _query(cmd: Sequence[str]) -> str:
     return res.stdout
 
 
-def build_dir(cxx: str) -> str:
-    """``_build/io-<hash>``: the hash covers the source, the flags, the
-    compiler's version, the target that ``-march=native`` resolves to on
-    this host and the host's machine type."""
+def build_dir(cxx: str, source: Optional[str] = None, prefix: str = "io",
+              libs: Sequence[str] = ()) -> str:
+    """``_build/<prefix>-<hash>``: the hash covers the source (default
+    ``SOURCE``), the flags and libraries, the compiler's version, the target
+    that ``-march=native`` resolves to on this host and the host's machine
+    type."""
     h = hashlib.sha256()
-    with open(SOURCE, "rb") as fh:
+    with open(SOURCE if source is None else source, "rb") as fh:
         h.update(fh.read())
-    for part in (" ".join((cxx, *CXXFLAGS)), _query([cxx, "--version"]),
+    for part in (" ".join((cxx, *CXXFLAGS, *libs)), _query([cxx, "--version"]),
                  _query([cxx, "-march=native", "-Q", "--help=target"]), platform.machine()):
         h.update(part.encode())
-    return os.path.join(BUILD_ROOT, "io-" + h.hexdigest()[:16])
+    return os.path.join(BUILD_ROOT, f"{prefix}-" + h.hexdigest()[:16])
 
 
-def build() -> str:
-    """Build the library for the current source and host unless it is on
-    disk; returns its path. A failed compile raises with its output."""
+def build(source: Optional[str] = None, lib_name: Optional[str] = None, prefix: str = "io",
+          libs: Sequence[str] = ()) -> str:
+    """Build a library (default: ``SOURCE`` as ``LIB_NAME``; ``libs``: the
+    link flags after the source) for the current source and host unless it
+    is on disk; returns its path. A failed compile raises with its output."""
     cxx = _cxx()
-    out_dir = build_dir(cxx)
-    lib = os.path.join(out_dir, LIB_NAME)
+    source = SOURCE if source is None else source
+    out_dir = build_dir(cxx, source, prefix, libs)
+    lib = os.path.join(out_dir, LIB_NAME if lib_name is None else lib_name)
     if not os.path.exists(lib):
         os.makedirs(out_dir, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [cxx, *CXXFLAGS, "-o", tmp, SOURCE]
+        cmd = [cxx, *CXXFLAGS, "-o", tmp, source, *libs]
         try:
             res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         except OSError as err:
