@@ -30,6 +30,7 @@ import torch
 from starcop_tpu_torch.data.dataset import (ChipDataset, _read_product, read_index_csv,
                                             stack_samples)
 from starcop_tpu_torch.device import DeviceLike, resolve_device
+from starcop_tpu_torch.utils import staging
 from starcop_tpu_torch.utils.profiling import carry, span
 
 
@@ -182,36 +183,15 @@ def _numeric(v):
     return arr if np.issubdtype(arr.dtype, np.number) else None
 
 
-class _PinnedRing:
-    """Pinned host buffers for one (key, shape, dtype), reused in turn. A
-    buffer is refilled only after the event recorded behind its last copy
-    has completed: a copy still queued on the side stream would otherwise
-    read the next batch's values."""
-
-    def __init__(self, shape, dtype: torch.dtype, slots: int):
-        self.buffers = [torch.empty(shape, dtype=dtype, pin_memory=True) for _ in range(slots)]
-        self.events: List = [None] * slots
-        self.next = 0
-
-    def fill(self, arr: np.ndarray):
-        """A pinned buffer holding ``arr``, and its slot."""
-        slot = self.next
-        self.next = (slot + 1) % len(self.buffers)
-        if self.events[slot] is not None:
-            self.events[slot].synchronize()
-        buf = self.buffers[slot]
-        buf.numpy()[...] = arr
-        return buf, slot
-
-
 def prefetch_to_device(iterator, device: DeviceLike = None, size: int = 2,
                        mesh=None) -> Iterator[Dict]:
     """Host-to-device prefetch of batch dicts: numeric arrays become tensors
     on ``device`` (None: the CUDA card; raises here without one), the rest
     (ids, bool flags) passes through. On the card each array goes through a
-    pinned host buffer and a side stream, ``size`` batches ahead of the one
-    yielded, and the consumer's stream waits on each batch's copy event
-    before the batch is yielded. With ``device="cpu"`` the arrays become
+    pinned host buffer and a side stream (``utils.staging.upload``, ``size +
+    2`` buffers an array), ``size`` batches ahead of the one yielded, and
+    the consumer's stream waits on each batch's copy event before the batch
+    is yielded. With ``device="cpu"`` the arrays become
     CPU tensors. With a ``mesh`` (``parallel.Mesh``) each numeric array is
     cut to the rank's contiguous rows first (a batch that does not divide by
     the world raises, as ``parallel.shard_batch``), on the mesh's device."""
@@ -230,39 +210,18 @@ def prefetch_to_device(iterator, device: DeviceLike = None, size: int = 2,
 
 def _prefetch_cuda(iterator, dev: torch.device, size: int) -> Iterator[Dict]:
     stream = torch.cuda.Stream(dev)
-    rings: Dict[tuple, _PinnedRing] = {}
+    rings: Dict[tuple, staging.PinnedRing] = {}
 
     def place(batch):
-        out, filled = {}, []
-        with torch.cuda.stream(stream):
-            for k, v in batch.items():
-                arr = _numeric(v)
-                if arr is None:
-                    out[k] = v
-                    continue
-                arr = np.ascontiguousarray(arr)
-                host = torch.from_numpy(arr)
-                key = (k, host.shape, host.dtype)
-                if key not in rings:
-                    # size + 1 batches are queued at most, one more is being filled.
-                    rings[key] = _PinnedRing(host.shape, host.dtype, size + 2)
-                buf, slot = rings[key].fill(arr)
-                out[k] = buf.to(dev, non_blocking=True)
-                filled.append((rings[key], slot))
-            event = torch.cuda.Event()
-            event.record(stream)
-        for ring, slot in filled:
-            ring.events[slot] = event
-        return out, event
+        host = {k: torch.from_numpy(np.ascontiguousarray(a)) for k, v in batch.items()
+                if (a := _numeric(v)) is not None}
+        # size + 1 batches are queued at most, one more is being filled.
+        return batch, *staging.upload(host, dev, stream, rings, size + 2)
 
     def hand_over(placed):
-        out, event = placed
-        current = torch.cuda.current_stream(dev)
-        current.wait_event(event)
-        for v in out.values():
-            if isinstance(v, torch.Tensor):
-                v.record_stream(current)
-        return out
+        batch, out, ready = placed
+        staging.hand_over(out, ready, torch.cuda.current_stream(dev))
+        return {**batch, **out}
 
     queue = collections.deque()
     for batch in iterator:

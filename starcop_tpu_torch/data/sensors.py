@@ -282,10 +282,13 @@ def transform_to_srf(
     x = torch.as_tensor(aviris_cube, device=dev)
     if not x.is_floating_point():
         x = x.float()
-    h, w, _ = x.shape
+    h, w, k = x.shape
     wts = torch.as_tensor(np.asarray(weights), dtype=x.dtype, device=dev)
+    # (H W, K) @ (K, B), then the band axis first: on the CPU, einsum's own
+    # layout of this product sums in another order on one thread than on
+    # several; this one gave the same bits (JAX's) on 1-8 threads.
     with float32_precision():
-        out = torch.einsum("hwk,kb->bhw", x, wts)
+        out = (x.reshape(h * w, k) @ wts).T.reshape(-1, h, w)
     if valid_mask is not None:
         valid = torch.as_tensor(valid_mask, dtype=torch.bool, device=dev)
         out = torch.where(valid[None], out, torch.as_tensor(fill_value, dtype=out.dtype,

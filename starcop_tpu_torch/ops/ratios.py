@@ -68,7 +68,12 @@ def _ols_fit_predict(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     x (N, K) regressors, y (N,) target, by the normal equations of the
     centred system with a ridge jitter of 1e-6 of the gram's mean eigenvalue,
     so a rank-deficient regressor set (a constant or duplicated band) gives
-    the minimum-norm fit's predictions rather than NaN (ratios.py:60-82)."""
+    the minimum-norm fit's predictions rather than NaN (ratios.py:60-82).
+    The right-hand side is a column sum: on the CPU, MKL's product of the
+    transposed regressors and the target sums in an order set by the thread
+    count (in f32 up to 7x farther from f64 on one thread than on eight, at
+    1,920 pixels); torch's sum gave the same bits on 1-8 threads up to 2^20
+    pixels."""
     xm = x.mean(0, keepdim=True)
     ym = y.mean()
     xc = x - xm
@@ -77,7 +82,7 @@ def _ols_fit_predict(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         k = x.shape[1]
         eps = 1e-6 * (torch.trace(gram) / k) + 1e-30
         coef = torch.linalg.solve(gram + eps * torch.eye(k, dtype=x.dtype, device=x.device),
-                                  xc.T @ (y - ym))
+                                  (xc * (y - ym)[:, None]).sum(0))
         return xc @ coef + ym
 
 

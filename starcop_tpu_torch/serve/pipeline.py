@@ -44,6 +44,7 @@ from starcop_tpu_torch.device import DeviceLike, resolve_device
 from starcop_tpu_torch.ops.ch4_template import generate_template_from_bands
 from starcop_tpu_torch.ops.mag1c import NODATA, is_bf16_stream
 from starcop_tpu_torch.scenes.emit_pipeline import emit_granule_to_mask
+from starcop_tpu_torch.utils import staging
 from starcop_tpu_torch.utils.profiling import carry, span
 
 logger = logging.getLogger("starcop_tpu_torch.serve")
@@ -325,58 +326,27 @@ def _as_torch(a: np.ndarray) -> torch.Tensor:
 class Uploader:
     """Wire payload -> tensors on ``device``, started in the reader stage.
 
-    On a CUDA device each array is staged in pinned host memory and copied
-    on a side stream; ``payload["ready"]`` is an event recorded after the
-    copies, which the compute stream waits on. Staging buffers are reused
-    per (wire key, shape, dtype), and a buffer is handed out again only
-    once the copy that read it has finished, so a host buffer always
-    outlives its asynchronous copy. Keying by the wire name matters: two
-    arrays of one upload can share shape and dtype (``q_lo`` and
-    ``q_scale``), and a pool keyed by shape alone would stage the second
-    over the first while its copy is still queued. On the CPU the arrays
-    are wrapped without a copy.
+    On a CUDA device the arrays go through ``utils.staging.upload``: pinned
+    host buffers, ``BUFFERS`` a wire array handed out in turn, copied on a
+    side stream; ``payload["ready"]`` is the event recorded after the
+    copies, which the compute stream waits on. On the CPU the arrays are
+    wrapped without a copy.
     """
 
-    MAX_BUFFERS = 3  # per (wire key, shape, dtype)
+    BUFFERS = 3  # a wire array
 
     def __init__(self, device: DeviceLike):
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.stream = torch.cuda.Stream(self.device) if self.cuda else None
-        self._pool: Dict[tuple, List[list]] = {}  # key -> [[host tensor, event], ...]
-
-    def _staging(self, key: str, a: torch.Tensor) -> list:
-        """A [host buffer, event] slot for wire array ``key``: one whose last
-        copy has finished, else a new one (pinned on a CUDA device), else the
-        oldest after waiting for its copy."""
-        slots = self._pool.setdefault((key, tuple(a.shape), a.dtype), [])
-        for slot in slots:
-            if slot[1] is None or slot[1].query():
-                return slot
-        if len(slots) < self.MAX_BUFFERS:
-            slots.append([torch.empty(a.shape, dtype=a.dtype, pin_memory=self.cuda), None])
-            return slots[-1]
-        slot = slots.pop(0)  # the oldest copy: wait for it to finish
-        slot[1].synchronize()
-        slots.append(slot)
-        return slot
+        self.rings: Dict[tuple, staging.PinnedRing] = {}
 
     def __call__(self, payload: Dict) -> Dict:
         host = {k: _as_torch(a) for k, a in payload["wire"].items()}
         if not self.cuda:
             return {**payload, "wire": {k: t.to(self.device) for k, t in host.items()},
                     "ready": None}
-        used, wire = [], {}
-        with torch.cuda.stream(self.stream):
-            for k, t in host.items():
-                slot = self._staging(k, t)
-                slot[0].copy_(t)
-                wire[k] = slot[0].to(self.device, non_blocking=True)
-                used.append(slot)
-            ready = torch.cuda.Event()
-            ready.record(self.stream)
-        for slot in used:
-            slot[1] = ready
+        wire, ready = staging.upload(host, self.device, self.stream, self.rings, self.BUFFERS)
         return {**payload, "wire": wire, "ready": ready}
 
 
@@ -516,10 +486,7 @@ def make_compute_fn(
         with on_card, torch.inference_mode():
             wire = payload["wire"]
             if payload["ready"] is not None:
-                stream = torch.cuda.current_stream(dev)
-                stream.wait_event(payload["ready"])
-                for t in wire.values():
-                    t.record_stream(stream)
+                staging.hand_over(wire, payload["ready"], torch.cuda.current_stream(dev))
             cube, rgb, valid = decode_wire(payload["codec"], wire, h, w)
             pred, mf = emit_granule_to_mask(cube, rgb, templates[key], model,
                                             column_step=column_step, num_iter=num_iter,

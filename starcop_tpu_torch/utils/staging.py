@@ -1,28 +1,31 @@
-"""Host arrays to the card through a reused ring of pinned buffers.
+"""Host arrays to the card through reused pinned buffers: the one upload
+mechanism of the entry, the serving reader and the batch prefetch.
 
-``torch.as_tensor(a, device="cuda")`` on caller-owned (pageable) numpy has
-CUDA bounce the copy through its own small staging buffers, and the host
-waits for all of it. ``stage_to_device`` instead splits the array
-along its leading axis into row bands of at most ``BAND_BYTES`` as float32,
-fills a slot of a ring of ``RING_SLOTS`` pinned buffers with band i (torch's
-CPU copy, which casts to float32 and gathers a strided view in the same
-pass) and enqueues the slot's copy to the device on the current stream. The
-host copy of band i+1 then overlaps the DMA of band i. Each slot records an
-event after its copy, and a slot is written again only once that event has
-completed, so a pinned buffer always outlives the copy that reads it. The
-stream orders the device tensor before later work; the host does not wait
-on the last band.
+``PinnedRing`` holds pinned host buffers of one shape and dtype, handed out
+in turn; a buffer is written again only once the event recorded after the
+copy that last read it has completed. Every copy into a buffer is torch's
+CPU copy. ``upload`` and ``hand_over`` move a dict of host arrays on a side
+stream (``serve.pipeline.Uploader``, ``data.datamodule.prefetch_to_device``).
 
-A ring belongs to one device and one thread; it is pinned at its first use
-and kept for every later call. Nothing of the caller's array is kept: every
-call reads all its bytes.
+``stage_to_device`` moves one large array on the current stream (the
+entry's granule upload). ``torch.as_tensor(a, device="cuda")`` on
+caller-owned (pageable) numpy has CUDA bounce the copy through its own
+small staging buffers, and the host waits for all of it. Instead the array
+is split along its leading axis into row bands of at most ``BAND_BYTES`` as
+float32; band i fills the next of a ring of ``RING_SLOTS`` pinned buffers
+(the CPU copy casts to float32 and gathers a strided view in the same pass)
+and the buffer's copy to the device is enqueued, so the host copy of band
+i+1 overlaps the DMA of band i. The stream orders the tensor before later
+work; the host does not wait on the last band.
+That ring belongs to one device and one thread, pinned at its first use.
+Nothing of the caller's array is kept: every call reads all its bytes.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,25 +69,68 @@ def staged_source(a, dev: torch.device) -> Optional[torch.Tensor]:
     return t
 
 
-class _Ring:
-    """``RING_SLOTS`` pinned float32 buffers of ``BAND_BYTES``, each with the
-    event recorded after the last copy that read it, handed out in turn."""
+class PinnedRing:
+    """``slots`` host buffers of one shape and dtype, pinned wherever torch
+    has a card, handed out in turn. Each slot is a [buffer, event] pair,
+    the event recorded after the last copy that read the buffer (None
+    before the first); a buffer is written again only once that event has
+    completed, so it always outlives the copy that reads it."""
 
-    def __init__(self):
+    def __init__(self, shape, dtype: torch.dtype, slots: int):
         # Normal tensors, not inference tensors: a caller outside
         # inference mode may fill them too.
         with torch.inference_mode(False):
-            self.slots = [(torch.empty(BAND_BYTES // 4, dtype=torch.float32, pin_memory=True),
-                           torch.cuda.Event()) for _ in range(RING_SLOTS)]
+            self.slots = [[torch.empty(shape, dtype=dtype, pin_memory=torch.cuda.is_available()),
+                           None] for _ in range(slots)]
         self.turn = 0
 
-    def take(self) -> Tuple[torch.Tensor, torch.cuda.Event]:
-        """The next slot, once the copy that last read it has finished (an
-        event never recorded returns at once)."""
-        buf, done = self.slots[self.turn]
-        self.turn = (self.turn + 1) % RING_SLOTS
-        done.synchronize()
-        return buf, done
+    def take(self) -> list:
+        """The next [buffer, event] slot, once the copy that last read it has
+        finished. The caller sets the slot's event after its own copy."""
+        slot = self.slots[self.turn]
+        self.turn = (self.turn + 1) % len(self.slots)
+        if slot[1] is not None:
+            slot[1].synchronize()
+        return slot
+
+
+def upload(host: Dict[str, torch.Tensor], dev: torch.device, stream, rings: Dict,
+           slots: int) -> Tuple[Dict[str, torch.Tensor], torch.cuda.Event]:
+    """The CPU tensors ``host`` on ``dev``, copied on the side ``stream``
+    through pinned buffers. Each array fills the next buffer of its ring in
+    ``rings`` (one per (name, shape, dtype), of ``slots`` buffers, made at
+    its first use) with torch's CPU copy and enqueues a non-blocking copy
+    from it. One event recorded after all the copies becomes every used
+    buffer's event. Returns the device tensors and that event, which the
+    consumer's stream waits on (``hand_over``) before it reads them.
+
+    Keying by name matters: two arrays of one call can share shape and
+    dtype (a wire's ``q_lo`` and ``q_scale``), and a ring keyed by shape
+    alone would fill the second over the first while its copy is queued."""
+    used, out = [], {}
+    with torch.cuda.stream(stream):
+        for k, t in host.items():
+            key = (k, tuple(t.shape), t.dtype)
+            if key not in rings:
+                rings[key] = PinnedRing(t.shape, t.dtype, slots)
+            slot = rings[key].take()
+            slot[0].copy_(t)
+            out[k] = slot[0].to(dev, non_blocking=True)
+            used.append(slot)
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    for slot in used:
+        slot[1] = ready
+    return out, ready
+
+
+def hand_over(tensors: Dict[str, torch.Tensor], ready: torch.cuda.Event, stream) -> None:
+    """Make ``stream`` wait for ``ready`` before it reads ``tensors`` (an
+    ``upload``'s result), and keep their device memory from being reused
+    before ``stream``'s work on them has run."""
+    stream.wait_event(ready)
+    for t in tensors.values():
+        t.record_stream(stream)
 
 
 class _Rings(threading.local):
@@ -95,11 +141,12 @@ class _Rings(threading.local):
 _rings = _Rings()
 
 
-def _ring(dev: torch.device) -> _Ring:
+def _ring(dev: torch.device) -> PinnedRing:
+    """This thread's ring of ``RING_SLOTS`` float32 bands for ``dev``."""
     index = torch.cuda.current_device() if dev.index is None else dev.index
     ring = _rings.by_device.get(index)
     if ring is None:
-        ring = _rings.by_device[index] = _Ring()
+        ring = _rings.by_device[index] = PinnedRing(BAND_BYTES // 4, torch.float32, RING_SLOTS)
     return ring
 
 
@@ -117,10 +164,11 @@ def stage_to_device(a, dev: torch.device) -> torch.Tensor:
     ring, stream = _ring(dev), torch.cuda.current_stream(dev)
     row = math.prod(src.shape[1:])
     for start, stop in plan_bands(src.shape):
-        buf, done = ring.take()
-        band = buf[: (stop - start) * row].view(stop - start, *src.shape[1:])
+        slot = ring.take()
+        band = slot[0][: (stop - start) * row].view(stop - start, *src.shape[1:])
         band.copy_(src[start:stop])
         out[start:stop].copy_(band, non_blocking=True)
-        done.record(stream)
+        slot[1] = torch.cuda.Event()
+        slot[1].record(stream)
     count("staged_bytes", src.nbytes)
     return out

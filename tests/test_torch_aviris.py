@@ -17,6 +17,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.cli import mag1c as jcli  # noqa: E402
 from starcop_tpu.data import geotiff as jgeotiff  # noqa: E402
 from starcop_tpu.data.synthetic import synthetic_scene  # noqa: E402

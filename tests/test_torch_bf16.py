@@ -23,6 +23,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.models import SegmentationModel as FlaxSegmentationModel  # noqa: E402
 from starcop_tpu.models import cast_variables_for_inference  # noqa: E402
 from starcop_tpu.ops import mag1c as jm  # noqa: E402

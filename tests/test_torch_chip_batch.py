@@ -19,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from portbench.recipes.chips import write_tiff  # noqa: E402

@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.data import datamodule as jdm  # noqa: E402
 from starcop_tpu.data import dataset as jds  # noqa: E402
 from starcop_tpu.data import geotiff as jgeo  # noqa: E402

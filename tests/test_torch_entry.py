@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu_torch import entry  # noqa: E402
 from starcop_tpu_torch.parallel import run_world  # noqa: E402
 from tests import torch_parallel_worlds as worlds  # noqa: E402

@@ -24,6 +24,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.data.normalizer import DataNormalizer as JDataNormalizer  # noqa: E402
 from starcop_tpu.data.synthetic import write_synthetic_chip_dataset as j_write_chips  # noqa: E402
 from starcop_tpu.eval import metrics as jmetrics  # noqa: E402

@@ -31,6 +31,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.data import synthetic as jsyn  # noqa: E402
 from starcop_tpu.data.datamodule import DataModule as JDataModule  # noqa: E402
 from starcop_tpu.eval.validation import run_validation as j_run_validation  # noqa: E402

@@ -14,6 +14,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.ops import mag1c as jm  # noqa: E402
 from starcop_tpu.ops import mag1c_pallas as jp  # noqa: E402
 from starcop_tpu_torch.ops import _build  # noqa: E402

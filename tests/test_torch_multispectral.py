@@ -24,6 +24,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.data import features as jfeat  # noqa: E402
 from starcop_tpu.models.cloud import CloudDetector as JCloud  # noqa: E402
 from starcop_tpu.models.regression import RegressionModel as JRegression  # noqa: E402

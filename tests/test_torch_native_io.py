@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.data import native_io as jnio  # noqa: E402
 from starcop_tpu_torch.data import native_io as tnio  # noqa: E402
 from starcop_tpu_torch.serve import pipeline as tserve  # noqa: E402

@@ -13,6 +13,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.ops import mag1c as jm  # noqa: E402
 from starcop_tpu.scenes import emit_pipeline as jep  # noqa: E402
 from starcop_tpu_torch.ops import mag1c as tm  # noqa: E402

@@ -36,6 +36,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.data.emit import EMITRawScene as JEMITRawScene  # noqa: E402
 from starcop_tpu.models import SegmentationModel as FlaxSegmentationModel  # noqa: E402
 from starcop_tpu.parallel import mesh as jmesh  # noqa: E402

@@ -19,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu_torch.data.synthetic import write_synthetic_chip_dataset  # noqa: E402
 from starcop_tpu_torch.models.segmenter import SegmentationModel  # noqa: E402
 from starcop_tpu_torch.parallel import run_world  # noqa: E402

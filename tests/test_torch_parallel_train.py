@@ -39,6 +39,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 import optax  # noqa: E402
 
 from starcop_tpu.models import SegmentationModel as FlaxSegmentationModel  # noqa: E402

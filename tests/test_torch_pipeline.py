@@ -14,6 +14,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.data import emit as jemit  # noqa: E402
 from starcop_tpu.data.synthetic import synthetic_scene as j_synthetic_scene  # noqa: E402
 from starcop_tpu.models import SegmentationModel as FlaxSegmentationModel  # noqa: E402

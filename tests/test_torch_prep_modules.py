@@ -26,6 +26,8 @@ import jax
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.data import emit as jemit  # noqa: E402
 from starcop_tpu.data import geo as jgeo  # noqa: E402
 from starcop_tpu.data import ingest as jingest  # noqa: E402

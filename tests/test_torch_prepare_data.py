@@ -29,6 +29,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.cli import prepare_data as jprep  # noqa: E402
 from starcop_tpu_torch.cli import prepare_data as prep  # noqa: E402
 from starcop_tpu_torch.data.geotiff import read_geotiff  # noqa: E402

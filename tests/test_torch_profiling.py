@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.utils import profiling as jprofiling  # noqa: E402
 from starcop_tpu_torch.utils import profiling  # noqa: E402
 from starcop_tpu_torch.utils import StageTimer, trace  # noqa: E402

@@ -24,6 +24,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.models import SegmentationModel as FlaxSegmentationModel  # noqa: E402
 from starcop_tpu.train import loop as jloop  # noqa: E402
 from starcop_tpu.train.checkpoint import load_checkpoint as j_load_checkpoint  # noqa: E402

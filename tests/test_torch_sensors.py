@@ -21,6 +21,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.data import sensors as jsensors  # noqa: E402
 from starcop_tpu.data import srf as jsrf  # noqa: E402
 from starcop_tpu_torch.data import sensors  # noqa: E402

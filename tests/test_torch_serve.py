@@ -20,6 +20,8 @@ import jax
 import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
+
+import cpu_share  # noqa: E402,F401
 h5py = pytest.importorskip("h5py")
 
 from starcop_tpu.data import geotiff as jgeotiff  # noqa: E402
@@ -40,6 +42,7 @@ from starcop_tpu_torch.ops.ch4_template import generate_template_from_bands  # n
 from starcop_tpu_torch.scenes import emit_pipeline as tpipe  # noqa: E402
 from starcop_tpu_torch.serve import pipeline as tserve  # noqa: E402
 from starcop_tpu_torch.serve.pipeline import ScenePipeline, emit_serving_pipeline  # noqa: E402
+from starcop_tpu_torch.utils import staging  # noqa: E402
 from tests.test_mag1c import assert_bf16_detection_equivalent  # noqa: E402
 
 WL = np.arange(2100.0, 2490.0, 7.4)  # selects 50 bands in [2122, 2488] nm
@@ -551,24 +554,40 @@ def test_bf16_wire_matches_ml_dtypes():
                                   np.asarray(jnp.asarray(x).astype(jnp.bfloat16), np.float32))
 
 
-def test_uploader_staging_never_shares_a_buffer():
-    """Two wire arrays of one shape and dtype (``q_lo`` and ``q_scale``) are
-    staged in buffers of their own within one upload, and a buffer whose
-    copy is still queued is not handed out again until it has finished."""
+def test_uploader_staging_never_shares_a_buffer(monkeypatch):
+    """Through the upload the ``Uploader`` runs on the card (its rings, its
+    ``BUFFERS`` a wire array): two wire arrays of one shape and dtype
+    (``q_lo`` and ``q_scale``) are staged in buffers of their own within one
+    upload, and a buffer whose copy is still queued is not handed out again
+    until that copy has finished."""
 
-    class Pending:  # the event of a copy that has not finished
-        def query(self):
-            return False
+    class Queued:  # a copy's event: finished only once waited for
+        def __init__(self):
+            self.finished = False
 
+        def record(self, stream=None):
+            pass
+
+        def synchronize(self):
+            self.finished = True
+
+    monkeypatch.setattr(torch.cuda, "Event", Queued)
     up = tserve.Uploader("cpu")
     lo = torch.zeros(7)
-    first = up._staging("q_lo", lo)
-    assert up._staging("q_scale", lo)[0].data_ptr() != first[0].data_ptr()
-    first[1] = Pending()
-    second = up._staging("q_lo", lo)
-    assert second[0].data_ptr() != first[0].data_ptr()
-    first[1] = None
-    assert up._staging("q_lo", lo) is first
+
+    def upload():
+        return staging.upload({"q_lo": lo, "q_scale": lo}, up.device, None, up.rings,
+                              up.BUFFERS)
+
+    uploads = [upload() for _ in range(up.BUFFERS)]
+    # q_lo and q_scale apart in each upload, and every queued copy its own buffer
+    assert len({w[k].data_ptr() for w, _ in uploads for k in w}) == 2 * up.BUFFERS
+    assert not any(ready.finished for _, ready in uploads)
+    again, _ = upload()
+    first, first_ready = uploads[0]
+    assert first_ready.finished  # waited for before its buffers came back
+    assert not any(ready.finished for _, ready in uploads[1:])
+    assert all(again[k].data_ptr() == first[k].data_ptr() for k in first)
 
 
 # ---------------------------------------------------------------------------

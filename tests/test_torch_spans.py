@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from starcop_tpu_torch.data.datamodule import BatchLoader  # noqa: E402

@@ -1,4 +1,4 @@
-"""The pinned-ring upload of host arrays (starcop_tpu_torch/utils/staging.py).
+"""The pinned upload of host arrays (starcop_tpu_torch/utils/staging.py).
 
 On the CPU: the band planner covers the leading axis once, in order, each
 band within ``BAND_BYTES``, the last ragged; a small array, a device tensor,
@@ -11,7 +11,11 @@ runs with ``--noconftest``): the staged upload is bitwise
 ``torch.as_tensor``'s for a contiguous f32 cube, a band-sliced strided
 view, an f64 input and a ragged leading axis; two granules staged back to
 back behind a busy stream keep their own bytes; ``emit_granule_to_mask``'s
-``entry.upload`` carries ``staged_bytes == bytes``.
+``entry.upload`` carries ``staged_bytes == bytes``; ``Uploader`` and
+``prefetch_to_device``, copying behind a busy side stream through more
+uploads than their rings hold, give ``torch.as_tensor``'s bytes while the
+caller reuses its arrays (``test_torch_serve.py`` holds the rings' turns
+on the CPU).
 """
 
 import numpy as np
@@ -19,9 +23,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from starcop_tpu_torch.data.datamodule import prefetch_to_device  # noqa: E402
 from starcop_tpu_torch.scenes.emit_pipeline import emit_granule_to_mask  # noqa: E402
+from starcop_tpu_torch.serve.pipeline import Uploader  # noqa: E402
 from starcop_tpu_torch.utils import staging  # noqa: E402
 from starcop_tpu_torch.utils.profiling import clear_spans, span, spans  # noqa: E402
 from starcop_tpu_torch.utils.staging import (  # noqa: E402
@@ -166,3 +174,81 @@ def test_entry_upload_counts_staged_bytes(card):
                                               torch.as_tensor(rgb, device=card), template,
                                               lambda x: x[:, :1], **kw)
     assert torch.equal(pred, want_pred) and torch.equal(mf, want_mf)
+
+
+# The two users of ``upload``: both hold their copies behind a stream kept
+# busy by ``torch.cuda._sleep`` on the card, so that each pinned buffer's turn
+# comes again while the copy that read it is still queued. Their rings are
+# made before the stream is held: pinning memory may wait for the card.
+
+HOLD_CYCLES = 1_000_000_000  # ~0.5 s on an H100, far longer than the host's work below
+
+
+def _wire(seed):
+    rng = np.random.default_rng(seed)
+    lo = rng.standard_normal(50).astype(np.float32)
+    return {"cube": rng.integers(0, 1 << 16, (320, 1242, 50), dtype=np.uint16),
+            "q_lo": lo, "q_scale": lo + 1.0,  # one shape and dtype, two buffers
+            "valid": np.packbits(rng.random(320 * 1242) < 0.94)}
+
+
+def _on_card(a, card):
+    return torch.as_tensor(a.view(np.int16) if a.dtype == np.uint16 else a, device=card)
+
+
+@pytest.mark.cuda
+def test_uploader_behind_a_busy_stream_is_bitwise_as_tensor(card):
+    up = Uploader(card)
+    wires = [_wire(seed) for seed in range(up.BUFFERS + 2)]  # every buffer taken again
+    sent = [{k: a.copy() for k, a in w.items()} for w in wires]
+    up({"wire": _wire(99)})  # makes the rings
+    torch.cuda.synchronize()
+    with torch.cuda.stream(up.stream):
+        torch.cuda._sleep(HOLD_CYCLES)
+    got = [up({"wire": w}) for w in sent]
+    for w in sent:  # the caller reuses its arrays once the call returns
+        for a in w.values():
+            a[...] = 0
+    for payload in got:
+        staging.hand_over(payload["wire"], payload["ready"], torch.cuda.current_stream(card))
+    torch.cuda.synchronize()
+    for w, payload in zip(wires, got):
+        assert payload["wire"].keys() == w.keys()
+        assert all(torch.equal(payload["wire"][k], _on_card(a, card)) for k, a in w.items())
+
+
+def _batches(n):
+    rng = np.random.default_rng(11)
+    return [{"input": rng.standard_normal((8, 4, 256, 256)).astype(np.float32),
+             "labels": rng.integers(0, 2, (8, 1, 256, 256)).astype(np.int64),
+             "id": [f"chip{i}_{j}" for j in range(8)], "has_plume": rng.random(8) < 0.5}
+            for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_prefetch_behind_a_busy_stream_is_bitwise_as_tensor(card, monkeypatch):
+    held, make_stream = torch.cuda.Stream(card), torch.cuda.Stream
+
+    def side_stream(*args, **kwargs):  # the prefetch's Stream(dev) is held; torch's own calls pass
+        return make_stream(*args, **kwargs) if kwargs else held
+
+    monkeypatch.setattr(torch.cuda, "Stream", side_stream)
+    batches = _batches(7)  # batch 5 takes batch 1's buffers again (size + 2 = 4 an array)
+
+    def refilled():  # one host array refilled for every batch, as a loader reusing its own
+        x = np.empty_like(batches[0]["input"])
+        for i, b in enumerate(batches):
+            if i == 1:  # batch 0 made the rings: hold the side stream from here on
+                with torch.cuda.stream(held):
+                    torch.cuda._sleep(HOLD_CYCLES)
+            x[...] = b["input"]
+            yield {**b, "input": x}
+
+    torch.cuda.synchronize()
+    got = list(prefetch_to_device(refilled(), device=card, size=2))
+    torch.cuda.synchronize()
+    assert len(got) == len(batches)
+    for b, g in zip(batches, got):
+        assert list(g) == list(b) and g["id"] is b["id"] and g["has_plume"] is b["has_plume"]
+        for k in ("input", "labels"):
+            assert g[k].device.type == "cuda" and torch.equal(g[k], torch.as_tensor(b[k], device=card))

@@ -11,6 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu_torch.ops import mag1c_kernels as tk  # noqa: E402
 
 SMEM_LIMIT = 227 * 1024  # H100: shared memory one CTA may use

@@ -35,6 +35,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 import optax  # noqa: E402
 
 from starcop_tpu import config as jconfig  # noqa: E402

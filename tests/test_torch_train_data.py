@@ -29,6 +29,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.data import chip_cache as jcache  # noqa: E402
 from starcop_tpu.data import labels as jlabels  # noqa: E402
 from starcop_tpu.data.datamodule import DataModule as JDataModule  # noqa: E402

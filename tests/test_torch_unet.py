@@ -14,6 +14,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
+import cpu_share  # noqa: E402,F401
+
 from starcop_tpu.models import SegmentationModel as FlaxSegmentationModel  # noqa: E402
 from starcop_tpu.models.mobilenet_unet import MobileNetV2UNet as FlaxUNet  # noqa: E402
 from starcop_tpu.models.torch_port import port_smp_mobilenetv2_unet  # noqa: E402
