@@ -8,7 +8,9 @@
     shuffled or weighted with replacement, assembled by the dataset's
     ``read_batch`` (optionally on a thread pool);
   * ``prefetch_to_device``: pinned host buffers and a side stream, so the
-    next batches' copies overlap the current batch's compute;
+    next batches' copies overlap the current batch's compute; on the card
+    a ``BatchLoader``'s natively read batches land straight in those
+    buffers, and the copies leave from there;
   * ``DataModule``: an index CSV -> the five dataset views and the train /
     test loaders, with the tiled training rows cached next to the CSV.
 
@@ -22,7 +24,8 @@ import collections
 import concurrent.futures
 import csv
 import os
-from typing import Dict, Iterator, List, Optional, Sequence
+import threading
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -108,11 +111,15 @@ class BatchLoader:
     order (eval). A batch comes from the dataset's ``read_batch`` where it
     has one (``ChipDataset``: one threaded native read of every product
     straight into the batch arrays, where no sample draws anything of its
-    own), else from stacking its samples. ``num_workers > 0`` assembles
-    batches on a thread pool, at most 2 x num_workers batches ahead. Traced
+    own), else from stacking its samples. The batch arrays are fresh, or,
+    for a whole batch where the consumer set the iterator's ``slot``
+    (``prefetch_to_device`` on the card), the buffers ``slot`` hands out
+    (see ``BatchIterator``). ``num_workers > 0`` assembles batches on a
+    thread pool, at most 2 x num_workers batches ahead. Traced
     (``utils.profiling``; the pool's reads take the iterating thread's
     tracing state), a batch's assembly is span ``data.load``, with
-    ``read_batch``'s counters ``chips`` and ``native_chips``.
+    ``read_batch``'s counters ``chips``, ``native_chips`` and
+    ``pinned_chips``.
     """
 
     def __init__(
@@ -147,7 +154,10 @@ class BatchLoader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def __iter__(self) -> Iterator[Dict]:
+    def __iter__(self) -> "BatchIterator":
+        return BatchIterator(self)
+
+    def _batches(self, slot: Optional[Callable]) -> Iterator[Dict]:
         idx = self._indices()
         batches = [idx[i:i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
         if self.drop_last:
@@ -157,21 +167,53 @@ class BatchLoader:
             with concurrent.futures.ThreadPoolExecutor(self.num_workers) as pool:
                 inflight = collections.deque()
                 for b in batches:
-                    inflight.append(pool.submit(carry(self._collate), b))
+                    inflight.append(pool.submit(carry(self._collate), b, slot))
                     if len(inflight) > window:
                         yield inflight.popleft().result()
                 while inflight:
                     yield inflight.popleft().result()
         else:
             for b in batches:
-                yield self._collate(b)
+                yield self._collate(b, slot)
 
-    def _collate(self, indices: np.ndarray) -> Dict:
+    def _collate(self, indices: np.ndarray, slot: Optional[Callable] = None) -> Dict:
         with span("data.load"):
             read_batch = getattr(self.dataset, "read_batch", None)
-            if read_batch is not None:
+            if read_batch is None:
+                return stack_samples([self.dataset[int(i)] for i in indices])
+            if slot is None or len(indices) != self.batch_size:
                 return read_batch(indices)
-            return stack_samples([self.dataset[int(i)] for i in indices])
+            return read_batch(indices, slot)
+
+
+class BatchIterator:
+    """What ``iter(BatchLoader)`` returns: the loader's batches, in order.
+
+    A consumer may set ``slot`` before its first ``next()``: a callable
+    ``(key, shape, dtype)`` giving the C-contiguous host array to read a
+    whole batch's numeric array ``key`` into (a partial last batch, a
+    dataset without ``read_batch`` and ``read_batch``'s per-chip path keep
+    fresh arrays). Its arrays outlive the batch: the consumer hands one out
+    again only once it is done with the batch that last held it, and may
+    be called from the pool's threads. ``ahead`` bounds how many other
+    batches may ask ``slot`` for an array between one batch's asking and
+    the consumer's next ``next()`` after that batch: none without a pool;
+    with one, the 2 x num_workers batches submitted behind it and the
+    num_workers - 1 before it that may still be reading when it asks.
+    """
+
+    def __init__(self, loader: BatchLoader):
+        self.slot: Optional[Callable] = None
+        self.ahead = max(0, 3 * loader.num_workers - 1)
+        self._loader, self._batches = loader, None
+
+    def __iter__(self) -> "BatchIterator":
+        return self
+
+    def __next__(self) -> Dict:
+        if self._batches is None:
+            self._batches = self._loader._batches(self.slot)
+        return next(self._batches)
 
 
 def _numeric(v):
@@ -189,9 +231,13 @@ def prefetch_to_device(iterator, device: DeviceLike = None, size: int = 2,
     on ``device`` (None: the CUDA card; raises here without one), the rest
     (ids, bool flags) passes through. On the card each array goes through a
     pinned host buffer and a side stream (``utils.staging.upload``, ``size +
-    2`` buffers an array), ``size`` batches ahead of the one yielded, and
-    the consumer's stream waits on each batch's copy event before the batch
-    is yielded. With ``device="cpu"`` the arrays become
+    2`` buffers an array, and ``ahead`` more for a ``BatchIterator``),
+    ``size`` batches ahead of the one yielded, and the consumer's stream
+    waits on each batch's copy event before the batch is yielded. Given a
+    ``BatchIterator``, it sets the iterator's ``slot`` to hand out those
+    buffers (``PinnedRing.take``), so the loader reads a batch straight
+    into them and the copy leaves from there with no host copy; any other
+    array is copied into its buffer first. With ``device="cpu"`` the arrays become
     CPU tensors. With a ``mesh`` (``parallel.Mesh``) each numeric array is
     cut to the rank's contiguous rows first (a batch that does not divide by
     the world raises, as ``parallel.shard_batch``), on the mesh's device."""
@@ -211,12 +257,27 @@ def prefetch_to_device(iterator, device: DeviceLike = None, size: int = 2,
 def _prefetch_cuda(iterator, dev: torch.device, size: int) -> Iterator[Dict]:
     stream = torch.cuda.Stream(dev)
     rings: Dict[tuple, staging.PinnedRing] = {}
+    # size + 1 batches are queued at most, one more is being filled, and a
+    # loader's pool may read `ahead` more before that one is placed.
+    slots = size + 2
+    lock = threading.Lock()  # the rings' turns, taken by the loader's threads too
+    if isinstance(iterator, BatchIterator):
+        slots += iterator.ahead
+
+        def slot(key, shape, dtype):
+            ring_key = (key, tuple(map(int, shape)), torch.from_numpy(np.empty(0, dtype)).dtype)
+            with lock:
+                if ring_key not in rings:
+                    rings[ring_key] = staging.PinnedRing(*ring_key[1:], slots)
+                return rings[ring_key].take()[0].numpy()
+
+        iterator.slot = slot
 
     def place(batch):
         host = {k: torch.from_numpy(np.ascontiguousarray(a)) for k, v in batch.items()
                 if (a := _numeric(v)) is not None}
-        # size + 1 batches are queued at most, one more is being filled.
-        return batch, *staging.upload(host, dev, stream, rings, size + 2)
+        with lock:
+            return batch, *staging.upload(host, dev, stream, rings, slots)
 
     def hand_over(placed):
         batch, out, ready = placed

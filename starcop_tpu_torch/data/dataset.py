@@ -15,14 +15,15 @@ assembles a batch: where no sample draws anything of its own, every product
 of every chip that ``chip_io`` takes is read straight into its slice of the
 batch arrays by one threaded native call, the rest as ``__getitem__`` reads
 them; the batch is the one ``stack_samples`` makes of ``__getitem__``'s
-samples, bitwise.
+samples, bitwise. The batch arrays are fresh, or, where the caller hands
+over a ``slot``, the arrays it gives (the prefetcher's pinned buffers).
 """
 
 from __future__ import annotations
 
 import csv
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -144,7 +145,7 @@ class ChipDataset:
             keys["rgb_aviris"] = list(self.RGB_AVIRIS)
         return keys
 
-    def read_batch(self, indices: Sequence[int]) -> Dict:
+    def read_batch(self, indices: Sequence[int], slot: Optional[Callable] = None) -> Dict:
         """``stack_samples([self[i] for i in indices])``, bitwise. Where a
         sample draws from the generator (``augment``, ``window_size_sample``)
         or an extra product shadows another key, it is exactly that, as
@@ -153,9 +154,12 @@ class ChipDataset:
         ``batch[key][i, c]``: in one ``chip_io.BatchRead`` where ``chip_io``
         takes it, else by ``__getitem__``'s reader; and should a product
         come back in a shape the batch cannot hold, the batch is stacked
-        from ``__getitem__`` after all. Adds counters ``chips`` and
-        ``native_chips`` (chips all of whose products took the native read)
-        to the open span."""
+        from ``__getitem__`` after all. ``batch[key]`` is a fresh array, or
+        with ``slot`` the C-contiguous array ``slot(key, shape, dtype)``
+        returns, which the batch is then read into and handed back as.
+        Adds counters ``chips``, ``native_chips`` (chips all of whose
+        products took the native read) and ``pinned_chips`` (those of them
+        read into ``slot``'s arrays) to the open span."""
         from starcop_tpu_torch.data import chip_io
         from starcop_tpu_torch.data.geotiff import find_raster
         from starcop_tpu_torch.utils.profiling import count
@@ -165,6 +169,7 @@ class ChipDataset:
 
         def per_chip():
             count("native_chips", 0)
+            count("pinned_chips", 0)
             return stack_samples([self[i] for i in indices])
 
         keys = self._products()
@@ -191,8 +196,9 @@ class ChipDataset:
         if any(len(s) != 1 or len(next(iter(s))) != 2 for s in shapes.values()):
             return per_chip()
 
-        arrays = {key: np.empty((len(indices), len(products)) + next(iter(shapes[key])),
-                                np.float32) for key, products in keys.items()}
+        new = slot or (lambda key, shape, dtype: np.empty(shape, dtype))
+        arrays = {key: new(key, (len(indices), len(products)) + next(iter(shapes[key])),
+                           np.dtype(np.float32)) for key, products in keys.items()}
         reads = chip_io.BatchRead()
         for (key, n, c), src in planned.items():
             if isinstance(src, np.ndarray):
@@ -203,6 +209,7 @@ class ChipDataset:
         if self.add_rgb_aviris:
             arrays["rgb_aviris"] /= 50.0
         count("native_chips", sum(native))
+        count("pinned_chips", sum(native) if slot else 0)
 
         ids, flags = [], []
         for n, idx in enumerate(indices):

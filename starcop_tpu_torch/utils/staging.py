@@ -3,9 +3,12 @@ mechanism of the entry, the serving reader and the batch prefetch.
 
 ``PinnedRing`` holds pinned host buffers of one shape and dtype, handed out
 in turn; a buffer is written again only once the event recorded after the
-copy that last read it has completed. Every copy into a buffer is torch's
-CPU copy. ``upload`` and ``hand_over`` move a dict of host arrays on a side
-stream (``serve.pipeline.Uploader``, ``data.datamodule.prefetch_to_device``).
+copy that last read it has completed. A buffer is filled by torch's CPU
+copy, or, in the batch prefetch, read into by the chip loader itself
+(``data.datamodule.BatchIterator.slot``). ``upload`` and ``hand_over`` move a
+dict of host arrays on a side stream (``serve.pipeline.Uploader``,
+``data.datamodule.prefetch_to_device``); an array that already is a buffer
+of its ring is copied to the device from where it lies.
 
 ``stage_to_device`` moves one large array on the current stream (the
 entry's granule upload). ``torch.as_tensor(a, device="cuda")`` on
@@ -93,16 +96,23 @@ class PinnedRing:
             slot[1].synchronize()
         return slot
 
+    def holding(self, t: torch.Tensor) -> Optional[list]:
+        """The slot whose buffer ``t`` is (taken and written by the caller),
+        or None."""
+        return next((s for s in self.slots if s[0].data_ptr() == t.data_ptr()), None)
+
 
 def upload(host: Dict[str, torch.Tensor], dev: torch.device, stream, rings: Dict,
            slots: int) -> Tuple[Dict[str, torch.Tensor], torch.cuda.Event]:
     """The CPU tensors ``host`` on ``dev``, copied on the side ``stream``
     through pinned buffers. Each array fills the next buffer of its ring in
     ``rings`` (one per (name, shape, dtype), of ``slots`` buffers, made at
-    its first use) with torch's CPU copy and enqueues a non-blocking copy
-    from it. One event recorded after all the copies becomes every used
-    buffer's event. Returns the device tensors and that event, which the
-    consumer's stream waits on (``hand_over``) before it reads them.
+    its first use) with torch's CPU copy, unless it already is one of that
+    ring's buffers (``PinnedRing.holding``: taken and written by the
+    caller), and a non-blocking copy from the buffer is enqueued. One event
+    recorded after all the copies becomes every used buffer's event.
+    Returns the device tensors and that event, which the consumer's stream
+    waits on (``hand_over``) before it reads them.
 
     Keying by name matters: two arrays of one call can share shape and
     dtype (a wire's ``q_lo`` and ``q_scale``), and a ring keyed by shape
@@ -113,8 +123,10 @@ def upload(host: Dict[str, torch.Tensor], dev: torch.device, stream, rings: Dict
             key = (k, tuple(t.shape), t.dtype)
             if key not in rings:
                 rings[key] = PinnedRing(t.shape, t.dtype, slots)
-            slot = rings[key].take()
-            slot[0].copy_(t)
+            slot = rings[key].holding(t)
+            if slot is None:
+                slot = rings[key].take()
+                slot[0].copy_(t)
             out[k] = slot[0].to(dev, non_blocking=True)
             used.append(slot)
         ready = torch.cuda.Event()

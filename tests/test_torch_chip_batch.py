@@ -5,13 +5,20 @@ native reader takes (the benchmark recipe's uncompressed 128-tiled TIFFs,
 the chip cache's DEFLATE TIFFs with overviews, a ragged tile grid, strips,
 ``.npy``, windows inside the raster) and on those it leaves to the Python
 reader (an overhanging window), mixed in one batch, the last batch partial,
-with and without loader threads. The span ``data.load`` counts its chips and
-those read natively; a truncated or corrupt file raises naming itself.
+with and without loader threads, into fresh arrays and through the loader
+iterator's ``slot`` into reused buffers (plain CPU arrays standing in for
+``prefetch_to_device``'s pinned rings; on the card, ``test_torch_staging.py``).
+A consumer that sets no ``slot`` (``list(loader)``, ``prefetch_to_device`` on
+the CPU) gets fresh arrays, which later batches never overwrite. The span ``data.load`` counts its chips, those read natively and
+those read into the consumer's buffers, which ``eval.load_pinned_pct`` reads;
+a truncated or corrupt file raises naming itself.
 """
 
 import os
 import re
 import struct
+import sys
+import threading
 import zlib
 
 import numpy as np
@@ -23,10 +30,11 @@ import cpu_share  # noqa: E402,F401
 
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from portbench import harness  # noqa: E402
 from portbench.recipes.chips import write_tiff  # noqa: E402
 from starcop_tpu_torch.data import chip_io  # noqa: E402
 from starcop_tpu_torch.data.chip_cache import cache_chip  # noqa: E402
-from starcop_tpu_torch.data.datamodule import BatchLoader  # noqa: E402
+from starcop_tpu_torch.data.datamodule import BatchLoader, prefetch_to_device  # noqa: E402
 from starcop_tpu_torch.data.dataset import ChipDataset, stack_samples  # noqa: E402
 from starcop_tpu_torch.data.geotiff import write_geotiff  # noqa: E402
 from starcop_tpu_torch.utils.profiling import clear_spans, spans  # noqa: E402
@@ -165,35 +173,160 @@ def _data_load(batches_of):
     return batches, [s for s in spans() if s.name == "data.load"]
 
 
+class _Ring:
+    """A consumer's ``slot``: ``depth`` plain arrays a (key, shape, dtype),
+    NaN until first written, handed out in turn, as ``prefetch_to_device``
+    hands out its pinned buffers."""
+
+    def __init__(self, depth):
+        self.depth, self.rings, self.lock = depth, {}, threading.Lock()
+
+    def __call__(self, key, shape, dtype):
+        with self.lock:
+            ring = self.rings.setdefault((key, shape, dtype), [
+                [np.full(shape, np.nan, dtype) for _ in range(self.depth)], 0])
+            ring[1] += 1
+            return ring[0][(ring[1] - 1) % self.depth]
+
+    def holds(self, a):
+        return any(a is b for bufs, _ in self.rings.values() for b in bufs)
+
+
+def _through_slot(loader):
+    """A pass that reads through the iterator's ``slot`` into a ``_Ring`` of
+    ``1 + ahead`` arrays; each batch copied as it is yielded (the ring's
+    turn comes again from the next ``next()`` on). Returns the copies and,
+    per batch, whether its numeric arrays were the ring's."""
+    it = iter(loader)
+    it.slot = ring = _Ring(1 + it.ahead)
+    got, held = [], []
+    for b in it:
+        arrays = [v for v in b.values() if isinstance(v, np.ndarray) and v.ndim == 4]
+        held.append([ring.holds(a) for a in arrays])
+        got.append({k: v.copy() if isinstance(v, np.ndarray) else v for k, v in b.items()})
+    return got, held
+
+
+def _want(ds, n, batch):
+    return [stack_samples([ds[i] for i in range(s, min(s + batch, n))])
+            for s in range(0, n, batch)]
+
+
+@pytest.mark.parametrize("route", ["fresh", "slot"])
 @pytest.mark.parametrize("num_workers", [0, 2])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_batch_read_is_the_stack_of_the_samples(root, case, num_workers):
+def test_batch_read_is_the_stack_of_the_samples(root, case, num_workers, route):
     """Bitwise the per-chip stack: keys, order, dtypes, ids, has_plume,
-    rgb_aviris / 50; each chip of a native case read natively."""
+    rgb_aviris / 50; each chip of a native case read natively. Through the
+    iterator's ``slot``, the whole batches land in the consumer's arrays
+    (``pinned_chips`` as ``native_chips``), the partial last one in fresh
+    arrays (none); without it, every batch in arrays of its own."""
     ds = _dataset(root, case)
     loader = BatchLoader(ds, batch_size=2, num_workers=num_workers)
-    got, loads = _data_load(lambda: list(loader))
-    want = [stack_samples([ds[i] for i in range(s, min(s + 2, N_CHIPS))])
-            for s in range(0, N_CHIPS, 2)]
+    if route == "slot":
+        (got, held), loads = _data_load(lambda: _through_slot(loader))
+        assert held == [[True] * 5, [True] * 5, [False] * 5]
+    else:
+        got, loads = _data_load(lambda: list(loader))
+        arrays = [v for b in got for v in b.values() if isinstance(v, np.ndarray)]
+        assert not any(np.shares_memory(a, b) for i, a in enumerate(arrays) for b in arrays[:i])
+    want = _want(ds, N_CHIPS, 2)
     assert len(got) == len(want) == 3 and len(got[-1]["id"]) == 1
     for g, w in zip(got, want):
         _assert_bitwise(g, w)
     assert sum(s.counts["chips"] for s in loads) == N_CHIPS
     assert sum(s.counts["native_chips"] for s in loads) == CASES[case][3]
+    for s in loads:
+        whole = route == "slot" and s.counts["chips"] == 2
+        assert s.counts["pinned_chips"] == (s.counts["native_chips"] if whole else 0)
 
 
 def test_span_counters(root):
-    """``chips`` and ``native_chips`` on each ``data.load``: the chip with
-    an overhanging window is counted out; a sample that draws (a crop)
-    keeps the per-chip path, none of its chips native."""
+    """``chips``, ``native_chips`` and ``pinned_chips`` on each
+    ``data.load``: the chip with an overhanging window is counted out; a
+    sample that draws (a crop) keeps the per-chip path, none of its chips
+    native or read into the consumer's arrays, which it leaves unused."""
     ds = _dataset(root, "mixed")
     _, loads = _data_load(lambda: list(BatchLoader(ds, batch_size=2)))
-    assert [(s.counts["chips"], s.counts["native_chips"]) for s in loads] == \
-        [(2, 2), (2, 1), (1, 1)]
+    assert [(s.counts["chips"], s.counts["native_chips"], s.counts["pinned_chips"])
+            for s in loads] == [(2, 2, 0), (2, 1, 0), (1, 1, 0)]
+    _, loads = _data_load(lambda: _through_slot(BatchLoader(ds, batch_size=2)))
+    assert [(s.counts["chips"], s.counts["native_chips"], s.counts["pinned_chips"])
+            for s in loads] == [(2, 2, 2), (2, 1, 1), (1, 1, 0)]
     ds.window_size_sample = (64, 64)
-    _, loads = _data_load(lambda: list(BatchLoader(ds, batch_size=3)))
-    assert [(s.counts["chips"], s.counts["native_chips"]) for s in loads] == [(3, 0), (2, 0)]
+    (got, held), loads = _data_load(lambda: _through_slot(BatchLoader(ds, batch_size=3)))
+    assert [(s.counts["chips"], s.counts["native_chips"], s.counts["pinned_chips"])
+            for s in loads] == [(3, 0, 0), (2, 0, 0)]
+    assert not any(h for hs in held for h in hs) and len(got) == 2
     assert chip_io.threads() == min(len(os.sched_getaffinity(0)), os.cpu_count())
+
+
+@pytest.mark.parametrize("num_workers", [0, 2])
+def test_prefetch_on_the_cpu_sets_no_slot(root, num_workers):
+    """``prefetch_to_device(iter(loader), device="cpu")`` hands the loader
+    no ``slot``: the batches, checked after the whole pass, are their
+    samples' stack, none counted in ``pinned_chips``."""
+    ds = _dataset(root, "recipe")
+    it = iter(BatchLoader(ds, batch_size=2, num_workers=num_workers))
+    fed, loads = _data_load(lambda: list(prefetch_to_device(it, device="cpu")))
+    assert it.slot is None
+    for g, w in zip(fed, _want(ds, N_CHIPS, 2), strict=True):
+        assert list(g) == list(w) and g["id"] == w["id"]
+        assert all(torch.equal(g[k], torch.from_numpy(v)) for k, v in w.items()
+                   if isinstance(v, np.ndarray))
+    assert [s.counts["pinned_chips"] for s in loads] == [0, 0, 0]
+
+
+def test_slot_ring_turns_under_a_busy_pool(tmp_path):
+    """Many small batches on more loader threads than this machine gives
+    the test, with a short switch interval, through a ring of exactly ``1 +
+    ahead`` arrays: every batch is still bitwise its samples' stack, so no
+    array is handed out again while its batch is unread."""
+    rows = []
+    rng = np.random.default_rng(5)
+    for i in range(36):
+        folder = str(tmp_path / f"c{i}")
+        _write(folder, "npy", _products(rng, 48, 48))
+        rows.append({"id": f"c{i}", "folder": folder})
+    ds = ChipDataset(rows, PRODUCTS[:4], ["labelbinary"], "weight_mag1c")
+    loader = BatchLoader(ds, batch_size=2, num_workers=4)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        got, held = _through_slot(loader)
+    finally:
+        sys.setswitchinterval(interval)
+    assert all(all(h) for h in held) and iter(loader).ahead == 11
+    for g, w in zip(got, _want(ds, 36, 2), strict=True):
+        _assert_bitwise(g, w)
+
+
+class _Span:
+    def __init__(self, start, counts):
+        self.name, self.start, self.end, self.counts = "data.load", start, start + 5, counts
+
+
+def test_load_pinned_pct_reads_the_counters(monkeypatch):
+    """``portbench/metrics/eval.load_pinned_pct.py``: 100 x the summed
+    ``pinned_chips`` over the summed ``chips`` of the window's ``data.load``
+    spans; None where the spans carry no such counter (a program without
+    it) or none lie in the window."""
+    from starcop_tpu_torch.utils import profiling
+
+    class Window:
+        t_start, t_end = 0, 100
+
+    read = harness.load_module("metrics", "eval.load_pinned_pct").read
+    log = [_Span(10, {"chips": 32, "native_chips": 32, "pinned_chips": 32}),
+           _Span(20, {"chips": 32, "native_chips": 31, "pinned_chips": 31}),
+           _Span(30, {"chips": 8, "native_chips": 8, "pinned_chips": 0}),
+           _Span(200, {"chips": 32, "native_chips": 32, "pinned_chips": 32})]  # outside
+    monkeypatch.setattr(profiling, "spans", lambda: log)
+    assert read({"trace": Window}) == 100.0 * 63 / 72
+    log[:] = [_Span(10, {"chips": 32, "native_chips": 32}), _Span(20, {"chips": 32})]
+    assert read({"trace": Window}) is None
+    log[:] = [_Span(200, {"chips": 32, "pinned_chips": 32})]
+    assert read({"trace": Window}) is None
 
 
 @pytest.mark.parametrize("layout, damage", [("recipe", "truncated"), ("cache", "truncated"),

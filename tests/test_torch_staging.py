@@ -15,7 +15,11 @@ back behind a busy stream keep their own bytes; ``emit_granule_to_mask``'s
 ``prefetch_to_device``, copying behind a busy side stream through more
 uploads than their rings hold, give ``torch.as_tensor``'s bytes while the
 caller reuses its arrays (``test_torch_serve.py`` holds the rings' turns
-on the CPU).
+on the CPU); ``prefetch_to_device(iter(loader))``, whose loader reads every
+batch straight into the rings' buffers, gives each batch's fresh read's
+bytes behind a busy side stream through more batches than the rings hold,
+so no buffer is read into again before its copy has run
+(``test_torch_chip_batch.py`` holds the loader's side on the CPU).
 """
 
 import numpy as np
@@ -27,7 +31,8 @@ import cpu_share  # noqa: E402,F401
 
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from starcop_tpu_torch.data.datamodule import prefetch_to_device  # noqa: E402
+from starcop_tpu_torch.data.datamodule import BatchLoader, prefetch_to_device  # noqa: E402
+from starcop_tpu_torch.data.dataset import ChipDataset  # noqa: E402
 from starcop_tpu_torch.scenes.emit_pipeline import emit_granule_to_mask  # noqa: E402
 from starcop_tpu_torch.serve.pipeline import Uploader  # noqa: E402
 from starcop_tpu_torch.utils import staging  # noqa: E402
@@ -252,3 +257,53 @@ def test_prefetch_behind_a_busy_stream_is_bitwise_as_tensor(card, monkeypatch):
         assert list(g) == list(b) and g["id"] is b["id"] and g["has_plume"] is b["has_plume"]
         for k in ("input", "labels"):
             assert g[k].device.type == "cuda" and torch.equal(g[k], torch.as_tensor(b[k], device=card))
+
+
+CHIP_PRODUCTS = ("mag1c", "TOA_AVIRIS_640nm", "TOA_AVIRIS_550nm", "TOA_AVIRIS_460nm",
+                 "labelbinary", "weight_mag1c")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_workers", [0, 2])
+def test_loader_prefetch_behind_a_busy_stream_is_bitwise_the_fresh_read(card, monkeypatch,
+                                                                        tmp_path, num_workers):
+    held, make_stream = torch.cuda.Stream(card), torch.cuda.Stream
+
+    def side_stream(*args, **kwargs):  # the prefetch's Stream(dev) is held; torch's own calls pass
+        return make_stream(*args, **kwargs) if kwargs else held
+
+    monkeypatch.setattr(torch.cuda, "Stream", side_stream)
+    batch, n_batches, hold_at = 4, 12, 1 + num_workers  # by then the first batches made the rings
+    rng = np.random.default_rng(12)
+    rows = []
+    for i in range(batch * n_batches):
+        folder = tmp_path / f"c{i}"
+        folder.mkdir()
+        for p in CHIP_PRODUCTS:
+            np.save(folder / f"{p}.npy", rng.standard_normal((128, 128)).astype(np.float32))
+        rows.append({"id": f"c{i}", "folder": str(folder)})
+    args = (CHIP_PRODUCTS[:4], ["labelbinary"], "weight_mag1c")
+
+    class Held(ChipDataset):
+        def read_batch(self, indices, slot=None):
+            if indices[0] == batch * hold_at:  # hold the side stream from here on
+                with torch.cuda.stream(held):
+                    torch.cuda._sleep(HOLD_CYCLES)
+            return super().read_batch(indices, slot)
+
+    fresh = ChipDataset(rows, *args)
+    want = [fresh.read_batch(range(b * batch, (b + 1) * batch)) for b in range(n_batches)]
+    loader = BatchLoader(Held(rows, *args), batch_size=batch, num_workers=num_workers)
+    assert n_batches > 2 + 2 + iter(loader).ahead  # every buffer (size + 2 + ahead) taken again
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = list(prefetch_to_device(iter(loader), device=card, size=2))
+    torch.cuda.synchronize()
+    loads = [x for x in spans() if x.name == "data.load"]
+    assert sum(x.counts["pinned_chips"] for x in loads) == batch * n_batches
+    assert len(got) == n_batches
+    for w, g in zip(want, got):
+        assert list(g) == list(w) and g["id"] == w["id"]
+        for k, a in w.items():
+            if isinstance(a, np.ndarray):
+                assert g[k].device.type == "cuda" and torch.equal(g[k], torch.as_tensor(a, device=card))
