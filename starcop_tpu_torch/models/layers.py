@@ -20,6 +20,8 @@
     computes on the whole batch (as a Flax network under ``jit`` on a
     batch-sharded array does): batch norm normalises with the global batch
     statistics and dropout slices the rank's rows out of the global mask.
+
+And the transformers' one attention site, ``attention``.
 """
 
 from __future__ import annotations
@@ -159,6 +161,19 @@ def init_like_flax(module: nn.Module, generator: Optional[torch.Generator] = Non
         elif isinstance(mod, nn.BatchNorm2d):
             mod.reset_parameters()
     return module
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor] = None, scale: Optional[float] = None) -> torch.Tensor:
+    """``softmax(scale * q k^T + bias) v`` over (..., heads, tokens, d)
+    inputs, through ``scaled_dot_product_attention``: ``scale`` None is 1 /
+    sqrt(d); ``bias`` an additive mask that broadcasts to the scores, cast
+    to q's dtype. At f32 it runs where SDPA puts f32 inputs with a mask or
+    without (the memory-efficient kernel on an H100); bf16 inputs take a
+    flash kernel where there is no bias."""
+    if bias is not None:
+        bias = bias.to(q.dtype)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,

@@ -14,7 +14,8 @@ and carry their state_dict names (``backbone.*``, ``decode_head.*``):
   * efficient self-attention: Q from the tokens; K and V from the tokens
     reduced by a convolution of kernel and stride ``sr_ratios[i]`` and a
     layer norm (the tokens themselves at ratio 1); heads of C / heads
-    channels through ``scaled_dot_product_attention``; an output projection;
+    channels through ``layers.attention`` (``scaled_dot_product_attention``);
+    an output projection;
   * MixFFN: ``fc2(GELU(DWConv3x3(fc1(x))))``, hidden width ``mlp_ratio``
     C, exact (erf) GELU;
   * head: each stage's tokens through a linear layer to ``decoder_dim``,
@@ -59,7 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from starcop_tpu_torch.models.layers import BatchNorm2d, dropout
+from starcop_tpu_torch.models.layers import BatchNorm2d, attention, dropout
 from starcop_tpu_torch.utils.profiling import count, span
 
 # MiT variants (mix_transformer.py: mit_b0 ... mit_b5); every one has MLP
@@ -130,7 +131,7 @@ class Attention(nn.Module):
             if self.sr_ratio > 1:
                 xr = self.norm(map_to_tokens(self.sr(tokens_to_map(x, h, w))))
             k, v = self.kv(xr).view(b, -1, 2, heads, c // heads).permute(2, 0, 3, 1, 4)
-            out = F.scaled_dot_product_attention(q, k, v)
+            out = attention(q, k, v)
             out = self.proj(out.transpose(1, 2).reshape(b, n, c))
             if traced is not None:
                 count("queries", n)

@@ -7,7 +7,7 @@ constants and runs the network, returning (B, K, H, W) logits.
 validation harness reads (eval/validation.py), and ``loss_fn`` is the
 weighted BCE of training. Every segmentation ``model_type`` of the JAX
 package builds (``ARCHITECTURES``), and the port's own ``segformer_b5``
-(models/segformer.py).
+(models/segformer.py) and ``swinv2_b_upernet`` (models/swin.py).
 
 Batch protocol: a dict with input (B, C, H, W), output (B, 1, H, W),
 optionally weight_loss (B, 1, H, W), has_plume (B,) and id (list of str).
@@ -40,6 +40,7 @@ from starcop_tpu_torch.models.layers import init_like_flax
 from starcop_tpu_torch.models.mobilenet_unet import MobileNetV2UNet
 from starcop_tpu_torch.models.segformer import ARCHITECTURES as SEGFORMERS
 from starcop_tpu_torch.models.simple import SimpleCNN, SimpleCNNRegression, SingleConv
+from starcop_tpu_torch.models.swin import ARCHITECTURES as SWINS
 from starcop_tpu_torch.models.unet import UNet, UNetDropout
 
 EMIT_INPUT_PRODUCTS = ("mag1c", "TOA_AVIRIS_640nm", "TOA_AVIRIS_550nm", "TOA_AVIRIS_460nm")
@@ -77,9 +78,10 @@ ARCHITECTURES: Dict[str, Callable[[int, int], nn.Module]] = {
     "single": SingleConv,
     "cnn_regression": SimpleCNNRegression,
     **SEGFORMERS,
+    **SWINS,
 }
 # The networks that compute under bf16 autocast for ``model_dtype=torch.bfloat16``.
-AUTOCAST_TYPES = ("unet_semseg", *SEGFORMERS)
+AUTOCAST_TYPES = ("unet_semseg", *SEGFORMERS, *SWINS)
 
 
 def configure_architecture(architecture: str, in_channels: int, num_classes: int) -> nn.Module:
@@ -146,7 +148,7 @@ class SegmentationModel(nn.Module):
     def init(self, generator: Optional[torch.Generator] = None) -> "SegmentationModel":
         """Re-initialise the network as Flax does (``init_like_flax``, drawn
         from ``generator``; a network with its own ``init_weights``, as the
-        SegFormers' NVlabs rule, draws by that), then the ImageNet encoder
+        SegFormers' NVlabs rule and the SwinV2 UperNets' rule, draws by that), then the ImageNet encoder
         rule of segmenter.py:144-177: with ``encoder_weights='auto'`` a 3-product
         ``unet_semseg`` takes its encoder from a torchvision mobilenet_v2
         checkpoint when ``find_imagenet_mobilenet_v2`` finds one;
@@ -176,7 +178,7 @@ class SegmentationModel(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Normalised input -> network -> logits (f32 at least). ``generator``
         draws the dropout masks of a training forward (``unet_dropout``, the
-        SegFormers)."""
+        SegFormers, the SwinV2 UperNets)."""
         xn = self.normalizer.normalize_x(x)
         kw = {} if generator is None else {"generator": generator}
         if self.model_dtype is not None:

@@ -30,7 +30,15 @@ trace's launches and device activity. The spans:
   * ``data.load``: ``data.datamodule.BatchLoader``, a batch's chip reads and
     stack;
   * ``validation.rows``: ``eval.validation.run_validation``, a batch's
-    per-tile rows on the host.
+    per-tile rows on the host;
+  * ``segformer.stage`` (key: the stage, 0-3), ``segformer.attention``
+    (counters ``queries``, ``keys``, ``heads``), ``segformer.mixffn``,
+    ``segformer.decode``: ``models.segformer``;
+  * ``swin.stage`` (key: the stage, 0-3), ``swin.attention`` (counters
+    ``windows``, ``window_tokens``, ``heads``, ``shifted``: 1 on a shifted
+    block), ``swin.mlp``, ``swin.merge``, and ``upernet.head`` with
+    ``upernet.ppm``, ``upernet.fpn`` and ``upernet.fuse`` inside it:
+    ``models.swin``.
 """
 
 from __future__ import annotations
