@@ -44,7 +44,9 @@ every hand-written kernel against its plain torch twin on the card:
      47 x 37 (a ragged last block), 60 x 50 x 128 step 25 (block 1 wholly
      invalid) and step 176 (row segments narrower than the step; 8 x 352
      and, ragged, 8 x 290 x 128), each taking the geometry asserted, bitwise
-     equal to its twin and on a rerun;
+     equal to its twin and on a rerun; the Woodbury base kernel at nb = 23
+     and 39 against its f64 twin, timed beside its plain twin and
+     torch.linalg's Cholesky inverse (``woodbury_base_phase``);
   5. emit_granule_to_mask on a seeded U-Net whose output spreads over
      (0, 1) and follows the filter (Kaiming-normal convolutions, randomised
      batch-norm statistics, the first layer's mag1c weights x MF_GAIN),
@@ -193,7 +195,7 @@ every hand-written kernel against its plain torch twin on the card:
      and glue within 4x the f32 twin's error + 1e-6, the whole chunk at mf
      correlation > 0.9999 with the f32 twin and agreement >= 0.999 with
      the f64 twin); every bucket on the 16-byte copies; scene ms by CUDA
-     events and wall, busy and idle share, _woodbury_base's share of the
+     events and wall, busy and idle share, woodbury_base's share of the
      wall; ``aviris_launches`` and two rows (the masked f32 stream rounds
      at a full chunk of the largest bucket) in the kernels line;
  18. cli/mag1c in a subprocess on a 256 x 128 x 74 .npy scene, with --glt
@@ -297,6 +299,7 @@ H, W, STEP, NUM_ITER, ALPHA = 1280, 1242, 54, 30, 1e-4
 MSTEP, FILL = 32, -9999.0  # the serving default column_step; EMIT's fill value
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 34e12  # f64 FMA units, no tensor cores
 BF16_FLOP_PER_S = 989e12  # dense, tensor cores: the rate of products of bf16 inputs
 REPLACES = "starcop_tpu/ops/mag1c_pallas.py"
 MF_GAIN = 1000.0  # the seeded U-Net's first-layer gain on the mag1c channel
@@ -483,6 +486,66 @@ def kernel_rows(plans, fields, path):
     return out
 
 
+def woodbury_base_phase(dev, x, tpl) -> list:
+    """4e. The Woodbury base (``csrc/woodbury_base.cu``) at S = 50 on the
+    bench cube's statistics at step 54 (nb = 23, ``init_stats``) and at step
+    32 (nb = 39, ``init_stats_masked`` with every pixel valid, the last block
+    ragged): K0 exactly symmetric and no farther from the f64 twin's
+    inverse than the f32 recursion's (the plain twin on the card), cit0 and
+    norm0 within 1e-6 of the f64 twin's (max gap over max value), a
+    rerun bitwise equal. One kernels-line row per nb: ms the kernel's device
+    time a launch (torch.profiler), event_ms CUDA events around back-to-back
+    calls, the plain twin's ms, and ``torch.linalg.cholesky_ex`` +
+    ``torch.cholesky_inverse`` of the shrunk C0 as library_ms. Returns the
+    rows."""
+    import torch
+
+    from starcop_tpu_torch.ops import mag1c_kernels as mk
+
+    valid = torch.ones(x.shape[:2], dtype=torch.bool, device=dev)
+    rows = []
+    for step in (STEP, MSTEP):
+        nb = -(-W // step)
+        m0, c0 = (mk.init_stats(x, nb, step) if step == STEP
+                  else mk.init_stats_masked(x, valid, nb, step))
+        s = c0.shape[1]
+        run = lambda: mk.woodbury_base(c0, m0, tpl, ALPHA)  # noqa: E731
+        out, again = run(), run()
+        ref = mk.woodbury_base(c0.double().cpu(), m0.double().cpu(), tpl.double().cpu(), ALPHA)
+        k32 = mk._woodbury_base(c0, m0, tpl, ALPHA)[0]
+        e_k, e_p = rel_err(out[0].cpu(), ref[0]), rel_err(k32.cpu(), ref[0])
+        e_c, e_n = rel_err(out[2].cpu(), ref[2]), rel_err(out[3].cpu(), ref[3])
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
+        check(e_k <= e_p and e_c <= 1e-6 and e_n <= 1e-6 and same
+              and bool(torch.equal(out[0], out[0].transpose(1, 2))),
+              f"woodbury_base nb = {nb}: K0 rel err vs f64 twin {e_k:.3e} (f32 recursion "
+              f"{e_p:.3e}), cit0 {e_c:.3e} (<= 1e-6), norm0 {e_n:.3e} (<= 1e-6), symmetric, "
+              f"rerun bitwise {same}")
+        shrunk = mk._shrink_diag(c0, ALPHA)
+        ms = device_ms(run, "woodbury_base_kernel")
+        event_ms = cuda_ms(run, inner=10)
+        plain_ms = cuda_ms(lambda: mk._woodbury_base(c0, m0, tpl, ALPHA), reps=5, warmup=1)
+        lib_ms = cuda_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(shrunk).L),
+                         reps=7, inner=3)
+        # C0, m0 and the template read, K0, tgt0, cit0 and norm0 written; the
+        # factor, the inverse and V V^T ~ S^3 f64 operations, the solves ~8 S^2.
+        bms, bby = bound_ms(4.0 * (nb * (2 * s * s + 3 * s + 1) + s), nb * (s ** 3 + 8 * s * s),
+                            FP64_FLOP_PER_S)
+        name = f"woodbury_base_nb{nb}"
+        print_share(name, ms, bms)
+        rows.append(dict(
+            name=name, route="cuda", source="starcop_tpu_torch/csrc/woodbury_base.cu",
+            replaces=f"{REPLACES}:826", tpu_kernel="none: XLA's _woodbury_base", launches=1,
+            max_abs_err=float((out[0].cpu().double() - ref[0]).abs().max()),
+            rel_err_vs_f64=max(e_k, e_c, e_n),
+            check="K0 no farther from f64 than the f32 recursion; cit0, norm0 within 1e-6",
+            ms=ms, event_ms=event_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+            share_of_bound=bms / ms, library_ms=lib_ms,
+            note="ms: the kernel's device time per launch (torch.profiler); event_ms: CUDA "
+                 "events around back-to-back calls; plain_ms: _woodbury_base on the card"))
+    return rows
+
+
 def masked_granule(seed: int, centers, fwhm) -> dict:
     """A served granule at 1280 x 1242 x 50 in ``serve.pipeline.read_granule``'s
     form: ``synthetic_scene`` (seed) with the sensor fill in every band over
@@ -549,8 +612,7 @@ def masked_phase(dev, template, granule):
         check="m0, C0 rel err vs f64 twin <= 1e-5 on blocks with valid pixels")
 
     # filter_round_masked (FIRST / LOOP / FINAL) and filter_glue with n per block
-    k0, tgt0, cit0, norm0 = mk._woodbury_base(c0, m0, tpl, ALPHA)
-    k0 = k0.contiguous()
+    k0, tgt0, cit0, norm0 = mk.woodbury_base(c0, m0, tpl, ALPHA)
     carry = mk.pack_carry(tgt0, cit0, norm0)
     d64 = lambda t: None if t is None else t.double()  # noqa: E731
 
@@ -739,7 +801,7 @@ def serving_phase(dev, model, granules, mf_plain0):
             per = {k: v / len(names) for k, v in launches.items()}
             want = {"init_stats_masked": 1, "filter_round_masked_first": 1,
                     "filter_round_masked_loop": NUM_ITER, "filter_glue": NUM_ITER,
-                    "init_stats": 0, "filter_round": 0}
+                    "woodbury_base": 1, "init_stats": 0, "filter_round": 0}
             check(all(per[k] == v for k, v in want.items()),
                   f"{codec} upload: launches per granule {per} (want {want})")
             by_name = {r.name: r.outputs for r in results}
@@ -918,8 +980,7 @@ def bf16_phase(dev, x, tpl, mf_f32):
     fields["blocked_transpose"] = dict(rel_err=0.0, max_abs_err=0.0,
                                        check="bitwise equal to its twin")
 
-    k0, tgt0, cit0, norm0 = mk._woodbury_base(c0, m0, tpl, ALPHA)
-    k0 = k0.contiguous()
+    k0, tgt0, cit0, norm0 = mk.woodbury_base(c0, m0, tpl, ALPHA)
     carry = mk.pack_carry(tgt0, cit0, norm0)
     glue_kw = dict(m0=m0, template=tpl, k0=k0, n=p, alpha=ALPHA)
     errs, rule, (mf1, r1, _), ((_, _, _), carry1) = bsp_rounds(
@@ -1017,8 +1078,7 @@ def masked_bf16_phase(dev, template, granule):
     fields["init_stats_bsp"] = dict(rel_err=e_c0, max_abs_err=float((c0r - c0_32).abs().max()),
                                     check="C0 rel err vs f64 twin <= 1e-5 on live blocks")
 
-    k0, tgt0, cit0, norm0 = mk._woodbury_base(c0r, m0, tpl, ALPHA)
-    k0 = k0.contiguous()
+    k0, tgt0, cit0, norm0 = mk.woodbury_base(c0r, m0, tpl, ALPHA)
     carry = mk.pack_carry(tgt0, cit0, norm0)
     glue_kw = dict(m0=m0, template=tpl, k0=k0, n=n, alpha=ALPHA)
     errs, rule, (mf1, r1, _), ((mf2, _, _), carry1) = bsp_rounds(
@@ -1178,7 +1238,7 @@ def serving_bf16_phase(dev, model, model_bf16, granules, f32_outputs):
           f"bf16 stream: {len(results)} scenes served, errors {errors}")
     per = {k: v / len(names) for k, v in launches.items()}
     want = {k: 0 for k in launches}
-    want.update({"blocked_transpose": 1, "init_stats_bsp": 1,
+    want.update({"blocked_transpose": 1, "init_stats_bsp": 1, "woodbury_base": 1,
                  "filter_round_bsp_masked_first": 1, "filter_round_bsp_masked_loop": NUM_ITER,
                  "filter_glue": NUM_ITER})
     check(per == want, f"bf16 stream: launches per granule {per} (want {want}: no K1, K2 or "
@@ -1259,8 +1319,7 @@ def stream_kernels_phase(dev, x, tpl):
         max_abs_err=max(float((m0 - m0_32).abs().max()), float((c0 - c0_32).abs().max())),
         check="m0, C0 rel err vs f64 twin <= 1e-5")
 
-    k0, tgt0, cit0, norm0 = mk._woodbury_base(c0, m0, tpl, ALPHA)
-    k0 = k0.contiguous()
+    k0, tgt0, cit0, norm0 = mk.woodbury_base(c0, m0, tpl, ALPHA)
     carry = mk.pack_carry(tgt0, cit0, norm0)
     glue_kw = dict(m0=m0, template=tpl, k0=k0, n=p, alpha=ALPHA)
     errs, rule, (mf1, r1, _), ((mf2, _, _), carry1) = bsp_rounds(
@@ -1420,17 +1479,19 @@ def fused_routes_phase(dev, x_shw, xs, m0, c0, tpl, mf_32, mf_64, r_64):
                                            alpha=ALPHA, stream_dtype=dtype, scene_layout="shw",
                                            device=dev)
 
-    mono_counts = dict(init_stats_stream=1, filter_round_mono_first=1,
+    mono_counts = dict(init_stats_stream=1, woodbury_base=1, filter_round_mono_first=1,
                        filter_round_mono_loop=NUM_ITER)
-    shw_counts = dict(blocked_transpose_shw=1, init_stats_stream=1, filter_glue=NUM_ITER)
-    woodbury_counts = dict(init_stats_stream=1, fused_iter_woodbury=NUM_ITER + 1,
-                           filter_glue=NUM_ITER)
+    shw_counts = dict(blocked_transpose_shw=1, init_stats_stream=1, woodbury_base=1,
+                      filter_glue=NUM_ITER)
+    woodbury_counts = dict(init_stats_stream=1, woodbury_base=1,
+                           fused_iter_woodbury=NUM_ITER + 1, filter_glue=NUM_ITER)
     routes = {  # name: (run, launches by design, the f32 route it is held to at bf16)
         "mono": (fused("mono", xs), mono_counts, None),
         "woodbury": (fused("woodbury", xs_live), woodbury_counts, None),
         "cholesky": (fused("cholesky", xs_live),
                      dict(init_stats_stream=1, fused_iter_cholesky=NUM_ITER + 1), None),
-        "resident": (fused("resident", xs), dict(init_stats_stream=1, filter_glue=NUM_ITER,
+        "resident": (fused("resident", xs), dict(init_stats_stream=1, woodbury_base=1,
+                                                 filter_glue=NUM_ITER,
                                                  filter_round_bsp_f32=NUM_ITER + 1), None),
         "shw": (shw(), dict(shw_counts, filter_round_bsp_f32=NUM_ITER + 1), None),
         "mono_bf16": (fused("mono", xs, bf16), mono_counts, "mono"),
@@ -1468,7 +1529,7 @@ def fused_routes_phase(dev, x_shw, xs, m0, c0, tpl, mf_32, mf_64, r_64):
         timings[f"{name}_filter_ms"] = cuda_ms(run, reps=7, warmup=1)
     print("fused-route launches: " + json.dumps(
         {k: {n: v for n, v in c.items() if v} for k, c in launches.items()}), flush=True)
-    timings["stream_woodbury_base_ms"] = cuda_ms(lambda: mk._woodbury_base(c0, m0, tpl, ALPHA))
+    timings["stream_woodbury_base_ms"] = cuda_ms(lambda: mk.woodbury_base(c0, m0, tpl, ALPHA))
     profile_granule(routes["mono"][0], "fused_mono_filter")
     profile_granule(routes["resident"][0], "fused_resident_filter")
     profile_granule(routes["cholesky"][0], "fused_cholesky_filter")
@@ -1532,8 +1593,8 @@ def odd_geometry_phase(dev):
     out = {}
 
     def base(m0, c0):
-        k0, tgt0, cit0, norm0 = mk._woodbury_base(c0, m0, tpl, ALPHA)
-        return k0.contiguous(), mk.pack_carry(tgt0, cit0, norm0)
+        k0, tgt0, cit0, norm0 = mk.woodbury_base(c0, m0, tpl, ALPHA)
+        return k0, mk.pack_carry(tgt0, cit0, norm0)
 
     def glue_fn(m0, k0, n):
         return lambda stats, carry: mk.filter_glue(stats, carry, m0=m0, template=tpl, k0=k0, n=n,
@@ -1696,8 +1757,7 @@ def odd_stats_phase(dev):
     d64 = lambda t: t.double()  # noqa: E731
     for s, (x, nb, step, m0, c0) in glue_inputs.items():
         tpl = -torch.abs(torch.sin(torch.linspace(0.3, 9.4, s, device=dev)))
-        k0, tgt0, cit0, norm0 = mk._woodbury_base(c0, m0, tpl, ALPHA)
-        k0 = k0.contiguous()
+        k0, tgt0, cit0, norm0 = mk.woodbury_base(c0, m0, tpl, ALPHA)
         carry = mk.pack_carry(tgt0, cit0, norm0)
         n = x.shape[0] * step
         _, _, st = mk.filter_round(x, nb, step, m0, carry, None, None, mode=mk.FIRST)
@@ -1923,7 +1983,8 @@ def num_iter0_phase(dev, x, template, granule):
               f"{corr(got[okn], ref[okn]):.7f}")
 
 
-FILTER_LAUNCHES = {"init_stats": 1, "filter_round": NUM_ITER + 1, "filter_glue": NUM_ITER}
+FILTER_LAUNCHES = {"init_stats": 1, "woodbury_base": 1, "filter_round": NUM_ITER + 1,
+                   "filter_glue": NUM_ITER}
 EVAL_TILES, EVAL_SIZE, EVAL_BATCH = 16, 512, 32  # the eval phase's dataset and batch
 
 
@@ -2374,8 +2435,7 @@ def aviris_chunk(xb, keep, tpl, cov_scale, what):
     n = keep.sum(1).clamp(min=1).float()
     m0 = (torch.where(keep[..., None], xb, 0.0).sum(1, dtype=torch.float64) / n[:, None]).float()
     xs = torch.where(keep[..., None], xb - m0[:, None, :], 0.0).transpose(1, 2).contiguous()
-    k0, tgt0, cit0, norm0 = mk._woodbury_base(_second_moment(xs, n), m0, tpl, ALPHA)
-    k0 = k0.contiguous()
+    k0, tgt0, cit0, norm0 = mk.woodbury_base(_second_moment(xs, n), m0, tpl, ALPHA)
     mask = keep.reshape(1, -1)
     geom = mk.stream_geometry(xs, s)
     check(geom.aligned, f"{what}: filter_round_bsp takes the 16-byte copies (G = {g}, P = {p})")
@@ -2442,7 +2502,7 @@ def aviris_phase(dev):
     held against their twins at covariance_update_scaling 1.0 and 0.7
     (``aviris_chunk``); every bucket's stream on the 16-byte copies. Records
     the scene's ms (CUDA events and wall), its device busy and idle share,
-    the share of ``_woodbury_base`` in the wall time and the rounds' times at
+    the share of ``woodbury_base`` in the wall time and the rounds' times at
     a full chunk of the largest bucket. Returns (kernel rows, launches,
     timings)."""
     import torch
@@ -2484,7 +2544,7 @@ def aviris_phase(dev):
     launches = dict(mk.LAUNCH_COUNTS)
     print("aviris launches:", json.dumps({k: v for k, v in launches.items() if v}), flush=True)
     want = {k: 0 for k in launches}
-    want.update(filter_round_bsp_f32_masked_first=len(chunks),
+    want.update(filter_round_bsp_f32_masked_first=len(chunks), woodbury_base=len(chunks),
                 filter_round_bsp_f32_masked_loop=NUM_ITER * len(chunks),
                 filter_glue=NUM_ITER * len(chunks))
     check(launches == want, f"aviris scene: launches as {len(chunks)} chunk filters "
@@ -2573,7 +2633,7 @@ def aviris_phase(dev):
         wall_ms.append((time.perf_counter() - t0) * 1e3)
         ev_ms.append(start.elapsed_time(end))
     prof = profile_granule(run, "aviris_scene") or {}
-    spent, real = [], mfused._woodbury_base
+    spent, real = [], mfused.woodbury_base
 
     def timed_base(*args, **kwargs):
         torch.cuda.synchronize()
@@ -2583,14 +2643,14 @@ def aviris_phase(dev):
         spent.append(time.perf_counter() - t0)
         return out
 
-    mfused._woodbury_base = timed_base
+    mfused.woodbury_base = timed_base
     try:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_base = time.perf_counter() - t0
     finally:
-        mfused._woodbury_base = real
+        mfused.woodbury_base = real
     timings = {
         "aviris_scene_event_ms": statistics.median(ev_ms),
         "aviris_scene_wall_ms": statistics.median(wall_ms),
@@ -3001,7 +3061,7 @@ def prepare_phase(dev, tmp):
                                        alpha=ALPHA, compute_dtype=torch.float64, device=dev)
         m0, c0 = mk.init_stats(x, nb, PREP_STEP)
         mf_32, _ = mk.resident_filter_plain(x, nb, PREP_STEP, m0,
-                                            *mk._woodbury_base(c0, m0, tpl, ALPHA), tpl,
+                                            *mk.woodbury_base(c0, m0, tpl, ALPHA), tpl,
                                             num_iter=NUM_ITER, alpha=ALPHA)
         mf_32 = unblock_columns(mf_32, h, PREP_STEP)
         n_det = int((mf_64 > 500).sum())
@@ -3252,7 +3312,7 @@ def parallel_phase(dev, centers, template, granule, mf_32, twin64, model):
     mf_64, r_64 = twin64
     e_twin = rel_err(mf_32[valid_d], mf_64[valid_d])
     one_filter = {k: 0 for k in mk.LAUNCH_COUNTS}
-    one_filter.update(filter_round_bsp_f32_masked_first=1,
+    one_filter.update(filter_round_bsp_f32_masked_first=1, woodbury_base=1,
                       filter_round_bsp_f32_masked_loop=NUM_ITER, filter_glue=NUM_ITER)
 
     def against_f64(what, mf, albedo):
@@ -3432,7 +3492,8 @@ def parallel_phase(dev, centers, template, granule, mf_32, twin64, model):
     # the sharded leg: 1 block a rank, 3 iterations; serving: 2 granules a rank,
     # 2 blocks each, 2 iterations, every pixel valid (rows 11-12)
     dry_want.update(filter_round_bsp_f32_masked_first=1, filter_round_bsp_f32_masked_loop=3,
-                    filter_glue=3 + 2 * 2, init_stats=2, filter_round=2 * 3)
+                    filter_glue=3 + 2 * 2, init_stats=2, filter_round=2 * 3,
+                    woodbury_base=1 + 2)
     for rank, r in enumerate(dry["ranks"]):
         check(r["launches"] == dry_want,
               f"22e rank {rank}: launches {({k: v for k, v in r['launches'].items() if v})} "
@@ -3481,8 +3542,7 @@ def paper_kernels(dev, scene):
     m0_32, c0_32 = mk.init_stats_plain(x, nb, step)
     e_init = max(rel_err(m0, m0_64), rel_err(c0, c0_64))
     check(e_init <= 1e-5, f"paper chip init_stats vs f64 twin: rel err {e_init:.3e} (<= 1e-5)")
-    k0, tgt0, cit0, norm0 = mk._woodbury_base(c0, m0, tpl, ALPHA)
-    k0 = k0.contiguous()
+    k0, tgt0, cit0, norm0 = mk.woodbury_base(c0, m0, tpl, ALPHA)
     carry0 = mk.pack_carry(tgt0, cit0, norm0)
     glue_kw = dict(m0=m0, template=tpl, k0=k0, n=p, alpha=ALPHA)
 
@@ -3787,8 +3847,7 @@ def main(argv=None) -> int:
         check="m0, C0 rel err vs f64 twin <= 1e-5")
 
     # 4. filter_round / filter_glue on the main path's inputs ----------------
-    k0, tgt0, cit0, norm0 = mk._woodbury_base(c0, m0, tpl, ALPHA)
-    k0 = k0.contiguous()
+    k0, tgt0, cit0, norm0 = mk.woodbury_base(c0, m0, tpl, ALPHA)
     carry = mk.pack_carry(tgt0, cit0, norm0)
     d64 = lambda t: None if t is None else t.double()  # noqa: E731
 
@@ -3870,7 +3929,7 @@ def main(argv=None) -> int:
         e_init = max(rel_err(gm0, ref[0]), rel_err(gc0, ref[1]))
         gmf, _ = mk.acrwl1mf_resident(gx, gt, gnb, gstep, num_iter=5, alpha=ALPHA)
         gmf32, _ = mk.resident_filter_plain(gx, gnb, gstep, gm0,
-                                            *mk._woodbury_base(gc0, gm0, gt, ALPHA), gt,
+                                            *mk.woodbury_base(gc0, gm0, gt, ALPHA), gt,
                                             num_iter=5, alpha=ALPHA)
         check(e_init <= 1e-5 and corr(gmf, gmf32) > 0.9999,
               f"{gh}x{gw}x{len(g['template'])} step {gstep}: init rel err {e_init:.2e}, "
@@ -3881,6 +3940,8 @@ def main(argv=None) -> int:
     odd_geometry_phase(dev)
     odd_stats_phase(dev)
     odd_transpose_phase(dev)
+    # 4e. the Woodbury base at the filter's two block counts -------------------------
+    base_rows = woodbury_base_phase(dev, x, tpl)
     for what, geom in (("filter_round (bench cube)", mk.cube_geometry(x, nb, STEP)),
                        ("filter_round_masked (served cube)",
                         mk.cube_geometry(x, -(-W // MSTEP), MSTEP)),
@@ -3899,7 +3960,7 @@ def main(argv=None) -> int:
     print("main-path launches:", json.dumps(launches), flush=True)
     # The main path runs exactly one filter: 1 init_stats, NUM_ITER + 1
     # passes and NUM_ITER glues, and none of the masked kernels.
-    for name, want in (("init_stats", 1), ("filter_round", NUM_ITER + 1),
+    for name, want in (("init_stats", 1), ("woodbury_base", 1), ("filter_round", NUM_ITER + 1),
                        ("filter_glue", NUM_ITER), ("init_stats_masked", 0),
                        ("filter_round_masked_first", 0), ("filter_round_masked_loop", 0)):
         check(launches[name] == want, f"{name} launched {launches[name]} times on the main "
@@ -3968,7 +4029,7 @@ def main(argv=None) -> int:
              "filter_glue": "ms: the kernel's device time per launch (torch.profiler); "
                             "event_ms: CUDA events around back-to-back calls, which the host's "
                             "launch gaps set"}
-    kernels = []
+    kernels = list(base_rows)
     for name, plan in timing_plan.items():
         ms = cuda_ms(plan["kernel"], inner=10)
         extra = {}
@@ -4004,7 +4065,8 @@ def main(argv=None) -> int:
             "granule_to_mask_from_host_ms": cuda_ms(lambda: emit_granule_to_mask(
                 scene["radiance"], rgb, template, model, column_step=STEP,
                 num_iter=NUM_ITER, alpha=ALPHA), reps=10, warmup=1),
-            "woodbury_base_ms": cuda_ms(lambda: mk._woodbury_base(c0, m0, tpl, ALPHA)),
+            "woodbury_base_ms": cuda_ms(lambda: mk.woodbury_base(c0, m0, tpl, ALPHA)),
+            "woodbury_base_plain_ms": cuda_ms(lambda: mk._woodbury_base(c0, m0, tpl, ALPHA)),
         }
     # Host cost of one round launch: with the filter's geometry (the main
     # path), with the geometry worked out in the call, and the geometry alone.
@@ -4041,8 +4103,8 @@ def main(argv=None) -> int:
     launches_b = dict(mk.LAUNCH_COUNTS)
     print("bf16 main-path launches:", json.dumps(launches_b), flush=True)
     want = {k: 0 for k in launches_b}
-    want.update({"init_stats": 1, "blocked_transpose": 1, "filter_round_bsp": NUM_ITER + 1,
-                 "filter_glue": NUM_ITER})
+    want.update({"init_stats": 1, "woodbury_base": 1, "blocked_transpose": 1,
+                 "filter_round_bsp": NUM_ITER + 1, "filter_glue": NUM_ITER})
     check(launches_b == want, f"bf16 granule -> mask launches {launches_b} (want {want}: one "
                               f"bf16 filter, no K1 or K2 round)")
     pred_b = pred_b.cpu().numpy()

@@ -1,5 +1,5 @@
-// torch op registrations for the matched-filter kernels in mag1c.cu and
-// mag1c_fused.cu.
+// torch op registrations for the matched-filter kernels in mag1c.cu,
+// mag1c_fused.cu and woodbury_base.cu.
 //
 // The kernels have a plain C interface; this file checks every tensor
 // (device, dtype, contiguity, shape) and passes raw pointers plus the
@@ -57,6 +57,9 @@ int starcop_filter_round_mono(int mode, const void* xs, int f32, int center, con
                               const float* k0, const float* tmpl, const float* nin, int nb,
                               int S, int R, int P, const int* geom, int nchunks, float cov_scale,
                               float alpha, void* stream);
+int starcop_woodbury_base(const float* c0, const float* m0, const float* tmpl, float* k0,
+                          float* tgt0, float* cit0, float* norm0, int S, int nb, float alpha,
+                          void* stream);
 }
 
 namespace {
@@ -434,6 +437,28 @@ void filter_round_mono(int64_t mode, const at::Tensor& xs, bool center, const at
                "filter_round_mono");
 }
 
+void woodbury_base(const at::Tensor& c0, const at::Tensor& m0, const at::Tensor& tmpl,
+                   const at::Tensor& k0, const at::Tensor& tgt0, const at::Tensor& cit0,
+                   const at::Tensor& norm0, double alpha, int64_t stream) {
+  TORCH_CHECK(m0.dim() == 2, "m0 must be (nb, S)");
+  const int64_t nb = m0.size(0), s = m0.size(1);
+  TORCH_CHECK(s >= 1 && s <= starcop_max_bands(), "band count ", s, " outside [1, ",
+              starcop_max_bands(), "]");
+  check(c0, m0, "c0", {nb, s, s});
+  check(m0, m0, "m0", {nb, s});
+  check(tmpl, m0, "tmpl", {s});
+  check(k0, m0, "k0", {nb, s, s});
+  check(tgt0, m0, "tgt0", {nb, s});
+  check(cit0, m0, "cit0", {nb, s});
+  check(norm0, m0, "norm0", {nb});
+  check_launch(starcop_woodbury_base(c0.data_ptr<float>(), m0.data_ptr<float>(),
+                                     tmpl.data_ptr<float>(), k0.data_ptr<float>(),
+                                     tgt0.data_ptr<float>(), cit0.data_ptr<float>(),
+                                     norm0.data_ptr<float>(), s, nb, static_cast<float>(alpha),
+                                     reinterpret_cast<void*>(stream)),
+               "woodbury_base");
+}
+
 }  // namespace
 
 TORCH_LIBRARY(starcop_mag1c, m) {
@@ -482,4 +507,7 @@ TORCH_LIBRARY(starcop_mag1c, m) {
         "Tensor(d!) carry_out, Tensor(e!) counter, Tensor k0, Tensor tmpl, Tensor nin, "
         "int[] geom, float cov_scale, float alpha, int stream) -> ()",
         &filter_round_mono);
+  m.def("woodbury_base(Tensor c0, Tensor m0, Tensor tmpl, Tensor(a!) k0, Tensor(b!) tgt0, "
+        "Tensor(c!) cit0, Tensor(d!) norm0, float alpha, int stream) -> ()",
+        &woodbury_base);
 }

@@ -23,7 +23,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
-CUDA_SOURCES = ("mag1c.cu", "mag1c_fused.cu")
+CUDA_SOURCES = ("mag1c.cu", "mag1c_fused.cu", "woodbury_base.cu")
 SOURCES = (*CUDA_SOURCES, "mag1c_common.cuh", "bindings.cpp")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 LIB_NAME = "libstarcop_mag1c.so"

@@ -17,10 +17,11 @@ CPU the same call sequence runs their plain twins.
 A (B, S, P) stream (``x_layout="bsp"``) takes m0 and C0 from
 ``init_stats_stream`` (row 10) for every glue. A raw f32 stream is centred
 in the kernels (JAX's centered=False); a bf16 stream is centred once on the
-card, as JAX's XLA does (:1706, :1754). What JAX leaves to XLA is plain
-torch here, under ``float32_precision``: the centre-select-transpose of a
-(B, P, S) input and its m0 and c0 (summed in f64, :1792-1798, :1814-1826),
-R and mf0 (:1923-1927), the Woodbury base, and the Cholesky glue
+card, as JAX's XLA does (:1706, :1754). Every glue but cholesky takes its
+Woodbury base from ``woodbury_base`` (one launch). The rest of what JAX
+leaves to XLA is plain torch here, under ``float32_precision``: the
+centre-select-transpose of a (B, P, S) input and its m0 and c0 (summed in
+f64, :1792-1798, :1814-1826), R and mf0 (:1923-1927), and the Cholesky glue
 (:1965-1971) with the normaliser clamp (:2017-2020).
 
 Intended deviations: ``tile_p`` is accepted and unused (the TPU's
@@ -45,7 +46,6 @@ from starcop_tpu_torch.ops.mag1c_kernels import (
     LOOP,
     _check_num_iter,
     _filter_sequence,
-    _woodbury_base,
     filter_glue,
     filter_round_bsp,
     filter_round_mono,
@@ -57,6 +57,7 @@ from starcop_tpu_torch.ops.mag1c_kernels import (
     stream_geometry,
     stream_stats_geometry_for,
     stream_rows,
+    woodbury_base,
 )
 
 GLUES = ("fused", "resident", "mono", "woodbury", "cholesky")
@@ -234,8 +235,7 @@ def acrwl1mf_fused(
             k0, cit0 = None, _cho_solve(_shrink_diag(c0, alpha), tgt0)
             norm0 = (tgt0 * cit0).sum(1)
         else:
-            k0, tgt0, cit0, norm0 = _woodbury_base(c0, m0, tpl, alpha)
-            k0 = k0.contiguous()
+            k0, tgt0, cit0, norm0 = woodbury_base(c0, m0, tpl, alpha)
         base = (m0, k0, tgt0, cit0, norm0, tpl, n)
         if glue == "mono":
             mf, r = _mono_filter(xs, *base, center=center, **kw)

@@ -68,16 +68,22 @@ stored f32 or bf16 (kernels in ``csrc/mag1c_fused.cu`` unless noted):
 
 The TPU kernels hold a column block in VMEM; an SM has 228 KB of shared
 memory, so here each iteration streams the cube once (see csrc/mag1c.cu for
-the design). One filter is 1 ``init_stats[_masked]``, ``num_iter + 1``
-``filter_round[_masked]`` passes and ``num_iter`` ``filter_glue`` launches.
+the design). One filter is 1 ``init_stats[_masked]``, 1 ``woodbury_base``,
+``num_iter + 1`` ``filter_round[_masked]`` passes and ``num_iter``
+``filter_glue`` launches.
+
+  ``woodbury_base``  <- no Pallas kernel: XLA's work between the kernels
+                        (``_woodbury_base`` :826), the inverse of C0 and the
+                        initial carry once per filter, in one launch
+                        (``csrc/woodbury_base.cu``), on every route but
+                        ``acrwl1mf_fused``'s cholesky glue.
 
 Each wrapper runs its plain torch twin for CPU tensors and otherwise
 launches its kernel (counted in ``LAUNCH_COUNTS``); the op refuses anything
-but CUDA tensors, and there is no fallback from a failed launch.
-``_woodbury_base`` and the per-block valid counts are plain torch on both
-routes (they were XLA in JAX), one definition each, so the routes cannot
-drift. The twins compute in the dtype they are given, so the same code runs
-as a float64 judge.
+but CUDA tensors, and there is no fallback from a failed launch. The
+per-block valid counts are plain torch on both routes (XLA in JAX), one
+definition, so the routes cannot drift. The twins compute in the dtype they
+are given, so the same code runs as a float64 judge.
 
 Layouts: the scene is the (H, W, S) cube and the valid mask (H, W); per-pixel
 rows mf and R are (nb, P), P = H * step, with ``p = h * step + j``
@@ -103,6 +109,7 @@ from starcop_tpu_torch.ops.mag1c import (
     block_columns,
     spd_inverse_recursive,
 )
+from starcop_tpu_torch.utils.profiling import count, span
 
 FIRST, LOOP, FINAL = 0, 1, 2
 
@@ -462,7 +469,7 @@ LAUNCH_COUNTS: Dict[str, int] = {
     "filter_round_bsp_f32_masked_first": 0, "filter_round_bsp_f32_masked_loop": 0,
     "blocked_transpose_shw": 0, "init_stats_stream": 0, "filter_round_bsp_f32": 0,
     "fused_iter_woodbury": 0, "fused_iter_cholesky": 0,
-    "filter_round_mono_first": 0, "filter_round_mono_loop": 0,
+    "filter_round_mono_first": 0, "filter_round_mono_loop": 0, "woodbury_base": 0,
 }
 _COUNT_LOCK = threading.Lock()
 
@@ -496,7 +503,7 @@ def _mask_u8(valid: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Glue that JAX leaves to XLA: plain torch on both routes
+# Glue that JAX leaves to XLA
 # ---------------------------------------------------------------------------
 
 
@@ -512,7 +519,8 @@ def _woodbury_base(c0, m0, template, alpha):
     """Once per filter: shrink C0's diagonal, invert it (``spd_inverse_recursive``)
     and derive the initial target, cit and the unclamped norm.
     c0 (nb, S, S), m0 (nb, S) -> (k0, tgt0, cit0, norm0). A block with no
-    valid pixel (C0 = 0) gets NaN here; its pixels never read it."""
+    valid pixel (C0 = 0) gets NaN in k0, cit0 and norm0; its pixels never
+    read them. The twin of ``woodbury_base``."""
     c0s = _shrink_diag(c0, alpha)
     k0 = spd_inverse_recursive(c0s)
     tgt0 = template[None, :] * m0
@@ -912,6 +920,34 @@ def _inverse_counts(n, m0):
     return torch.full((m0.shape[0],), 1.0 / n, dtype=torch.float32, device=m0.device)
 
 
+def woodbury_base(c0, m0, template, alpha):
+    """The Woodbury base (k0, tgt0, cit0, norm0) of c0 (nb, S, S), m0
+    (nb, S) and the template (S,); see ``_woodbury_base``. On the card one
+    ``woodbury_base`` launch (f32 in and out, the factor and the inverse in
+    f64; k0 contiguous and exactly symmetric), on the CPU the twin. Traced,
+    span ``mag1c.base`` with counters ``blocks`` (nb) and ``kernel`` (1 when
+    the kernel ran, 0 for the twin)."""
+    on_cpu = c0.device.type == "cpu"
+    with span("mag1c.base") as traced:
+        if on_cpu:
+            out = _woodbury_base(c0, m0, template, alpha)
+        else:
+            if not all(t.dtype == torch.float32 for t in (c0, m0, template)):
+                raise TypeError(f"woodbury_base takes float32 tensors on the card, got "
+                                f"{c0.dtype}, {m0.dtype}, {template.dtype}")
+            nb, s = m0.shape
+            out = (torch.empty((nb, s, s), dtype=torch.float32, device=c0.device),
+                   torch.empty_like(m0), torch.empty_like(m0),
+                   torch.empty((nb,), dtype=torch.float32, device=c0.device))
+            _kernels().woodbury_base(c0.contiguous(), m0.contiguous(), template.contiguous(),
+                                     *out, float(alpha), _stream(c0))
+            _count("woodbury_base")
+        if traced is not None:
+            count("blocks", c0.shape[0])
+            count("kernel", int(not on_cpu))
+    return out
+
+
 def filter_glue(stats, carry, m0, template, k0, *, n, alpha):
     """The next carry from a round's statistics; see ``filter_glue_plain``."""
     if stats.device.type == "cpu":
@@ -1153,8 +1189,8 @@ def acrwl1mf_resident(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full matched filter over the (H, nb * step, S) cube, every pixel valid.
 
-    On CUDA every step is a hand-written kernel (plus the plain-torch
-    Woodbury base); on the CPU the plain twins run the same sequence.
+    On CUDA every step is a hand-written kernel; on the CPU the plain twins
+    run the same sequence.
     Returns (mf scaled by 1e5, R) as (nb, H * step) rows in the order
     p = h * step + j (``ops.mag1c.unblock_columns`` maps them to (H, W)).
     """
@@ -1166,11 +1202,11 @@ def acrwl1mf_resident(
         raise ValueError("scene width must equal nb*step")
     with float32_precision():
         m0, c0 = init_stats(x, nb, step)
-        k0, tgt0, cit0, norm0 = _woodbury_base(c0, m0, tpl, alpha)
+        k0, tgt0, cit0, norm0 = woodbury_base(c0, m0, tpl, alpha)
         rnd = functools.partial(filter_round, x, nb, step, m0,
                                 cov_scale=covariance_update_scaling,
                                 geom=cube_geometry(x, nb, step))
-        return _filter_sequence(rnd, filter_glue, m0, k0.contiguous(), tgt0, cit0, norm0, tpl,
+        return _filter_sequence(rnd, filter_glue, m0, k0, tgt0, cit0, norm0, tpl,
                                 x.shape[0] * step, num_iter=num_iter, alpha=alpha)
 
 
@@ -1190,9 +1226,9 @@ def acrwl1mf_masked(
     valid mask, in ``nb`` blocks of ``step`` columns, the last one ragged
     when W < nb * step (``acrwl1mf_fused(glue="fused")`` with a weight row).
 
-    On CUDA: ``init_stats_masked``, then ``filter_round_masked`` and
-    ``filter_glue`` with the per-block valid counts (plus the plain-torch
-    Woodbury base); on the CPU the plain twins run the same sequence.
+    On CUDA: ``init_stats_masked``, ``woodbury_base``, then
+    ``filter_round_masked`` and ``filter_glue`` with the per-block valid
+    counts; on the CPU the plain twins run the same sequence.
     Neither pads nor zeroes a copy of the cube. Returns (mf scaled by 1e5,
     R) as (nb, H * step) rows, with mf = 0 and R = 1 at the pixels that do
     not count; a block with no valid pixel never raises.
@@ -1208,11 +1244,11 @@ def acrwl1mf_masked(
     with float32_precision():
         n = block_valid_counts(valid, nb, step).clamp(min=1).to(torch.float32)
         m0, c0 = init_stats_masked(x, valid, nb, step)
-        k0, tgt0, cit0, norm0 = _woodbury_base(c0, m0, tpl, alpha)
+        k0, tgt0, cit0, norm0 = woodbury_base(c0, m0, tpl, alpha)
         rnd = functools.partial(filter_round_masked, x, valid, nb, step, m0,
                                 cov_scale=covariance_update_scaling,
                                 geom=cube_geometry(x, nb, step))
-        return _filter_sequence(rnd, filter_glue, m0, k0.contiguous(), tgt0, cit0, norm0, tpl,
+        return _filter_sequence(rnd, filter_glue, m0, k0, tgt0, cit0, norm0, tpl,
                                 n, num_iter=num_iter, alpha=alpha)
 
 
@@ -1259,12 +1295,12 @@ def acrwl1mf_resident_bsp(
         raise ValueError("scene width must equal nb*step")
     with float32_precision():
         m0, c0 = init_stats(x, nb, step)
-        k0, tgt0, cit0, norm0 = _woodbury_base(c0, m0, tpl, alpha)
+        k0, tgt0, cit0, norm0 = woodbury_base(c0, m0, tpl, alpha)
         xs = blocked_transpose(x, nb, step, stream_rows(x.shape[2]), m0)
         rnd = functools.partial(filter_round_bsp, xs, None, step, m0,
                                 cov_scale=covariance_update_scaling,
                                 geom=stream_geometry(xs, m0.shape[1]))
-        return _filter_sequence(rnd, filter_glue, m0, k0.contiguous(), tgt0, cit0, norm0, tpl,
+        return _filter_sequence(rnd, filter_glue, m0, k0, tgt0, cit0, norm0, tpl,
                                 x.shape[0] * step, num_iter=num_iter, alpha=alpha)
 
 
@@ -1303,9 +1339,9 @@ def acrwl1mf_masked_bf16(
         m0 = masked_block_means(x, valid, nb, step, n)
         xs = blocked_transpose(x, nb, step, stream_rows(s), m0, valid=valid)
         c0 = init_stats_bsp(xs, n, s)
-        k0, tgt0, cit0, norm0 = _woodbury_base(c0, m0, tpl, alpha)
+        k0, tgt0, cit0, norm0 = woodbury_base(c0, m0, tpl, alpha)
         rnd = functools.partial(filter_round_bsp, xs, valid, step, m0,
                                 cov_scale=covariance_update_scaling, bf16_dots=True,
                                 geom=stream_geometry(xs, s))
-        return _filter_sequence(rnd, filter_glue, m0, k0.contiguous(), tgt0, cit0, norm0, tpl,
+        return _filter_sequence(rnd, filter_glue, m0, k0, tgt0, cit0, norm0, tpl,
                                 n, num_iter=num_iter, alpha=alpha)

@@ -22,6 +22,10 @@ trace's launches and device activity. The spans:
     ``utils.staging.stage_to_device`` copied through its pinned ring, absent
     when none were), ``entry.filter``:
     ``scenes.emit_pipeline.emit_granule_to_mask``;
+  * ``mag1c.base`` (counters ``blocks``: the column blocks; ``kernel``: 1
+    when the CUDA kernel ran, 0 for the plain twin):
+    ``ops.mag1c_kernels.woodbury_base``, once a filter on every route but
+    ``acrwl1mf_fused(glue="cholesky")``;
   * ``serve.read``, ``serve.compute``, ``serve.write`` (key: the granule's
     name), ``serve.get_wait`` (the compute worker waiting on the reader),
     ``serve.put_wait`` (the reader waiting on the compute worker):

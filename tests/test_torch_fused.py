@@ -342,16 +342,20 @@ def test_fused_iter_twin_matches_round_sequence_f64(monkeypatch, woodbury):
 
 ROUTE_LAUNCHES = {
     # (glue, layout): (the first calls, one iteration's, LAUNCH_COUNTS at num_iter = 3)
-    ("mono", "bsp"): (["init_stats_stream"], ["filter_round_mono"],
-                      dict(init_stats_stream=1, filter_round_mono_first=1,
+    ("mono", "bsp"): (["init_stats_stream", "woodbury_base"], ["filter_round_mono"],
+                      dict(init_stats_stream=1, woodbury_base=1, filter_round_mono_first=1,
                            filter_round_mono_loop=3)),
-    ("resident", "bsp"): (["init_stats_stream"], ["filter_round_bsp", "filter_glue"],
-                          dict(init_stats_stream=1, filter_round_bsp_f32=4, filter_glue=3)),
-    ("fused", "bps_weights"): ([], ["filter_round_bsp", "filter_glue"],
-                               dict(filter_round_bsp_f32_masked_first=1,
+    ("resident", "bsp"): (["init_stats_stream", "woodbury_base"],
+                          ["filter_round_bsp", "filter_glue"],
+                          dict(init_stats_stream=1, woodbury_base=1, filter_round_bsp_f32=4,
+                               filter_glue=3)),
+    ("fused", "bps_weights"): (["woodbury_base"], ["filter_round_bsp", "filter_glue"],
+                               dict(woodbury_base=1, filter_round_bsp_f32_masked_first=1,
                                     filter_round_bsp_f32_masked_loop=3, filter_glue=3)),
-    ("woodbury", "bsp"): (["init_stats_stream"], ["fused_iter_woodbury", "filter_glue"],
-                          dict(init_stats_stream=1, fused_iter_woodbury=4, filter_glue=3)),
+    ("woodbury", "bsp"): (["init_stats_stream", "woodbury_base"],
+                          ["fused_iter_woodbury", "filter_glue"],
+                          dict(init_stats_stream=1, woodbury_base=1, fused_iter_woodbury=4,
+                               filter_glue=3)),
     ("cholesky", "bsp"): (["init_stats_stream"], ["fused_iter_cholesky"],
                           dict(init_stats_stream=1, fused_iter_cholesky=4)),
     ("cholesky", "bps"): ([], ["fused_iter_cholesky"], dict(fused_iter_cholesky=4)),
@@ -362,9 +366,9 @@ ROUTE_LAUNCHES = {
 def test_routes_launch_their_kernels(monkeypatch, glue, layout):
     """On a device tensor (the meta device here, CUDA on the card) each glue
     takes the kernels of its route and no other: a (B, S, P) stream row 10's
-    statistics, mono one launch per round and no filter_glue, woodbury and
-    cholesky num_iter + 1 fused_iter passes with filter_glue or the Cholesky
-    glue in torch after each but the last."""
+    statistics, one woodbury_base but for cholesky, mono one launch per round
+    and no filter_glue, woodbury and cholesky num_iter + 1 fused_iter passes
+    with filter_glue or the Cholesky glue in torch after each but the last."""
     fake = _FakeKernels()
     monkeypatch.setattr(tk, "_kernels", lambda: fake)
     monkeypatch.setattr(tk, "_stream", lambda x: 0)
@@ -419,8 +423,8 @@ def test_shw_route_launches_row_3(monkeypatch, bf16):
                                    scene_layout="shw")
     assert mf.device.type == "meta" and mf.shape == (64, 36)
     want = {k: 0 for k in tk.LAUNCH_COUNTS}
-    want.update(blocked_transpose_shw=1, init_stats_stream=1, filter_glue=3,
+    want.update(blocked_transpose_shw=1, init_stats_stream=1, woodbury_base=1, filter_glue=3,
                 **{"filter_round_bsp" if bf16 else "filter_round_bsp_f32": 4})
     assert tk.LAUNCH_COUNTS == want
-    assert fake.calls == (["blocked_transpose_shw", "init_stats_stream"]
+    assert fake.calls == (["blocked_transpose_shw", "init_stats_stream", "woodbury_base"]
                           + ["filter_round_bsp", "filter_glue"] * 3 + ["filter_round_bsp"])

@@ -384,7 +384,7 @@ def test_masked_route_launches_masked_kernels(monkeypatch):
     """A masked call on a device tensor (the meta device here; CUDA on the
     card) takes the masked kernels, 1 / num_iter + 1 / num_iter launches, and
     none of the resident ones; the unmasked call takes the resident ones.
-    Only CPU tensors run the twins."""
+    Either takes one woodbury_base. Only CPU tensors run the twins."""
     fake = _FakeKernels()
     monkeypatch.setattr(tk, "_kernels", lambda: fake)
     monkeypatch.setattr(tk, "_stream", lambda x: 0)
@@ -394,17 +394,19 @@ def test_masked_route_launches_masked_kernels(monkeypatch):
     assert mf.device.type == alb.device.type == "meta" and mf.shape == (H, 45)
     want = {k: 0 for k in tk.LAUNCH_COUNTS}
     want.update(filter_glue=3, init_stats_masked=1, filter_round_masked_first=1,
-                filter_round_masked_loop=3)
+                filter_round_masked_loop=3, woodbury_base=1)
     assert tk.LAUNCH_COUNTS == want
-    assert fake.calls == (["init_stats_masked"] + ["filter_round_masked", "filter_glue"] * 3
+    assert fake.calls == (["init_stats_masked", "woodbury_base"]
+                          + ["filter_round_masked", "filter_glue"] * 3
                           + ["filter_round_masked"])
     fake.calls.clear()
     tk.reset_launch_counts()
     xr, tpl = _cube()
     tm.mag1c_column_blocks(xr, tpl, None, column_step=STEP, num_iter=3, device="meta")
     assert tk.LAUNCH_COUNTS["init_stats"] == 1 and tk.LAUNCH_COUNTS["filter_round"] == 4
-    assert tk.LAUNCH_COUNTS["init_stats_masked"] == 0
-    assert fake.calls[0] == "init_stats" and "filter_round_masked" not in fake.calls
+    assert tk.LAUNCH_COUNTS["init_stats_masked"] == 0 and tk.LAUNCH_COUNTS["woodbury_base"] == 1
+    assert fake.calls[:2] == ["init_stats", "woodbury_base"]
+    assert "filter_round_masked" not in fake.calls
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -428,11 +430,12 @@ def test_bf16_routes_launch_bsp_kernels(monkeypatch, masked):
     want = {k: 0 for k in tk.LAUNCH_COUNTS}
     if masked:
         want.update(blocked_transpose=1, init_stats_bsp=1, filter_round_bsp_masked_first=1,
-                    filter_round_bsp_masked_loop=3, filter_glue=3)
-        head = ["blocked_transpose", "init_stats_bsp"]
+                    filter_round_bsp_masked_loop=3, filter_glue=3, woodbury_base=1)
+        head = ["blocked_transpose", "init_stats_bsp", "woodbury_base"]
     else:
-        want.update(init_stats=1, blocked_transpose=1, filter_round_bsp=4, filter_glue=3)
-        head = ["init_stats", "blocked_transpose"]
+        want.update(init_stats=1, blocked_transpose=1, filter_round_bsp=4, filter_glue=3,
+                    woodbury_base=1)
+        head = ["init_stats", "woodbury_base", "blocked_transpose"]
     assert tk.LAUNCH_COUNTS == want
     assert fake.calls == head + ["filter_round_bsp", "filter_glue"] * 3 + ["filter_round_bsp"]
     with pytest.raises(ValueError, match="stream_dtype"):

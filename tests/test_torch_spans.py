@@ -134,10 +134,10 @@ def _entry():
 
 # Each traced path: what drives it, and the spans it logs.
 PATHS = {
-    "entry": (_entry, {"entry.upload": 1, "entry.filter": 1}),
+    "entry": (_entry, {"entry.upload": 1, "entry.filter": 1, "mag1c.base": 1}),
     "serve": (_run_pipeline, {"serve.read": 3, "serve.encode": 3, "serve.put_wait": 3,
                               "serve.get_wait": 4, "serve.compute": 3, "entry.upload": 3,
-                              "entry.filter": 3, "serve.write": 3}),
+                              "entry.filter": 3, "mag1c.base": 3, "serve.write": 3}),
     "loader": (lambda: _load(2), {"data.load": 3}),
     "validation": (_validate, {"validation.rows": 2}),
 }
